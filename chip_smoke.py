@@ -5,19 +5,33 @@ hold every CUDA kernel of that path against its plain-torch version.
 
   python3 chip_smoke.py          # from the repository root; needs one card
 
-Phases:
-  build    compile csrc/*.cu with nvcc (sm_90a), one process per source;
-  kernels  each kernel against its plain version at small adversarial shapes
-           (ties, duplicate ids, uint32 extremes, truncating buckets, tighter
-           caps, n in {0, 1}, Ctot < k, int16), bit for bit;
-  serve    the main path with launch counters zeroed just before it: build
-           the engine on the card, insert 512 points, delete 64 gids, drain
-           1024 queries, compact, drain again — every result checked against
-           exact L1 ground truth;
-  batch    the kernels against their plain versions on the tensors of one
-           served batch, and their times (CUDA events) beside the least time
-           the card could take (bytes over 3.35 TB/s, or integer operations
-           over 67 T/s, the larger).
+Phases (each path runs with the launch counters zeroed just before it and
+read just after, and must launch the kernels named in ``PATHS``):
+  build          compile csrc/*.cu with nvcc (sm_90a), one process per source;
+  kernels        each kernel against its plain version at small adversarial
+                 shapes (ties, duplicate ids, uint32 extremes, truncating
+                 buckets, tighter caps, n in {0, 1}, Ctot < k, int16; odd,
+                 negative and above-universe coordinates; ragged Q, N, C, m
+                 with m = 300 and m = 1 in four input types), bit for bit;
+  ground_truth   exact L1 k-NN of the queries through ``ops.l1_distance``,
+                 each chunk of distances held against the plain version;
+  serve          the main path: build the engine on the card, insert 512
+                 points, delete 64 gids, drain 1024 queries, compact, drain
+                 again;
+  serve_rw_hash  the same traffic through a second engine with
+                 hash_impl='pallas' (the rw_hash kernel in build and in every
+                 query), whose results and tables must equal the first
+                 engine's bit for bit;
+  checks         every served result against the ground truth, its
+                 distances recomputed through ``ops.l1_distance_rows`` and
+                 held against the plain version;
+  order          the two engines' batches timed alternately (ABBA), so the
+                 order of the two serve phases does not enter the gap, and
+                 one profiled batch of each;
+  batch          the kernels against their plain versions at the main path's
+                 shapes, and their times (CUDA events) beside the least time
+                 the card could take (bytes over 3.35 TB/s, or operations
+                 over 67 T/s, the larger).
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -26,6 +40,7 @@ or the port's sources are missing.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -40,7 +55,15 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12     # the data sheet's 32-bit non-tensor rate
 N_POINTS, DIM, UNIVERSE = 1_000_000, 128, 510
+INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
 N_QUERIES, N_INSERT, N_DELETE, K = 1024, 512, 64, 10
+RW_PLAIN_ROWS = 65_536      # the plain thermometer at 1 M rows is ~6 TFLOP
+ORDER_ROUNDS = 32           # alternating batches of each engine
+# the kernels each path must launch
+PATHS = {"ground_truth": ("l1_distance",),
+         "serve": ("fused_probe", "fused_rerank", "topk_merge"),
+         "serve_rw_hash": ("rw_hash", "fused_probe", "fused_rerank", "topk_merge"),
+         "checks": ("l1_distance_rows",)}
 
 
 def log(msg: str) -> None:
@@ -84,19 +107,35 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def run_path(name: str, ops, fn):
+    """Drive one path with the launch counters zeroed just before it; return
+    fn's result and the counts read just after, having checked that the
+    path launched each kernel ``PATHS`` names for it."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"{name} path launches: {json.dumps(launches)}")
+    for kernel in PATHS[name]:
+        check(launches[kernel] > 0, f"kernel {kernel} launched on the {name} path")
+    return out, launches
+
+
 # --------------------------------------------------------------------------
-# Ground truth (a yardstick of this script only, never called by the port):
-# float32 cdist is exact here, every partial sum is an integer below 2^24.
+# Ground truth: the exact k-NN through the port's public L1 op, each chunk
+# held against the plain version on the same inputs.
 # --------------------------------------------------------------------------
 
-def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int,
+def exact_knn(ops, plain, points: torch.Tensor, queries: torch.Tensor, k: int,
               dead: torch.Tensor = None, chunk: int = 250_000):
     best_d = best_i = None
-    qf = queries.to(torch.float32)
     for lo in range(0, points.shape[0], chunk):
-        d = torch.cdist(qf, points[lo:lo + chunk].to(torch.float32), p=1)
+        d = ops.l1_distance(queries, points[lo:lo + chunk])
+        check(equal(d, plain(queries, points[lo:lo + chunk])),
+              f"l1_distance kernel == plain on ground-truth chunk {lo}")
         if dead is not None:
-            d[:, dead[lo:lo + chunk]] = float("inf")
+            d[:, dead[lo:lo + chunk]] = torch.iinfo(torch.int32).max
         cd, ci = torch.topk(d, k, dim=1, largest=False)
         ci = ci + lo
         if best_d is not None:
@@ -106,8 +145,8 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int,
     return best_d, best_i
 
 
-def check_results(phase, d, i, queries, points, deleted, inserted_rows, gt_ids,
-                  big, recall_fn, exact_delta):
+def check_results(ops, plain, phase, d, i, queries, points, deleted, inserted_rows,
+                  gt_ids, big, recall_fn, exact_delta):
     """The served results' invariants; returns (recall@10, self-hits).
 
     A query equal to an inserted point must find it at distance 0 while the
@@ -119,7 +158,9 @@ def check_results(phase, d, i, queries, points, deleted, inserted_rows, gt_ids,
     i = torch.from_numpy(i).cuda()
     valid = i >= 0
     rows = points[i.clamp(min=0).long()]
-    exact = (rows - queries[:, None, :]).abs().sum(-1, dtype=torch.int32)
+    exact = ops.l1_distance_rows(queries, rows)
+    check(equal(exact, plain(queries, rows)),
+          f"{phase}: l1_distance_rows kernel == plain on the served rows")
     check(bool(torch.all(torch.where(valid, exact == d, d == big))),
           f"{phase}: every distance equals the exact L1 of its gid")
     lex = (d[:, :-1] < d[:, 1:]) | ((d[:, :-1] == d[:, 1:]) & (i[:, :-1] < i[:, 1:]))
@@ -135,7 +176,7 @@ def check_results(phase, d, i, queries, points, deleted, inserted_rows, gt_ids,
     return r, hits
 
 
-def log_profile(engine, batch) -> None:
+def log_profile(tag, engine, batch) -> None:
     """Where one served batch's time goes: torch.profiler device time by
     operator, and the device's idle share of the batch's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -159,10 +200,10 @@ def log_profile(engine, batch) -> None:
             rows.append((dev / 1e3 / 3, e.key))
     rows.sort(reverse=True)
     if not rows:
-        log("profile of one served batch: the profiler recorded no device time")
+        log(f"profile of one {tag} batch: the profiler recorded no device time")
         return
     busy = sum(ms for ms, _ in rows)
-    log(f"profile of one served batch: wall {wall_ms:.3f} ms, device busy "
+    log(f"profile of one {tag} batch: wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for ms, key in rows[:10]:
         log(f"  {ms:8.3f} ms  {key[:90]}")
@@ -184,10 +225,14 @@ def main() -> int:
     from repro_torch.data import ann_synthetic as ds
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fused_probe as kfp
+    from repro_torch.core import walks
     from repro_torch.kernels import fused_rerank as kfr
+    from repro_torch.kernels import l1_distance as kl1
+    from repro_torch.kernels import rw_hash as krw
     from repro_torch.kernels import topk_merge as ktm
     from repro_torch.serve.engine import AnnServingEngine, ServeConfig
-    from test_torch_cases import MERGE_CASES, PROBE_CASES, RERANK_CASES
+    from test_torch_cases import (L1_CASES, L1_ROWS_CASES, MERGE_CASES, PROBE_CASES,
+                                  RERANK_CASES, RW_HASH_CASES)
 
     t_start = time.perf_counter()
     card = torch.device("cuda")
@@ -237,6 +282,21 @@ def main() -> int:
         check(equal(got[0], want[0]) and equal(got[1], want[1]),
               f"topk_merge kernel == plain on {name}")
         n_cases += 1
+    for name, arrays in sorted(RW_HASH_CASES.items()):
+        args = [torch.from_numpy(x).to(card) for x in arrays]
+        check(equal(ops.rw_hash(*args), krw.rw_hash_plain(*args)),
+              f"rw_hash kernel == plain on {name}")
+        n_cases += 1
+    for cases, kfn, pfn in ((L1_CASES, ops.l1_distance, kl1.l1_distance_plain),
+                            (L1_ROWS_CASES, ops.l1_distance_rows,
+                             kl1.l1_distance_rows_plain)):
+        for name, (qs, xs, dtype) in sorted(cases.items()):
+            args = [torch.from_numpy(x).to(card).to(getattr(torch, dtype)).contiguous()
+                    for x in (qs, xs)]
+            got, want = kfn(*args), pfn(*args)
+            check(got.dtype == want.dtype and equal(got, want),
+                  f"{kfn.__name__} kernel == plain on {name}")
+            n_cases += 1
     torch.cuda.synchronize()
     log(f"phase kernels: {n_cases} adversarial cases equal to plain, bit for bit, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -254,61 +314,100 @@ def main() -> int:
         f"dim {DIM}, universe {UNIVERSE}")
     data_c = torch.from_numpy(data).to(card)
     q_c = torch.from_numpy(queries).to(card)
-    gt_d0, gt_i0 = exact_knn(data_c, q_c, K)
-    dbar = float(gt_d0.mean())
+    points = torch.cat([data_c, torch.from_numpy(inserted).to(card)])
+    dead = torch.zeros(points.shape[0], dtype=torch.bool, device=card)
+
+    def ground_truth():
+        gt_d0, gt_i0 = exact_knn(ops, kl1.l1_distance_plain, data_c, q_c, K)
+        # delete the exact 1-NN of 64 queries, so the tombstones bite
+        deleted = np.unique(gt_i0[32:32 + N_DELETE, 0].cpu().numpy()).astype(np.int32)
+        dead[torch.from_numpy(deleted).long().to(card)] = True
+        return float(gt_d0.float().mean()), deleted, exact_knn(
+            ops, kl1.l1_distance_plain, points, q_c, K, dead=dead)[1]
+
+    (dbar, deleted, gt_i), gt_launches = run_path("ground_truth", ops, ground_truth)
     width = max(8, int(3.0 * math.sqrt(dbar)) & ~1)
     cfg = IndexConfig(num_tables=8, num_hashes=12, width=width, num_probes=200,
                       candidate_cap=128, universe=UNIVERSE, k=K, rerank_chunk=1024)
-    # delete the exact 1-NN of 64 queries, so the tombstones bite
-    deleted = np.unique(gt_i0[32:32 + N_DELETE, 0].cpu().numpy()).astype(np.int32)
-    points = torch.cat([data_c, torch.from_numpy(inserted).to(card)])
-    dead = torch.zeros(points.shape[0], dtype=torch.bool, device=card)
-    dead[torch.from_numpy(deleted).long().to(card)] = True
-    _, gt_i = exact_knn(points, q_c, K, dead=dead)
     gt_ids = gt_i.cpu().numpy()
     deleted_c = torch.from_numpy(deleted).to(card)
     log(f"phase data: {time.perf_counter() - t0:.1f} s; dbar {dbar:.1f} -> W {width}; "
         f"L 8 M 12 T 200 C 128 k {K} batch 64")
 
-    # -- serve: the main path, launch counts zeroed just before ---------------
+    # -- serve and serve_rw_hash: the same traffic through two engines --------
     serve_cfg = ServeConfig(batch_size=64, delta_cap=2048)
-    phases = []
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    engine = AnnServingEngine(cfg, serve_cfg, data, device="cuda")
-    build_s = time.perf_counter() - t0
-    gids_new = engine.insert(inserted)
-    check(list(gids_new[:2]) == [N_POINTS, N_POINTS + 1], "insert assigns fresh gids")
-    check(engine.delete(deleted) == len(deleted), "delete tombstones every gid")
-    check(engine.index.num_segments == 1 and engine.index.delta_fill > 0,
-          "one segment plus a delta buffer: the fold runs topk_merge")
-    lat0 = len(engine._lat_ms)
-    engine.submit(queries)
-    d1, i1 = engine.drain()
-    phases.append(("serve_delta", build_s, engine._lat_ms[lat0:], d1, i1))
-    t0 = time.perf_counter()
-    engine.compact()
-    compact_s = time.perf_counter() - t0
-    lat0 = len(engine._lat_ms)
-    engine.submit(queries)
-    d2, i2 = engine.drain()
-    phases.append(("serve_compacted", compact_s, engine._lat_ms[lat0:], d2, i2))
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    log(f"main path launches: {json.dumps(launches)}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} launched on the main path")
 
-    big = pipe.BIG_DIST
-    for name, setup_s, lat, d, i in phases:
-        r, hits = check_results(name, d, i, q_c, points, deleted_c,
-                                torch.from_numpy(inserted_rows).to(card), gt_ids,
-                                big, recall, exact_delta=name == "serve_delta")
-        lat = np.asarray(lat)
-        log(f"phase {name}: build {setup_s:.2f} s, batches {lat.size}, "
-            f"p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
-            f"{N_QUERIES / (lat.sum() / 1e3):.1f} queries/s, recall@10 {r:.4f}, "
-            f"self-hits {hits}/{inserted_rows.size}")
+    def serve(run_cfg, tag):
+        """build, insert, delete, drain, compact, drain; returns the engine
+        and its phases (name, set-up s, batch ms, dists, gids)."""
+        t0 = time.perf_counter()
+        eng = AnnServingEngine(run_cfg, serve_cfg, data, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gids_new = eng.insert(inserted)
+        check(list(gids_new[:2]) == [N_POINTS, N_POINTS + 1], "insert assigns fresh gids")
+        check(eng.delete(deleted) == len(deleted), "delete tombstones every gid")
+        check(eng.index.num_segments == 1 and eng.index.delta_fill > 0,
+              "one segment plus a delta buffer: the fold runs topk_merge")
+        out = []
+        for name, setup_s in ((f"{tag}_delta", build_s), (f"{tag}_compacted", None)):
+            if setup_s is None:
+                t0 = time.perf_counter()
+                eng.compact()
+                setup_s = time.perf_counter() - t0
+            lat0 = len(eng._lat_ms)
+            eng.submit(queries)
+            d, i = eng.drain()
+            out.append((name, setup_s, eng._lat_ms[lat0:], d, i))
+        return eng, out
+
+    (engine, phases), launches = run_path("serve", ops, lambda: serve(cfg, "serve"))
+    check(launches["rw_hash"] == 0, "the 'gather' path launches no rw_hash")
+    rw_cfg = dataclasses.replace(cfg, hash_impl="pallas")
+    (rw_engine, rw_phases), rw_launches = run_path(
+        "serve_rw_hash", ops, lambda: serve(rw_cfg, "serve_rw_hash"))
+    for (name, _, _, d, i), (rw_name, _, _, rd, ri) in zip(phases, rw_phases):
+        check(np.array_equal(d, rd) and np.array_equal(i, ri),
+              f"{rw_name} serves the (d, i) of {name}, bit for bit")
+    for what in ("sorted_keys", "sorted_ids", "occ_from", "occ_hist"):
+        check(equal(getattr(engine.index.segments[0].state, what),
+                    getattr(rw_engine.index.segments[0].state, what)),
+              f"hash_impl='pallas' builds the segment's {what} of 'gather'")
+    log("phase serve_rw_hash: (d, i) of both drains and the compacted segment's "
+        "tables equal the 'gather' engine's, bit for bit")
+
+    def checks():
+        big = pipe.BIG_DIST
+        self_rows = torch.from_numpy(inserted_rows).to(card)
+        for name, setup_s, lat, d, i in phases + rw_phases:
+            r, hits = check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c,
+                                    points, deleted_c, self_rows, gt_ids, big, recall,
+                                    exact_delta=name.endswith("_delta"))
+            lat = np.asarray(lat)
+            what = "build" if name.endswith("_delta") else "compact"
+            log(f"phase {name}: {what} {setup_s:.2f} s, batches {lat.size}, "
+                f"p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
+                f"{N_QUERIES / (lat.sum() / 1e3):.1f} queries/s, recall@10 {r:.4f}, "
+                f"self-hits {hits}/{inserted_rows.size}")
+
+    _, check_launches = run_path("checks", ops, checks)
+
+    # the two engines' batches alternately (ABBA), each timed on the host's
+    # clock to the result on the host, as the drains time them
+    order_ms = {"serve": [], "serve_rw_hash": []}
+    for r in range(ORDER_ROUNDS):
+        pair = [("serve", engine), ("serve_rw_hash", rw_engine)]
+        for tag, eng in (pair if r % 2 == 0 else pair[::-1]):
+            lo = (r * serve_cfg.batch_size) % N_QUERIES
+            t0 = time.perf_counter()
+            eng.query_batch(queries[lo:lo + serve_cfg.batch_size])
+            order_ms[tag].append((time.perf_counter() - t0) * 1e3)
+    for tag, lat in order_ms.items():
+        log(f"phase order {tag}: {len(lat)} batches alternating (ABBA), "
+            f"p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms")
+    for tag, eng in (("serve", engine), ("serve_rw_hash", rw_engine)):
+        log_profile(tag, eng, queries[:serve_cfg.batch_size])
+    del rw_engine
     # why a compacted self-hit can miss: its epicenter buckets overflow the cap
     seg = engine.index.segments[0]
     _, _, occ_e, _ = probe_index(cfg, seg.state, q_c[:inserted_rows.size])
@@ -386,6 +485,13 @@ def main() -> int:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
+    def timed(kfn, pfn, lib, nbytes, nops, errs):
+        """The measured numbers of one kernel row; kernel == plain already held."""
+        b_ms, b_by = bound(nbytes, nops)
+        return {"max_abs_err": max_abs_err(errs), "ms": cuda_ms(kfn),
+                "plain_ms": cuda_ms(pfn, reps=5), "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if lib is None else cuda_ms(lib)}
+
     rows = []
     for name, kfn, pfn, lib, nbytes, nops, errs, src, repl in [
         ("fused_probe", probe_k, probe_p, None, probe_bytes, probe_ops,
@@ -398,17 +504,86 @@ def main() -> int:
          [(mk[0], mp[0]), (mk[1], mp[1])], "topk_merge.cu",
          "src/repro/kernels/topk_merge.py:122"),
     ]:
-        b_ms, b_by = bound(nbytes, nops)
         rows.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
             "replaces": repl, "launches": launches[name], "equal_to_plain": True,
-            "max_abs_err": max_abs_err(errs), "ms": cuda_ms(kfn),
-            "plain_ms": cuda_ms(pfn, reps=5), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if lib is None else cuda_ms(lib),
-        })
+            **timed(kfn, pfn, lib, nbytes, nops, errs)})
     log(f"phase batch: Q {q_rows}, rung cbucket {cb} c_cap {c_cap}, gathered "
         f"{gathered}, distinct rows {uniq_rows}, delta rows {idx._delta_count}")
-    log_profile(engine, queries[:serve_cfg.batch_size])
+
+    # rw_hash at the build's shape (every point) and at one served batch;
+    # plain on a subset, the prefix-gather hash on every point
+    walk_tab = idx.params.walks
+    wp = walk_tab.pairs
+    n_fns, _, u2 = wp.shape
+    n_pts = data_c.shape[0]
+    rw_k = lambda: krw.rw_hash_cuda(wp, data_c)
+    rw_p = lambda: krw.rw_hash_plain(wp, data_c[:RW_PLAIN_ROWS])
+    rw_out, rw_plain = rw_k(), rw_p()
+    check(equal(rw_out, walks.eval_prefix(walk_tab, data_c)),
+          "rw_hash kernel == eval_prefix on every point")
+    check(equal(rw_out[:RW_PLAIN_ROWS], rw_plain),
+          f"rw_hash kernel == plain on {RW_PLAIN_ROWS} rows")
+    rw_bk = lambda: krw.rw_hash_cuda(wp, batch)
+    rw_batch, rw_batch_plain = rw_bk(), krw.rw_hash_plain(wp, batch)
+    check(equal(rw_batch, rw_batch_plain), "rw_hash kernel == plain on the served batch")
+    rw_row = timed(rw_k, rw_p, None, n_pts * DIM * 4 + wp.numel() + n_pts * n_fns * 4,
+                   n_pts * n_fns * DIM, [(rw_out[:RW_PLAIN_ROWS], rw_plain)])
+    b_ms, _ = bound(batch.numel() * 4 + wp.numel() + batch.shape[0] * n_fns * 4,
+                    batch.shape[0] * n_fns * DIM)
+    rows.append({
+        "name": "rw_hash", "route": "cuda", "source": "src/repro_torch/csrc/rw_hash.cu",
+        "replaces": "src/repro/kernels/rw_hash.py:55",
+        "launches": rw_launches["rw_hash"], "equal_to_plain": True, **rw_row,
+        "rows": n_pts, "plain_rows": RW_PLAIN_ROWS,
+        "gather_ms": cuda_ms(lambda: walks.eval_prefix(walk_tab, data_c), reps=5),
+        "thermo_int8_mma_bound_ms": 2 * n_pts * n_fns * DIM * u2 / INT8_TENSOR_OPS_PER_S * 1e3,
+        "batch_rows": batch.shape[0], "batch_ms": cuda_ms(rw_bk),
+        "batch_plain_ms": cuda_ms(lambda: krw.rw_hash_plain(wp, batch), reps=5),
+        "batch_bound_ms": b_ms,
+        "batch_max_abs_err": max_abs_err([(rw_batch, rw_batch_plain)])})
+    del rw_out, rw_plain
+
+    # l1_distance at the ground truth's shape: one batch against every point
+    l1_k = lambda: kl1.l1_distance_cuda(batch, data_c)
+    l1_p = lambda: kl1.l1_distance_plain(batch, data_c)
+    l1_out, l1_plain = l1_k(), l1_p()
+    check(equal(l1_out, l1_plain), "l1_distance kernel == plain at 64 x 1 M x 128")
+    qf, xf = batch.to(torch.float32), data_c.to(torch.float32)
+    l1_lib = lambda: torch.cdist(qf, xf, p=1)
+    check(equal(l1_lib().to(torch.int32), l1_out), "torch.cdist(p=1) agrees (exact)")
+    rows.append({
+        "name": "l1_distance", "route": "cuda",
+        "source": "src/repro_torch/csrc/l1_distance.cu",
+        "replaces": "src/repro/kernels/l1_distance.py:59",
+        "launches": gt_launches["l1_distance"], "equal_to_plain": True,
+        **timed(l1_k, l1_p, l1_lib, batch.numel() * 4 + data_c.numel() * 4
+                + batch.shape[0] * n_pts * 4, batch.shape[0] * n_pts * DIM * 3,
+                [(l1_out, l1_plain)])})
+    del l1_out, l1_plain, xf
+
+    # l1_distance_rows at one served batch's first 4096 candidates a query
+    cand = ids[:, :4096].clamp(0, st.dataset.shape[0] - 1).long()
+    l1r = {}
+    for dtype in (torch.int32, torch.int16):
+        qd = batch.to(dtype)
+        rd = st.dataset[cand].to(dtype).contiguous()
+        rf = rd.to(torch.float32)
+        got_r = kl1.l1_distance_rows_cuda(qd, rd)
+        want_r = kl1.l1_distance_rows_plain(qd, rd)
+        check(equal(got_r, want_r), f"l1_distance_rows kernel == plain in {dtype}")
+        lib_r = lambda: torch.cdist(qf[:, None], rf, p=1)
+        check(equal(lib_r()[:, 0].to(torch.int32), got_r), "batched cdist agrees (exact)")
+        l1r[dtype] = timed(lambda: kl1.l1_distance_rows_cuda(qd, rd),
+                           lambda: kl1.l1_distance_rows_plain(qd, rd), lib_r,
+                           rd.numel() * rd.element_size() + qd.numel() * qd.element_size()
+                           + got_r.numel() * 4, rd.numel() * 3, [(got_r, want_r)])
+    rows.append({
+        "name": "l1_distance_rows", "route": "cuda",
+        "source": "src/repro_torch/csrc/l1_distance.cu",
+        "replaces": "src/repro/kernels/l1_distance.py:103",
+        "launches": check_launches["l1_distance_rows"], "equal_to_plain": True,
+        **l1r[torch.int32], "shape": list(rd.shape), "int16": l1r[torch.int16]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi_line())

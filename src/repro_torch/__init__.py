@@ -5,10 +5,11 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
 
   core/     hashing, multi-probe template, index build, staged query
             pipeline, segmented mutable index, baselines
-  kernels/  the three kernels of the serving path (fused_probe,
-            fused_rerank, topk_merge): a CUDA source under ``csrc/`` and a
-            plain-torch version of the same function each; ``ops`` dispatches
-            by the tensors' device
+  kernels/  the six kernels: fused_probe, fused_rerank and topk_merge of
+            the serving path, rw_hash of ``hash_impl='pallas'``, and the
+            l1_distance and l1_distance_rows ops; a CUDA source under
+            ``csrc/`` and a plain-torch version of the same function each;
+            ``ops`` dispatches by the tensors' device
   serve/    the batched serving engine
   data/     seeded synthetic datasets (numpy, same bits as ``repro``)
   launch/   ``python -m repro_torch.launch.serve``

@@ -18,6 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
+
 from . import walks as walks_lib
 
 __all__ = ["LshParams", "make_rw_params", "params_fingerprint", "raw_hash",
@@ -98,14 +100,24 @@ def params_fingerprint(params: LshParams) -> int:
 
 def raw_hash(params: LshParams, points: torch.Tensor,
              impl: str = "gather") -> torch.Tensor:
-    """Raw hash values f(s): points (n, m) int32 even -> (n, L, M) float32."""
+    """Raw hash values f(s): points (n, m) int32 even -> (n, L, M) float32.
+
+    ``impl``: 'gather' reads the prefix table, 'thermo' takes the plain
+    thermometer product, 'pallas' the ``rw_hash`` kernel (its plain version
+    on the CPU).  All three give the same bits for coordinates in [0, U].
+    """
     if params.family != "rw":
         raise NotImplementedError(
             f"family {params.family!r} is not ported yet (only 'rw')")
-    if impl != "gather":
-        raise NotImplementedError(
-            f"hash_impl {impl!r} is not ported yet (only 'gather')")
-    f = walks_lib.eval_prefix(params.walks, points)                 # (n, L*M)
+    if impl == "gather":
+        f = walks_lib.eval_prefix(params.walks, points)             # (n, L*M)
+    elif impl == "thermo":
+        f = walks_lib.eval_pairs_thermo(params.walks, points)
+    elif impl == "pallas":
+        f = kops.rw_hash(params.walks.pairs,
+                         points.to(torch.int32).contiguous())
+    else:
+        raise ValueError(f"unknown rw impl {impl!r}")
     return f.reshape(points.shape[0], params.num_tables,
                      params.num_hashes).to(torch.float32)
 

@@ -36,7 +36,7 @@ class IndexConfig:
     candidate_cap: int = 8       # max candidates gathered per probe
     universe: int = 256          # U, max (even) coordinate for 'rw'
     family: str = "rw"           # only 'rw' is ported
-    hash_impl: str = "gather"    # only 'gather' is ported
+    hash_impl: str = "gather"    # 'gather' | 'thermo' | 'pallas' (the rw_hash kernel)
     rerank_chunk: int = 512      # candidates per plain-rerank step
     rerank_impl: str = "fused"   # only 'fused' is ported
     probe_impl: str = "fused"    # only 'fused' is ported

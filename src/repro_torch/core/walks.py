@@ -4,7 +4,9 @@
 Data coordinates are nonnegative even integers, so walks are stored in
 paired-step form: pair_j = step_{2j-1} + step_{2j} in {-2, 0, +2} and
 tau(2t) = sum_{j<=t} pair_j.  ``prefix`` holds tau(0), tau(2), ..., tau(U) per
-(hash fn, dim); a raw hash is one gather per coordinate.
+(hash fn, dim); a raw hash is one gather per coordinate (``eval_prefix``) or
+one product of the thermometer code of s // 2 with ``pairs``
+(``eval_pairs_thermo``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["WalkTable", "make_walks", "prefix_from_pairs", "eval_prefix"]
+from ..kernels.rw_hash import rw_hash_plain
+
+__all__ = ["WalkTable", "make_walks", "prefix_from_pairs", "eval_prefix",
+           "eval_pairs_thermo"]
 
 
 @dataclasses.dataclass
@@ -27,6 +32,10 @@ class WalkTable:
     @property
     def num_fns(self) -> int:
         return self.prefix.shape[0]
+
+    @property
+    def u2(self) -> int:
+        return self.prefix.shape[2] - 1
 
     def to(self, device) -> "WalkTable":
         return WalkTable(self.pairs.to(device), self.prefix.to(device))
@@ -71,3 +80,18 @@ def eval_prefix(walks: WalkTable, points: torch.Tensor) -> torch.Tensor:
     for i in range(points.shape[1]):
         acc += table[i].index_select(0, t[:, i])
     return acc
+
+
+def eval_pairs_thermo(walks: WalkTable, points: torch.Tensor) -> torch.Tensor:
+    """Thermometer-product raw hash, the plain counterpart of the ``rw_hash``
+    kernel: f[k](s) = sum_i sum_u 1{u < s_i // 2} * pairs[k, i, u].
+
+    points : (n, m) int32.  returns: (n, F) int32.
+
+    One float32 product of the (rows, m*U2) 0/1 code with the (m*U2, F)
+    steps, then round, as the JAX package does; ``rw_hash_plain`` computes
+    it a chunk of rows at a time.  float32 is exact: every partial sum is an
+    integer of magnitude at most 2*m*U2 (65,280 at m=128, U2=255), below
+    2^24.
+    """
+    return rw_hash_plain(walks.pairs, points)

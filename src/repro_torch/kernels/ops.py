@@ -1,4 +1,4 @@
-"""Public wrappers for the kernels of the serving path.
+"""Public wrappers for the port's kernels.
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor runs the kernel's plain-torch version, a CUDA tensor launches the
@@ -14,10 +14,14 @@ from ._build import LAUNCHES, reset_launches
 from .fused_probe import (compact_gather, fused_probe_cuda, fused_probe_plain,
                           probe_extents)
 from .fused_rerank import fused_rerank_cuda, fused_rerank_plain
+from .l1_distance import (l1_distance_cuda, l1_distance_plain,
+                          l1_distance_rows_cuda, l1_distance_rows_plain)
+from .rw_hash import rw_hash_cuda, rw_hash_plain
 from .topk_merge import topk_merge_cuda, topk_merge_plain
 
 __all__ = ["LAUNCHES", "reset_launches", "topk_merge", "fused_rerank",
-           "fused_probe", "probe_extents"]
+           "fused_probe", "probe_extents", "rw_hash", "l1_distance",
+           "l1_distance_rows"]
 
 
 def _on_cuda(t) -> bool:
@@ -55,3 +59,26 @@ def fused_probe(sorted_keys, sorted_ids, probe_keys, cap: int, cbucket: int,
                               probe_keys.shape[2], cbucket, cap)
     return fused_probe_plain(sorted_keys, sorted_ids, probe_keys, cap, cbucket,
                              occ_from=occ_from)
+
+
+def rw_hash(pairs, points):
+    """Random-walk raw hash: pairs (F, m, U2) int8, points (n, m) int32 ->
+    (n, F) int32, the thermometer product of ``points >> 1`` with the steps."""
+    if _on_cuda(points):
+        return rw_hash_cuda(pairs, points)
+    return rw_hash_plain(pairs, points)
+
+
+def l1_distance(queries, points):
+    """(Q, m), (N, m) -> (Q, N) pairwise L1; int32 sums for integer inputs,
+    float32 for float32 and bfloat16."""
+    if _on_cuda(queries):
+        return l1_distance_cuda(queries, points)
+    return l1_distance_plain(queries, points)
+
+
+def l1_distance_rows(queries, rows):
+    """(Q, m), (Q, C, m) -> (Q, C) per-query candidate L1 distances."""
+    if _on_cuda(queries):
+        return l1_distance_rows_cuda(queries, rows)
+    return l1_distance_rows_plain(queries, rows)

@@ -5,6 +5,12 @@ PROBE_CASES  : name -> (keys (L, n) uint32 sorted, ids (L, n) int32,
                         probe keys (Q, L, P) uint32, cap, cbucket)
 RERANK_CASES : name -> (dataset (n, m), queries (Q, m) int32, ids (Q, Ctot) int32, k)
 MERGE_CASES  : name -> (da, ia, db, ib), each (Q, k)
+RW_HASH_CASES: name -> (pairs (F, m, U2) int8, points (n, m) int32)
+L1_CASES     : name -> (queries (Q, m), points (N, m)), one dtype
+L1_ROWS_CASES: name -> (queries (Q, m), rows (Q, C, m)), one dtype
+
+The L1 cases hold integer values, which float32 and bfloat16 sum exactly
+in any order, so every kernel equals its plain version bit for bit.
 """
 import numpy as np
 
@@ -104,3 +110,74 @@ def _merge_cases():
 
 
 MERGE_CASES = _merge_cases()
+
+
+def _walk_pairs(rng, f, m, u2):
+    return (2 * rng.integers(0, 2, (f, m, u2, 2)) - 1).sum(-1).astype(np.int8)
+
+
+def _rw_hash_cases():
+    cases = {}
+    # tests/test_kernels.py's shapes, even coordinates in [0, U]
+    for f, m, u2, n in [(3, 2, 4, 5), (17, 8, 32, 40), (64, 16, 128, 20)]:
+        rng = np.random.default_rng(f * 7 + n)
+        cases[f"f{f}_m{m}_u2_{u2}_n{n}"] = (
+            _walk_pairs(rng, f, m, u2),
+            (rng.integers(0, u2 + 1, (n, m)) * 2).astype(np.int32))
+    # odd, negative and above-universe coordinates; F not a multiple of 8
+    # and spanning two 32-function tiles; U2 odd; rows over two row tiles
+    rng = np.random.default_rng(3)
+    cases["out_of_range"] = (_walk_pairs(rng, 37, 7, 31),
+                             rng.integers(-70, 2 * 31 + 70, (2100, 7)).astype(np.int32))
+    ext = rng.integers(-5, 70, (6, 5)).astype(np.int32)
+    ext[0] = np.iinfo(np.int32).min
+    ext[1] = np.iinfo(np.int32).max
+    ext[2] = -1
+    cases["int32_extremes"] = (_walk_pairs(rng, 13, 5, 31), ext)
+    # the SIFT widths: U2 = 255 (odd), F = L*M = 96
+    cases["sift_widths"] = (_walk_pairs(rng, 96, 16, 255),
+                            (rng.integers(0, 256, (70, 16)) * 2).astype(np.int32))
+    for n in (0, 1):
+        cases[f"n{n}"] = (_walk_pairs(rng, 9, 4, 15),
+                          rng.integers(0, 31, (n, 4)).astype(np.int32))
+    # enough rows that the kernel does not split the dimensions
+    cases["many_rows"] = (_walk_pairs(rng, 65, 2, 5),
+                          rng.integers(-3, 14, (100_000, 2)).astype(np.int32))
+    return cases
+
+
+RW_HASH_CASES = _rw_hash_cases()
+
+L1_DTYPES = ("int32", "int16", "float32", "bfloat16")
+
+
+def _l1_cases():
+    pair, rows = {}, {}
+    shapes = [(1, 1, 1), (7, 33, 17), (16, 128, 96), (130, 257, 100), (5, 70, 300)]
+    for q, n, m in shapes:                              # tests/test_kernels.py + m=300
+        rng = np.random.default_rng(q * 1000 + n)
+        pair[f"q{q}_n{n}_m{m}"] = (rng.integers(0, 100, (q, m)),
+                                   rng.integers(0, 100, (n, m)))
+    rng = np.random.default_rng(8)
+    pair["signed"] = (rng.integers(-1000, 1000, (9, 40)),
+                      rng.integers(-1000, 1000, (65, 40)))
+    for q, c, m in [(3, 5, 9), (16, 33, 64), (9, 128, 200), (4, 37, 300), (6, 40, 1)]:
+        rng = np.random.default_rng(c)
+        rows[f"q{q}_c{c}_m{m}"] = (rng.integers(0, 200, (q, m)),
+                                   rng.integers(0, 200, (q, c, m)))
+    rows["signed"] = (rng.integers(-1000, 1000, (5, 40)),
+                      rng.integers(-1000, 1000, (5, 33, 40)))
+    rows["c0"] = (rng.integers(0, 9, (3, 8)), np.zeros((3, 0, 8), np.int64))
+    pair["n0"] = (rng.integers(0, 9, (3, 8)), np.zeros((0, 8), np.int64))
+    return pair, rows
+
+
+def _typed(cases):
+    """Every case in every L1 input type (numpy has no bfloat16: those are
+    float32 arrays that the tests cast)."""
+    return {f"{name}_{dt}": tuple(a.astype(np.float32 if dt == "bfloat16" else dt)
+                                  for a in arrays) + (dt,)
+            for name, arrays in cases.items() for dt in L1_DTYPES}
+
+
+L1_CASES, L1_ROWS_CASES = (_typed(c) for c in _l1_cases())

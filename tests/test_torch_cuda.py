@@ -11,8 +11,11 @@ import torch
 
 from repro_torch.kernels import fused_probe as tfp
 from repro_torch.kernels import fused_rerank as tfr
+from repro_torch.kernels import l1_distance as tl1
+from repro_torch.kernels import rw_hash as trw
 from repro_torch.kernels import topk_merge as ttm
-from test_torch_cases import MERGE_CASES, PROBE_CASES, RERANK_CASES
+from test_torch_cases import (L1_CASES, L1_ROWS_CASES, MERGE_CASES, PROBE_CASES,
+                              RERANK_CASES, RW_HASH_CASES)
 
 torch.set_num_threads(1)
 
@@ -70,3 +73,60 @@ def test_topk_merge_kernel_matches_plain(card, name):
     torch.cuda.synchronize()
     _eq(want[0].cpu(), got[0].cpu())
     _eq(want[1].cpu(), got[1].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RW_HASH_CASES))
+def test_rw_hash_kernel_matches_plain(card, name):
+    pairs, pts = (_t(x).to(card) for x in RW_HASH_CASES[name])
+    want = trw.rw_hash_plain(pairs, pts)
+    got = trw.rw_hash_cuda(pairs, pts)
+    torch.cuda.synchronize()
+    _eq(want.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+def test_rw_hash_kernel_at_the_u2_limit(card):
+    """U2 up to the device's limit equals plain (a table over 48 KB of
+    shared memory, scan segments of many steps); one step more raises."""
+    rng = np.random.default_rng(5)
+    limit = trw.max_u2()
+    assert limit >= 1000
+    for u2 in (1000, limit):
+        pairs = torch.from_numpy(
+            (2 * rng.integers(0, 2, (33, 3, u2, 2)) - 1).sum(-1).astype(np.int8)).to(card)
+        pts = torch.from_numpy(
+            rng.integers(-9, 2 * u2 + 9, (50, 3)).astype(np.int32)).to(card)
+        _eq(trw.rw_hash_plain(pairs, pts).cpu(), trw.rw_hash_cuda(pairs, pts).cpu(),
+            f"U2={u2}")
+    over = torch.zeros((1, 1, limit + 1), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError):
+        trw.rw_hash_cuda(over, torch.zeros((1, 1), dtype=torch.int32, device=card))
+
+
+def _typed(arr, dtype, card):
+    return _t(arr).to(card).to(getattr(torch, dtype)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(L1_CASES))
+def test_l1_distance_kernel_matches_plain(card, name):
+    queries, points, dtype = L1_CASES[name]
+    q, x = _typed(queries, dtype, card), _typed(points, dtype, card)
+    want = tl1.l1_distance_plain(q, x)
+    got = tl1.l1_distance_cuda(q, x)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    _eq(want.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(L1_ROWS_CASES))
+def test_l1_distance_rows_kernel_matches_plain(card, name):
+    queries, rows, dtype = L1_ROWS_CASES[name]
+    q, r = _typed(queries, dtype, card), _typed(rows, dtype, card)
+    want = tl1.l1_distance_rows_plain(q, r)
+    got = tl1.l1_distance_rows_cuda(q, r)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    _eq(want.cpu(), got.cpu())

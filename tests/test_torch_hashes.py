@@ -161,13 +161,23 @@ def test_host_rung_helpers(setup):
     assert tpipe.BIG_DIST == jpipe.BIG_DIST
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(setup):
     with pytest.raises(NotImplementedError):
         tidx.IndexConfig(probe_impl="staged")
     with pytest.raises(NotImplementedError):
         tidx.IndexConfig(rerank_impl="scan")
     with pytest.raises(NotImplementedError):
         tidx.make_params(tidx.IndexConfig(family="cauchy"), 4)
+    # the thermometer hashes are ported; an unknown impl is refused as in JAX
+    data, _, _, tparams = setup
+    pts = torch.from_numpy(data[:50])
+    for impl in ("thermo", "pallas"):
+        cfg = dataclasses.replace(TCFG, hash_impl=impl)
+        _eq(th.raw_hash(tparams, pts), th.raw_hash(tparams, pts, impl=cfg.hash_impl))
+    with pytest.raises(ValueError, match="unknown rw impl"):
+        th.raw_hash(tparams, pts, impl="bogus")
+    with pytest.raises(NotImplementedError):
+        th.raw_hash(dataclasses.replace(tparams, family="cauchy"), pts)
 
 
 def test_own_params_are_deterministic():

@@ -1,0 +1,160 @@
+"""Port parity, thermometer hashing: the plain ``rw_hash`` and
+``walks.eval_pairs_thermo`` against the JAX package's ``ref.rw_hash`` and
+``ops.rw_hash`` (the Pallas kernel in interpret mode), and
+``hash_impl='thermo'``/``'pallas'`` through build, the segmented index and
+the engine against the JAX package with ``hash_impl='pallas'`` — all on the
+CPU, bit for bit, at the tests/test_torch_serving.py config.  The CUDA
+kernel is held against the plain version in tests/test_torch_cuda.py."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import hashes as jh
+from repro.core import index as jidx
+from repro.core.segments import SegmentedIndex as JSeg
+from repro.data import ann_synthetic as jds
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.serve.engine import AnnServingEngine as JEngine
+from repro.serve.engine import ServeConfig as JServe
+from repro_torch import bridge
+from repro_torch.core import hashes as th
+from repro_torch.core import index as tidx
+from repro_torch.core import walks as tw
+from repro_torch.core.segments import SegmentedIndex as TSeg
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.rw_hash import rw_hash_plain
+from repro_torch.serve.engine import AnnServingEngine as TEngine
+from repro_torch.serve.engine import ServeConfig as TServe
+from test_torch_cases import RW_HASH_CASES
+
+torch.set_num_threads(1)
+
+KEY = jax.random.PRNGKey(0)
+JCFG = jidx.IndexConfig(num_tables=4, num_hashes=8, width=24, num_probes=30,
+                        candidate_cap=32, universe=64, k=8, rerank_chunk=128,
+                        hash_impl="pallas")
+IMPLS = ("thermo", "pallas")
+
+
+def tcfg(impl):
+    return tidx.IndexConfig(**dict(dataclasses.asdict(JCFG), hash_impl=impl))
+
+
+def _eq(a, b, msg=""):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=msg)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    spec = jds.DatasetSpec("seg", n=3000, dim=16, universe=64, num_clusters=8)
+    data = jds.make_dataset(spec)
+    queries = jds.make_queries(spec, data, 16)
+    jparams = jidx.make_params(JCFG, KEY, 16)
+    tparams = bridge.params_from_numpy(
+        jparams.width, np.asarray(jparams.offsets), np.asarray(jparams.mix_a),
+        np.asarray(jparams.mix_c), np.asarray(jparams.walks.pairs),
+        np.asarray(jparams.walks.prefix))
+    return data, queries, jparams, tparams
+
+
+@pytest.mark.parametrize("name", sorted(RW_HASH_CASES))
+def test_rw_hash_plain_matches_jax(name):
+    """(a) plain == ref == the Pallas kernel (interpret) == the thermo form,
+    on in-range and on odd, negative and above-universe coordinates."""
+    pairs, pts = RW_HASH_CASES[name]
+    got = rw_hash_plain(_t(pairs), _t(pts))
+    assert got.dtype == torch.int32 and got.shape == (pts.shape[0], pairs.shape[0])
+    jp, jx = jnp.asarray(pairs), jnp.asarray(pts)
+    _eq(ref.rw_hash(jp, jx), got, "ref")
+    if pts.shape[0]:        # the Pallas wrapper cannot slice an empty row block
+        bn = 128 if pts.shape[0] <= 4096 else 8192  # few interpreted grid steps
+        _eq(jops.rw_hash(jp, jx, bn=bn), got, "pallas interpret")
+    _eq(tops.rw_hash(_t(pairs), _t(pts)), got, "ops dispatch on the CPU")
+    walks = tw.WalkTable(_t(pairs), tw.prefix_from_pairs(_t(pairs)))
+    _eq(tw.eval_pairs_thermo(walks, _t(pts)), got, "eval_pairs_thermo")
+
+
+def test_raw_hash_impls_agree(setup):
+    """(b) 'gather' == 'thermo' == 'pallas' in range, in both packages."""
+    data, queries, jparams, tparams = setup
+    pts = np.concatenate([data[:500], queries])
+    want = th.raw_hash(tparams, _t(pts), impl="gather")
+    for impl in ("gather",) + IMPLS:
+        _eq(want, th.raw_hash(tparams, _t(pts), impl=impl), impl)
+        _eq(jh.raw_hash(jparams, jnp.asarray(pts), impl=impl), want, f"jax {impl}")
+    with pytest.raises(ValueError, match="unknown rw impl"):
+        th.raw_hash(tparams, _t(pts), impl="bogus")
+
+
+@pytest.fixture(scope="module")
+def jax_build(setup):
+    data, _, jparams, _ = setup
+    return jidx.build_index(JCFG, KEY, jnp.asarray(data), params=jparams)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_build_index(setup, jax_build, impl):
+    """(c) sorted tables, run lengths and histograms of the port's build with
+    ``impl`` equal the JAX build with hash_impl='pallas'."""
+    data, _, _, tparams = setup
+    ts = tidx.build_index(tcfg(impl), _t(data), params=tparams)
+    _eq(np.asarray(jax_build.sorted_keys).astype(np.int64), ts.sorted_keys, "keys")
+    _eq(jax_build.sorted_ids, ts.sorted_ids, "ids")
+    _eq(jax_build.occ_from, ts.occ_from, "occ_from")
+    _eq(jax_build.occ_hist, ts.occ_hist, "occ_hist")
+
+
+@pytest.fixture(scope="module")
+def jax_drains(setup):
+    data, queries, jparams, _ = setup
+    return _drains(JEngine(JCFG, JServe(persistent_cache=False, **SERVE),
+                           index=JSeg.from_dataset(JCFG, KEY, jnp.asarray(data),
+                                                   delta_cap=512, params=jparams)),
+                   queries)
+
+
+SERVE = dict(batch_size=8, bucket_min=8, delta_cap=512, cand_bucket_min=512)
+
+
+def _drains(engine, queries):
+    """insert -> delete -> drain -> compact -> drain."""
+    gids = engine.insert(queries[:5] + 2)
+    engine.delete([3, 7, int(gids[1])])
+    engine.submit(queries[:11])
+    first = engine.drain()
+    engine.compact()
+    engine.submit(queries)
+    return first, engine.drain()
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_engine_drain(setup, jax_drains, impl):
+    """(d) the engine drains the JAX engine's bits with hash_impl='pallas'."""
+    data, queries, _, tparams = setup
+    cfg = tcfg(impl)
+    index = TSeg.from_dataset(cfg, data, delta_cap=512, params=tparams, device="cpu")
+    got = _drains(TEngine(cfg, TServe(**SERVE), index=index), queries)
+    for (jd, ji), (td, ti), when in zip(jax_drains, got, ("first", "after compact")):
+        _eq(jd, td, f"dists, {when}")
+        _eq(ji, ti, f"gids, {when}")
+
+
+def test_chunking_changes_no_bit(monkeypatch):
+    """The plain thermometer product gives the same bits at any row chunk,
+    through ``rw_hash_plain`` and through ``eval_pairs_thermo``."""
+    from repro_torch.kernels import rw_hash as trw
+    pairs, pts = RW_HASH_CASES["out_of_range"]
+    walks = tw.WalkTable(_t(pairs), tw.prefix_from_pairs(_t(pairs)))
+    whole = trw.rw_hash_plain(_t(pairs), _t(pts))
+    monkeypatch.setattr(trw, "PLAIN_CHUNK_BYTES", 4 * 7 * pairs[0].size)
+    _eq(whole, trw.rw_hash_plain(_t(pairs), _t(pts)))
+    _eq(whole, tw.eval_pairs_thermo(walks, _t(pts)))
