@@ -12,7 +12,9 @@ read just after, and must launch the kernels named in ``PATHS``):
                  shapes (ties, duplicate ids, uint32 extremes, truncating
                  buckets, tighter caps, n in {0, 1}, Ctot < k, int16; odd,
                  negative and above-universe coordinates; ragged Q, N, C, m
-                 with m = 300 and m = 1 in four input types), bit for bit;
+                 with m = 300 and m = 1 in four input types; the rerank at
+                 its planned slice count and at 1, 2, 3, 7 and 32 slices),
+                 bit for bit;
   ground_truth   exact L1 k-NN of the queries through ``ops.l1_distance``,
                  each chunk of distances held against the plain version;
   serve          the main path: build the engine on the card, insert 512
@@ -29,9 +31,16 @@ read just after, and must launch the kernels named in ``PATHS``):
                  order of the two serve phases does not enter the gap, and
                  one profiled batch of each;
   batch          the kernels against their plain versions at the main path's
-                 shapes, and their times (CUDA events) beside the least time
-                 the card could take (bytes over 3.35 TB/s, or operations
-                 over 67 T/s, the larger).
+                 shapes, and their times beside the least time the card
+                 could take (bytes over 3.35 TB/s, or operations over 67 T/s,
+                 the larger): ``ms`` from CUDA events around one call (for a
+                 launch-bound kernel that is the wrapper's host work),
+                 ``device_ms`` the kernels' own device time a call from
+                 torch.profiler, the same two for the library call, and
+                 ``previous_ms`` for the earlier design of a redesigned
+                 kernel (the rerank's one block a query and the merge's
+                 shared-memory network, reached through their own C entry
+                 points from here only).
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -84,20 +93,96 @@ def max_abs_err(pairs) -> float:
                if a.numel() else 0.0 for a, b in pairs)
 
 
+def event_ms(fn) -> float:
+    """One call between two CUDA events: the device's time from the first
+    event to the last of the call's work, which includes the host's time to
+    issue the call where that is longer than the work before it."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
+
+
 def cuda_ms(fn, reps: int = 20, warm: int = 2) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+    """Median time of one call, from CUDA events around each call."""
     for _ in range(warm):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return float(np.median(times))
+    return float(np.median([event_ms(fn) for _ in range(reps)]))
+
+
+def cuda_ms_pair(fa, fb, reps: int = 20, warm: int = 2):
+    """Median times of one call of each of two functions, timed in turns
+    (a b, b a, ...), so that drift in the host or the card hits both alike."""
+    for _ in range(warm):
+        fa()
+        fb()
+    ta, tb = [], []
+    for r in range(reps):
+        turn = ((fa, ta), (fb, tb)) if r % 2 == 0 else ((fb, tb), (fa, ta))
+        for fn, times in turn:
+            times.append(event_ms(fn))
+    return float(np.median(ta)), float(np.median(tb))
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call: torch.profiler's device-side time over
+    ``reps`` calls (every kernel, memset and copy the call launches) / reps."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        total += getattr(e, "self_cuda_time_total", 0.0) if dev is None else dev
+    check(total > 0, "the profiler recorded device time")
+    return total / 1e3 / reps
+
+
+def previous_designs(_build, ktm):
+    """Callables for the earlier designs of the two redesigned kernels, bound
+    to their own C entry points (nothing in the package reaches them), and
+    not counted in the launch counters."""
+    import ctypes
+    _build.declare("fused_rerank", {
+        f"fused_rerank_rowwise_{s}": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p] for s in ("i32", "i16")})
+    _build.declare("topk_merge", {"topk_merge_smem_i32": ktm.SIGNATURE,
+                                  "topk_merge_smem_f32": ktm.SIGNATURE})
+
+    def call(lib, name, *args):
+        status = _build.entry(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"{name} launched (CUDA error {status})")
+
+    def rerank(dataset, queries, ids, k):
+        n, m = dataset.shape
+        q, ctot = ids.shape
+        d = torch.empty((q, k), dtype=torch.int32, device=ids.device)
+        i = torch.empty_like(d)
+        vec = int(m % (16 // dataset.element_size()) == 0 and dataset.data_ptr() % 16 == 0)
+        suffix = "i32" if dataset.dtype == torch.int32 else "i16"
+        call("fused_rerank", f"fused_rerank_rowwise_{suffix}", dataset.data_ptr(),
+             queries.data_ptr(), ids.data_ptr(), d.data_ptr(), i.data_ptr(), q, n, m,
+             ctot, k, vec)
+        return d, i
+
+    def merge(da, ia, db, ib):
+        q, k = da.shape
+        d, i = torch.empty_like(da), torch.empty_like(ia)
+        suffix = "i32" if da.dtype == torch.int32 else "f32"
+        call("topk_merge", f"topk_merge_smem_{suffix}", da.data_ptr(), ia.data_ptr(),
+             db.data_ptr(), ib.data_ptr(), d.data_ptr(), i.data_ptr(), q, k)
+        return d, i
+
+    return rerank, merge
 
 
 def nvidia_smi_line() -> str:
@@ -247,6 +332,7 @@ def main() -> int:
     for name in libs:
         _build.library(name)
     log(f"phase build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}")
+    rerank_prev, merge_prev = previous_designs(_build, ktm)
     for name, path in libs.items():
         regs = [ln.strip() for ln in (path.parent / f"{name}.log").read_text().splitlines()
                 if "Used" in ln and "registers" in ln]
@@ -272,10 +358,16 @@ def main() -> int:
     for name, (data, queries, ids, k) in sorted(RERANK_CASES.items()):
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(card)
                 for x in (data, queries, ids)]
-        got, want = ops.fused_rerank(*args, k), kfr.fused_rerank_plain(*args, k)
+        want = kfr.fused_rerank_plain(*args, k)
+        got = ops.fused_rerank(*args, k)
         check(equal(got[0], want[0]) and equal(got[1], want[1]),
               f"fused_rerank kernel == plain on {name}")
         n_cases += 1
+        for slices in (1, 2, 3, 7, 32):
+            got = kfr.fused_rerank_cuda(*args, k, slices=slices)
+            check(equal(got[0], want[0]) and equal(got[1], want[1]),
+                  f"fused_rerank kernel at {slices} slices == plain on {name}")
+            n_cases += 1
     for name, arrays in sorted(MERGE_CASES.items()):
         args = [torch.from_numpy(x).to(card) for x in arrays]
         got, want = ops.topk_merge(*args), ktm.topk_merge_plain(*args)
@@ -443,9 +535,15 @@ def main() -> int:
     ids = pipe.stage_tombstone(got[0], seg.gids, tomb, st.dataset.shape[0])
     rr_k = lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids, K)
     rr_p = lambda: kfr.fused_rerank_plain(st.dataset, batch, ids, K, chunk=cfg.rerank_chunk)
+    rr_prev = lambda: rerank_prev(st.dataset, batch, ids, K)
     sd, si = rr_k()
     wd, wi = rr_p()
     check(equal(sd, wd) and equal(si, wi), "fused_rerank kernel == plain on the served batch")
+    check(all(equal(a, b) for a, b in zip(rr_prev(), (wd, wi))),
+          "the rerank's previous design == plain on the served batch")
+    rr_slices = kfr.plan_slices(ids.shape[0], ids.shape[1], kfr.resident_blocks(
+        torch.cuda.current_device(), st.dataset.dtype, DIM, K,
+        int(st.dataset.data_ptr() % 16 == 0)))
     delta_pts, delta_gids = idx._delta_arrays()
     cap_d = delta_pts.shape[0]
     slots = torch.arange(cap_d, dtype=torch.int32, device=card)
@@ -459,8 +557,11 @@ def main() -> int:
     db, ib = dd, _gid_map(di, delta_gids, cap_d)
     tm_k = lambda: ktm.topk_merge_cuda(da, ia, db, ib)
     tm_p = lambda: ktm.topk_merge_plain(da, ia, db, ib)
+    tm_prev = lambda: merge_prev(da, ia, db, ib)
     mk, mp = tm_k(), tm_p()
     check(equal(mk[0], mp[0]) and equal(mk[1], mp[1]), "topk_merge kernel == plain")
+    check(all(equal(a, b) for a, b in zip(tm_prev(), mp)),
+          "the merge's previous design == plain on the served batch")
     packed = torch.cat([(da.long() << 32) | (ia.long() & 0xFFFFFFFF),
                         (db.long() << 32) | (ib.long() & 0xFFFFFFFF)], dim=1)
     tm_lib = lambda: torch.topk(packed, K, dim=1, largest=False)
@@ -478,6 +579,11 @@ def main() -> int:
     rr_bytes = (ids.numel() * 4 + uniq_rows * DIM * st.dataset.element_size()
                 + batch.numel() * 4 + 2 * q_rows * K * 4)
     rr_ops = pairs * DIM * 3
+    # the per-pair bound: each valid (query, slot) row read once, as a kernel
+    # that does not invert the candidates across the batch must
+    n_slots = valid.numel()
+    rr_pair_bytes = rr_bytes + (n_slots - uniq_rows) * DIM * st.dataset.element_size()
+    rr_pair_ops = n_slots * DIM * 3
     tm_bytes = 6 * q_rows * K * 4
     tm_ops = q_rows * 2 * K * math.ceil(math.log2(2 * K))
 
@@ -485,31 +591,50 @@ def main() -> int:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    def timed(kfn, pfn, lib, nbytes, nops, errs):
-        """The measured numbers of one kernel row; kernel == plain already held."""
+    def timed(kfn, pfn, lib, nbytes, nops, errs, prev=None):
+        """The measured numbers of one kernel row; kernel == plain already
+        held.  ``prev`` is the kernel's earlier design, where it has one."""
         b_ms, b_by = bound(nbytes, nops)
-        return {"max_abs_err": max_abs_err(errs), "ms": cuda_ms(kfn),
-                "plain_ms": cuda_ms(pfn, reps=5), "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None if lib is None else cuda_ms(lib)}
+        # event times first, the kernel and the library call in turns; the
+        # profiler's device times after them
+        ms, lib_ms = (cuda_ms(kfn), None) if lib is None else cuda_ms_pair(kfn, lib)
+        row = {"max_abs_err": max_abs_err(errs), "ms": ms,
+               "previous_ms": None if prev is None else cuda_ms(prev),
+               "plain_ms": cuda_ms(pfn, reps=5), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms}
+        row["device_ms"] = device_ms(kfn)
+        row["previous_device_ms"] = None if prev is None else device_ms(prev)
+        row["library_device_ms"] = None if lib is None else device_ms(lib)
+        return row
 
     rows = []
-    for name, kfn, pfn, lib, nbytes, nops, errs, src, repl in [
-        ("fused_probe", probe_k, probe_p, None, probe_bytes, probe_ops,
+    for name, kfn, pfn, lib, prev, nbytes, nops, errs, src, repl in [
+        ("fused_probe", probe_k, probe_p, None, None, probe_bytes, probe_ops,
          [(got[0], want[0]), (got[1], want[1])], "fused_probe.cu",
          "src/repro/kernels/fused_probe.py:158"),
-        ("fused_rerank", rr_k, rr_p, None, rr_bytes, rr_ops,
+        ("fused_rerank", rr_k, rr_p, None, rr_prev, rr_bytes, rr_ops,
          [(sd, wd), (si, wi)], "fused_rerank.cu",
          "src/repro/kernels/fused_rerank.py:140"),
-        ("topk_merge", tm_k, tm_p, tm_lib, tm_bytes, tm_ops,
+        ("topk_merge", tm_k, tm_p, tm_lib, tm_prev, tm_bytes, tm_ops,
          [(mk[0], mp[0]), (mk[1], mp[1])], "topk_merge.cu",
          "src/repro/kernels/topk_merge.py:122"),
     ]:
         rows.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
             "replaces": repl, "launches": launches[name], "equal_to_plain": True,
-            **timed(kfn, pfn, lib, nbytes, nops, errs)})
+            **timed(kfn, pfn, lib, nbytes, nops, errs, prev)})
+    rows[1]["pair_bound_ms"] = bound(rr_pair_bytes, rr_pair_ops)[0]
+    rows[1]["slices"] = rr_slices
+    rows[1]["ms_by_slices"] = {
+        s: cuda_ms(lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids, K, slices=s))
+        for s in (4, 8, 12, 16, 24, 32)}
+    rows[1]["delta_scan_ms"] = cuda_ms(lambda: kfr.fused_rerank_cuda(delta_pts, batch, dids, K))
+    rows[1]["delta_scan_device_ms"] = device_ms(
+        lambda: kfr.fused_rerank_cuda(delta_pts, batch, dids, K))
+    rows[1]["delta_scan_previous_ms"] = cuda_ms(lambda: rerank_prev(delta_pts, batch, dids, K))
     log(f"phase batch: Q {q_rows}, rung cbucket {cb} c_cap {c_cap}, gathered "
-        f"{gathered}, distinct rows {uniq_rows}, delta rows {idx._delta_count}")
+        f"{gathered}, valid slots {n_slots}, distinct rows {uniq_rows}, delta rows "
+        f"{idx._delta_count}, rerank slices {rr_slices}")
 
     # rw_hash at the build's shape (every point) and at one served batch;
     # plain on a subset, the prefix-gather hash on every point

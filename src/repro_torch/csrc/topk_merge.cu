@@ -9,12 +9,19 @@
 // The pads take part in the compares, so an input at dist >= pad with id >= 0
 // ranks after a pad exactly as in the TPU kernel.
 //
-// Bound: bytes.  Each row reads 4 k-entry int32 arrays and writes 2; the
-// network is O(k log k) compares on 8-byte pairs in shared memory, far below
-// the memory time.  Design: one warp per row, lanes stride over the kp
-// positions of each stage, the row lives in shared memory between stages
-// (__syncwarp, no block barrier), loads and stores of neighbouring lanes
-// touch neighbouring addresses.
+// Bound: bytes in principle (each row reads 4 k-entry arrays and writes 2),
+// but at the served k = 10 and Q = 64 the work is nanoseconds, so the launch
+// and the wrapper's host work are what a call costs.  Design:
+//  * kp <= 32: a row lives in the registers of kp consecutive lanes (lane j
+//    holds element j; a warp holds 32 / kp rows).  Lane j loads a[j] and
+//    b[kp-1-j] itself, and each clean-up stage at distance s exchanges with
+//    lane j ^ s through __shfl_xor_sync: the lower lane keeps the lex-min,
+//    the upper the lex-max, which is the compare-exchange "swap iff
+//    lo > hi" of the network.  No shared memory and no barrier.
+//  * kp > 32 (up to MAX_K = 1024): one warp per row, the row in shared memory
+//    between stages (__syncwarp, no block barrier), lanes striding over the
+//    kp positions.  This is the first design, which topk_merge_smem_* runs
+//    for every k so the smoke can time it beside the register network.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -22,17 +29,51 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
+constexpr int kRegThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename D>
 __device__ __forceinline__ bool lex_gt(D d1, int i1, D d2, int i2) {
   return (d1 > d2) || (d1 == d2 && i1 > i2);
 }
 
+// kp <= 32: row r occupies lanes [r*kp, r*kp + kp) of the grid's threads.
 template <typename D>
-__global__ void topk_merge_kernel(const D* __restrict__ da, const int* __restrict__ ia,
-                                  const D* __restrict__ db, const int* __restrict__ ib,
-                                  D* __restrict__ dout, int* __restrict__ iout,
-                                  int q, int k, int kp, D pad) {
+__global__ void __launch_bounds__(kRegThreads)
+topk_merge_reg_kernel(const D* __restrict__ da, const int* __restrict__ ia,
+                      const D* __restrict__ db, const int* __restrict__ ib,
+                      D* __restrict__ dout, int* __restrict__ iout, int q, int k, int kp, D pad) {
+  const long long t = static_cast<long long>(blockIdx.x) * kRegThreads + threadIdx.x;
+  const long long row = t / kp;
+  const int j = static_cast<int>(t % kp);
+  const int jr = kp - 1 - j;
+  const bool live = row < q;  // dead lanes still take part in the shuffles
+  const size_t base = static_cast<size_t>(row) * k;
+  D a_d = pad, b_d = pad;
+  int a_i = -1, b_i = -1;
+  if (live && j < k) { a_d = da[base + j]; a_i = ia[base + j]; }
+  if (live && jr < k) { b_d = db[base + jr]; b_i = ib[base + jr]; }
+  const bool take_a = !lex_gt(a_d, a_i, b_d, b_i);
+  D d = take_a ? a_d : b_d;
+  int i = take_a ? a_i : b_i;
+  for (int s = kp >> 1; s >= 1; s >>= 1) {
+    const D od = __shfl_xor_sync(kFull, d, s);
+    const int oi = __shfl_xor_sync(kFull, i, s);
+    // the pair (lo, hi) swaps iff lex_gt(lo, hi)
+    const bool swap = (j & s) ? lex_gt(od, oi, d, i) : lex_gt(d, i, od, oi);
+    if (swap) { d = od; i = oi; }
+  }
+  if (live && j < k) {
+    dout[base + j] = d;
+    iout[base + j] = i;
+  }
+}
+
+template <typename D>
+__global__ void topk_merge_smem_kernel(const D* __restrict__ da, const int* __restrict__ ia,
+                                       const D* __restrict__ db, const int* __restrict__ ib,
+                                       D* __restrict__ dout, int* __restrict__ iout,
+                                       int q, int k, int kp, D pad) {
   extern __shared__ unsigned char smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -74,15 +115,25 @@ __global__ void topk_merge_kernel(const D* __restrict__ da, const int* __restric
 
 template <typename D>
 int launch(const void* da, const void* ia, const void* db, const void* ib,
-           void* dout, void* iout, int q, int k, D pad, void* stream) {
+           void* dout, void* iout, int q, int k, D pad, bool smem_only, void* stream) {
   int kp = 1;
   while (kp < k) kp <<= 1;
-  const int blocks = (q + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * kp * (sizeof(D) + sizeof(int));
-  topk_merge_kernel<D><<<blocks, kWarpsPerBlock * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const D*>(da), static_cast<const int*>(ia),
-      static_cast<const D*>(db), static_cast<const int*>(ib),
-      static_cast<D*>(dout), static_cast<int*>(iout), q, k, kp, pad);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kp <= 32 && !smem_only) {
+    const long long threads = static_cast<long long>(q) * kp;
+    topk_merge_reg_kernel<D><<<static_cast<unsigned>((threads + kRegThreads - 1) / kRegThreads),
+                               kRegThreads, 0, st>>>(
+        static_cast<const D*>(da), static_cast<const int*>(ia),
+        static_cast<const D*>(db), static_cast<const int*>(ib),
+        static_cast<D*>(dout), static_cast<int*>(iout), q, k, kp, pad);
+  } else {
+    const int blocks = (q + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    const size_t smem = static_cast<size_t>(kWarpsPerBlock) * kp * (sizeof(D) + sizeof(int));
+    topk_merge_smem_kernel<D><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
+        static_cast<const D*>(da), static_cast<const int*>(ia),
+        static_cast<const D*>(db), static_cast<const int*>(ib),
+        static_cast<D*>(dout), static_cast<int*>(iout), q, k, kp, pad);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -90,10 +141,23 @@ int launch(const void* da, const void* ia, const void* db, const void* ib,
 
 extern "C" int topk_merge_i32(const void* da, const void* ia, const void* db, const void* ib,
                               void* dout, void* iout, int q, int k, void* stream) {
-  return launch<int>(da, ia, db, ib, dout, iout, q, k, 0x7FFFFFFF / 2, stream);
+  return launch<int>(da, ia, db, ib, dout, iout, q, k, 0x7FFFFFFF / 2, false, stream);
 }
 
 extern "C" int topk_merge_f32(const void* da, const void* ia, const void* db, const void* ib,
                               void* dout, void* iout, int q, int k, void* stream) {
-  return launch<float>(da, ia, db, ib, dout, iout, q, k, INFINITY, stream);
+  return launch<float>(da, ia, db, ib, dout, iout, q, k, INFINITY, false, stream);
+}
+
+// The first design (shared-memory network for every k), for the smoke only.
+extern "C" int topk_merge_smem_i32(const void* da, const void* ia, const void* db,
+                                   const void* ib, void* dout, void* iout, int q, int k,
+                                   void* stream) {
+  return launch<int>(da, ia, db, ib, dout, iout, q, k, 0x7FFFFFFF / 2, true, stream);
+}
+
+extern "C" int topk_merge_smem_f32(const void* da, const void* ia, const void* db,
+                                   const void* ib, void* dout, void* iout, int q, int k,
+                                   void* stream) {
+  return launch<float>(da, ia, db, ib, dout, iout, q, k, INFINITY, true, stream);
 }

@@ -7,9 +7,12 @@ Libraries land in ``build/repro_torch_kernels/<hash of the sources>/`` at the
 repository root, so an edited source rebuilds and an unchanged one is
 reused.  A missing ``nvcc`` or a failed build raises.
 
-Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0 and counts the
-launch in ``LAUNCHES``.
+Each wrapper module ``declare``s its C entry points' argument types when it
+is imported; ``library`` binds them once, when it loads the library, and
+``entry`` hands out the bound function.  Each C entry point takes the
+stream last, launches on it and returns ``cudaGetLastError()``; ``launch``
+appends the device's current stream, raises when the status is not 0 and
+counts the launch in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -20,12 +23,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "launch",
-           "ptr", "stream_of", "CSRC", "BUILD_ROOT"]
+__all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "declare",
+           "entry", "launch", "CSRC", "BUILD_ROOT"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -38,6 +41,8 @@ LAUNCHES: Dict[str, int] = {"fused_probe": 0, "fused_rerank": 0,
                             "l1_distance_rows": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_SIGNATURES: Dict[str, Dict[str, Sequence]] = {}   # library -> entry -> argtypes
+_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 _LOCK = threading.Lock()
 
 
@@ -101,29 +106,59 @@ def build_all() -> Dict[str, Path]:
     return libs
 
 
+def _bind(lib_name: str, names) -> None:
+    lib = _LIBS[lib_name]
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = list(_SIGNATURES[lib_name][name])
+        fn.restype = ctypes.c_int
+        _ENTRIES[(lib_name, name)] = fn
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    """The loaded library of ``csrc/<name>.cu`` (built on first use), its
+    declared entry points bound."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             for lib_name, path in build_all().items():
                 if lib_name not in _LIBS:
                     _LIBS[lib_name] = ctypes.CDLL(str(path))
+                    _bind(lib_name, _SIGNATURES.get(lib_name, ()))
             lib = _LIBS[name]
         return lib
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def declare(lib_name: str, argtypes: Dict[str, Sequence]) -> None:
+    """Record the argument types of C entry points of ``csrc/<lib_name>.cu``
+    (every one returns an int status).  They are bound when the library
+    loads, or at once if it is loaded already."""
+    with _LOCK:
+        _SIGNATURES.setdefault(lib_name, {}).update(argtypes)
+        if lib_name in _LIBS:
+            _bind(lib_name, argtypes)
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def entry(lib_name: str, name: str):
+    """The bound C entry point ``name`` of ``csrc/<lib_name>.cu``."""
+    fn = _ENTRIES.get((lib_name, name))
+    if fn is None:
+        library(lib_name)
+        fn = _ENTRIES[(lib_name, name)]
+    return fn
 
 
-def launch(kernel: str, fn, *args) -> None:
-    """Call one C launcher; raise on a launch error; count the launch."""
-    status = fn(*args)
+def launch(kernel: str, fn, device: int, *args) -> None:
+    """Call one C launcher on CUDA device ``device`` with that device's
+    current stream appended; raise on a launch error; count the launch.  The
+    device is made current only when it is not already.  The stream is read
+    as a raw ``cudaStream_t``, without building a ``torch.cuda.Stream``."""
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch.cuda.current_device():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            status = fn(*args, stream)
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {status}")
     LAUNCHES[kernel] += 1

@@ -99,11 +99,10 @@ def fused_probe_plain(sorted_keys, sorted_ids, probe_keys, cap: int,
     return compact_gather(sorted_ids, lo, occ, p, cbucket, cap)
 
 
-def _fn():
-    fn = _build.library("fused_probe").fused_probe_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# sorted_keys, sorted_ids, occ_from, probe_keys, out, counts, q, n, l*p, p,
+# cap, cbucket, stream
+_build.declare("fused_probe", {
+    "fused_probe_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]})
 
 
 def fused_probe_cuda(sorted_keys, sorted_ids, probe_keys, cap: int,
@@ -129,11 +128,9 @@ def fused_probe_cuda(sorted_keys, sorted_ids, probe_keys, cap: int,
     occ = None if occ_from is None else occ_from.contiguous()
     out = torch.empty((q, cbucket), dtype=torch.int32, device=probe_keys.device)
     counts = torch.empty((q,), dtype=torch.int32, device=probe_keys.device)
-    with torch.cuda.device(probe_keys.device):
-        _build.launch("fused_probe", _fn(), _build.ptr(sorted_keys),
-                      _build.ptr(sorted_ids),
-                      None if occ is None else _build.ptr(occ),
-                      _build.ptr(probe_keys), _build.ptr(out),
-                      _build.ptr(counts), q, n, l * p, p, int(cap),
-                      int(cbucket), _build.stream_of(probe_keys))
+    _build.launch("fused_probe", _build.entry("fused_probe", "fused_probe_launch"),
+                  probe_keys.get_device(), sorted_keys.data_ptr(),
+                  sorted_ids.data_ptr(), None if occ is None else occ.data_ptr(),
+                  probe_keys.data_ptr(), out.data_ptr(), counts.data_ptr(), q, n,
+                  l * p, p, int(cap), int(cbucket))
     return out, counts

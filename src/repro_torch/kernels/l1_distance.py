@@ -59,11 +59,14 @@ def l1_distance_rows_plain(queries: torch.Tensor, rows: torch.Tensor) -> torch.T
     return out
 
 
+# queries, points or rows, out, then (q, n, m) or (q, c, m), stream
+_build.declare("l1_distance", {
+    f"l1_{kind}_{suffix}": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for kind in ("pairwise", "rows") for suffix in _ENTRY.values()})
+
+
 def _fn(kind: str, dtype: torch.dtype):
-    fn = getattr(_build.library("l1_distance"), f"l1_{kind}_{_ENTRY[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("l1_distance", f"l1_{kind}_{_ENTRY[dtype]}")
 
 
 def _check(queries: torch.Tensor, other: torch.Tensor, what: str) -> None:
@@ -90,10 +93,8 @@ def l1_distance_cuda(queries: torch.Tensor, points: torch.Tensor) -> torch.Tenso
     if q == 0 or n == 0 or m == 0:
         return torch.zeros((q, n), dtype=acc, device=queries.device)
     out = torch.empty((q, n), dtype=acc, device=queries.device)
-    with torch.cuda.device(queries.device):
-        _build.launch("l1_distance", _fn("pairwise", queries.dtype),
-                      _build.ptr(queries), _build.ptr(points), _build.ptr(out),
-                      q, n, m, _build.stream_of(queries))
+    _build.launch("l1_distance", _fn("pairwise", queries.dtype), queries.get_device(),
+                  queries.data_ptr(), points.data_ptr(), out.data_ptr(), q, n, m)
     return out
 
 
@@ -111,8 +112,6 @@ def l1_distance_rows_cuda(queries: torch.Tensor, rows: torch.Tensor) -> torch.Te
     if q == 0 or c == 0 or m == 0:
         return torch.zeros((q, c), dtype=acc, device=queries.device)
     out = torch.empty((q, c), dtype=acc, device=queries.device)
-    with torch.cuda.device(queries.device):
-        _build.launch("l1_distance_rows", _fn("rows", queries.dtype),
-                      _build.ptr(queries), _build.ptr(rows), _build.ptr(out),
-                      q, c, m, _build.stream_of(queries))
+    _build.launch("l1_distance_rows", _fn("rows", queries.dtype), queries.get_device(),
+                  queries.data_ptr(), rows.data_ptr(), out.data_ptr(), q, c, m)
     return out

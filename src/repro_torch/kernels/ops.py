@@ -25,7 +25,7 @@ __all__ = ["LAUNCHES", "reset_launches", "topk_merge", "fused_rerank",
 
 
 def _on_cuda(t) -> bool:
-    return t.device.type == "cuda"
+    return t.is_cuda
 
 
 def topk_merge(da, ia, db, ib):

@@ -56,20 +56,16 @@ def rw_hash_plain(pairs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _fn():
-    fn = _build.library("rw_hash").rw_hash
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# pairs, points, out, n, F, m, U2, stream
+_build.declare("rw_hash", {
+    "rw_hash": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "rw_hash_max_u2": []})
 
 
 def max_u2() -> int:
     """The largest U2 the kernel takes on the current device: its block
     holds the (U2+1) x 32 prefix table in shared memory."""
-    fn = _build.library("rw_hash").rw_hash_max_u2
-    fn.argtypes = []
-    fn.restype = ctypes.c_int
-    return fn()
+    return _build.entry("rw_hash", "rw_hash_max_u2")()
 
 
 def rw_hash_cuda(pairs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -95,6 +91,6 @@ def rw_hash_cuda(pairs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
         limit = max_u2()
         if u2 > limit:
             raise ValueError(f"rw_hash kernel takes U2 <= {limit} here, got {u2}")
-        _build.launch("rw_hash", _fn(), _build.ptr(pairs), _build.ptr(points),
-                      _build.ptr(out), n, f, m, u2, _build.stream_of(points))
+        _build.launch("rw_hash", _build.entry("rw_hash", "rw_hash"), points.get_device(),
+                      pairs.data_ptr(), points.data_ptr(), out.data_ptr(), n, f, m, u2)
     return out

@@ -19,7 +19,7 @@ from . import _build
 
 __all__ = ["topk_merge_plain", "topk_merge_cuda", "MAX_K"]
 
-MAX_K = 1024  # the kernel keeps 4 rows of kp (dist, id) pairs in shared memory
+MAX_K = 1024  # above kp = 32 a block keeps 4 rows of kp (dist, id) pairs in shared memory
 _BIG = np.iinfo(np.int32).max // 2
 
 
@@ -64,34 +64,39 @@ def topk_merge_plain(da, ia, db, ib):
 
 
 _ENTRY = {torch.int32: "topk_merge_i32", torch.float32: "topk_merge_f32"}
-
-
-def _fn(dtype):
-    fn = getattr(_build.library("topk_merge"), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# da, ia, db, ib, dout, iout, q, k, stream
+SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_build.declare("topk_merge", {name: SIGNATURE for name in _ENTRY.values()})
 
 
 def topk_merge_cuda(da, ia, db, ib):
-    """Launch the CUDA kernel on CUDA tensors; raises on what it cannot take."""
-    _pad_value(da.dtype)
-    q, k = da.shape
+    """Launch the CUDA kernel on CUDA tensors; raises on what it cannot take.
+
+    The host path is kept lean, since at the served k = 10 it is most of a
+    call: no copy of contiguous inputs, no device switch when the inputs'
+    device is current, and the C entry point bound once."""
+    name = _ENTRY.get(da.dtype)
+    if name is None:
+        _pad_value(da.dtype)
     if db.dtype != da.dtype or ia.dtype != torch.int32 or ib.dtype != torch.int32:
         raise TypeError("topk_merge: ids must be int32 and dists of one dtype")
-    for t in (ia, db, ib):
-        if t.shape != da.shape or t.device != da.device:
-            raise ValueError("topk_merge: inputs must share shape and device")
+    shape = da.shape
+    device = da.get_device()
+    if ia.shape != shape or db.shape != shape or ib.shape != shape:
+        raise ValueError("topk_merge: inputs must share one shape")
+    if device < 0 or ia.get_device() != device or db.get_device() != device \
+            or ib.get_device() != device:
+        raise ValueError("topk_merge: inputs must lie on one CUDA device")
+    q, k = shape
     if k > MAX_K:
         raise ValueError(f"topk_merge kernel takes k <= {MAX_K}, got {k}")
-    da, ia, db, ib = (t.contiguous() for t in (da, ia, db, ib))
+    if not (da.is_contiguous() and ia.is_contiguous() and db.is_contiguous()
+            and ib.is_contiguous()):
+        da, ia, db, ib = (t.contiguous() for t in (da, ia, db, ib))
     dout, iout = torch.empty_like(da), torch.empty_like(ia)
     if q == 0 or k == 0:
         return dout, iout
-    with torch.cuda.device(da.device):
-        _build.launch("topk_merge", _fn(da.dtype), _build.ptr(da),
-                      _build.ptr(ia), _build.ptr(db), _build.ptr(ib),
-                      _build.ptr(dout), _build.ptr(iout), q, k,
-                      _build.stream_of(da))
+    _build.launch("topk_merge", _build.entry("topk_merge", name), device,
+                  da.data_ptr(), ia.data_ptr(), db.data_ptr(), ib.data_ptr(),
+                  dout.data_ptr(), iout.data_ptr(), q, k)
     return dout, iout

@@ -77,6 +77,43 @@ def _rerank_cases():
     cases["all_sentinel"] = (rng.integers(0, 9, (20, 8)).astype(np.int32),
                              rng.integers(0, 9, (3, 8)).astype(np.int32),
                              np.full((3, 16), 20, np.int32), 6)
+    for dtype in (np.int32, np.int16):
+        cases.update(_split_cases(np.dtype(dtype)))
+    return cases
+
+
+def _split_cases(dtype):
+    """Rows long enough that the kernel splits them into several slices at
+    any slice count it plans for a small Q (it plans >= 512 slots a slice),
+    with the traps of the split: one id in every slice, equal distances of
+    different ids in different slices, a slice with no valid id, Q = 1, and
+    row widths for each way the kernel reads a row."""
+    name = dtype.name
+    cases = {}
+    rng = np.random.default_rng(31)
+    n, m, q, ctot = 300, 20, 3, 4000        # m = 20: vectors in int32, not int16
+    data = rng.integers(0, 40, (n, m)).astype(dtype)
+    queries = rng.integers(0, 40, (q, m)).astype(np.int32)
+    queries[2] = queries[0]
+    tie_ids = [40] + list(range(50, 60))    # 11 rows at distance 0 from query 0
+    data[tie_ids] = queries[0]
+    ids = rng.integers(-2, n + 3, (q, ctot)).astype(np.int32)
+    ids[:, ::500] = 40                      # id 40 in every slice
+    ids[:, 150 + 350 * np.arange(10)] = np.arange(50, 60)   # ties across slices
+    ids[1, :2048] = n                       # a first slice with no valid id
+    cases[f"split_q{q}_ctot{ctot}_{name}"] = (data, queries, ids, 10)
+    rng = np.random.default_rng(32)
+    n, m, ctot = 200, 130, 2600             # m = 130: no vectors in either type
+    data = rng.integers(-50, 50, (n, m)).astype(dtype)
+    ids = rng.integers(0, n, (1, ctot)).astype(np.int32)
+    ids[0, 1000:1700] = -1
+    cases[f"split_q1_m{m}_{name}"] = (data, rng.integers(-50, 50, (1, m)).astype(np.int32),
+                                      ids, 7)
+    for m in (128, 256, 1024):              # one vector a lane, or more
+        rng = np.random.default_rng(m)
+        cases[f"wide_m{m}_{name}"] = (rng.integers(0, 300, (64, m)).astype(dtype),
+                                      rng.integers(0, 300, (2, m)).astype(np.int32),
+                                      rng.integers(-1, 66, (2, 700)).astype(np.int32), 5)
     return cases
 
 
@@ -85,7 +122,10 @@ RERANK_CASES = _rerank_cases()
 
 def _merge_cases():
     cases = {}
-    for q, k, seed in [(1, 1, 0), (3, 5, 1), (9, 10, 2), (4, 16, 3), (5, 33, 4)]:
+    # k = 16, 17, 32, 33 at a Q that is no multiple of the kernel's rows a
+    # block (128 / kp in registers, 4 in shared memory)
+    for q, k, seed in [(1, 1, 0), (3, 5, 1), (9, 10, 2), (4, 16, 3), (5, 33, 4),
+                       (13, 16, 5), (13, 17, 6), (13, 32, 7), (13, 33, 8)]:
         rng = np.random.default_rng(seed)
         da = rng.integers(0, 40, (q, k)).astype(np.int32)
         db = rng.integers(0, 40, (q, k)).astype(np.int32)

@@ -65,6 +65,34 @@ def test_fused_rerank_kernel_matches_plain(card, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 2, 3, 7, 32])
+@pytest.mark.parametrize("name", sorted(RERANK_CASES))
+def test_fused_rerank_kernel_at_each_split(card, name, slices):
+    """The kernel at a fixed slice count (one block a query, a few, the
+    most) equals plain: the slice lists and their merge lose nothing."""
+    data, queries, ids, k = RERANK_CASES[name]
+    args = [_t(x).to(card) for x in (data, queries, ids)]
+    want = tfr.fused_rerank_plain(*args, k)
+    got = tfr.fused_rerank_cuda(*args, k, slices=slices)
+    torch.cuda.synchronize()
+    _eq(want[0].cpu(), got[0].cpu())
+    _eq(want[1].cpu(), got[1].cpu())
+
+
+@pytest.mark.cuda
+def test_fused_rerank_kernel_refuses_what_it_cannot_take(card):
+    data = torch.zeros((10, 4), dtype=torch.int32, device=card)
+    q = torch.zeros((2, 4), dtype=torch.int32, device=card)
+    ids = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        tfr.fused_rerank_cuda(data.to(torch.int64), q, ids, 3)
+    with pytest.raises(ValueError):                 # shared memory: 64 k + 4 m
+        tfr.fused_rerank_cuda(data, q, ids, tfr.SMEM_LIMIT // 64)
+    with pytest.raises(ValueError):
+        tfr.fused_rerank_cuda(data, q.cpu(), ids, 3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(MERGE_CASES))
 def test_topk_merge_kernel_matches_plain(card, name):
     args = [_t(x).to(card) for x in MERGE_CASES[name]]
