@@ -12,9 +12,12 @@ read just after, and must launch the kernels named in ``PATHS``):
                  shapes (ties, duplicate ids, uint32 extremes, truncating
                  buckets, tighter caps, n in {0, 1}, Ctot < k, int16; odd,
                  negative and above-universe coordinates; ragged Q, N, C, m
-                 with m = 300 and m = 1 in four input types; the rerank at
-                 its planned slice count and at 1, 2, 3, 7 and 32 slices),
-                 bit for bit;
+                 with m = 300 and m = 1 in four input types; the probe's
+                 extents with and without the run-length table, its gather
+                 at every cap, the rerank and the gather at their planned
+                 split and at 1, 2, 3, 7 and 32 slices; a wrapped int32
+                 sum), bit for bit; an index on the card refuses the rerank
+                 cases whose distances reach BIG_DIST;
   ground_truth   exact L1 k-NN of the queries through ``ops.l1_distance``,
                  each chunk of distances held against the plain version;
   serve          the main path: build the engine on the card, insert 512
@@ -38,9 +41,10 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ``device_ms`` the kernels' own device time a call from
                  torch.profiler, the same two for the library call, and
                  ``previous_ms`` for the earlier design of a redesigned
-                 kernel (the rerank's one block a query and the merge's
-                 shared-memory network, reached through their own C entry
-                 points from here only).
+                 kernel (the probe's and the rerank's one block a query and
+                 the merge's shared-memory network, reached through their
+                 own C entry points from here only).  The probe's row
+                 gives its two launches apart and the one-pass route.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -69,9 +73,10 @@ N_QUERIES, N_INSERT, N_DELETE, K = 1024, 512, 64, 10
 RW_PLAIN_ROWS = 65_536      # the plain thermometer at 1 M rows is ~6 TFLOP
 ORDER_ROUNDS = 32           # alternating batches of each engine
 # the kernels each path must launch
+PROBE = ("fused_probe_extents", "fused_probe_gather")
 PATHS = {"ground_truth": ("l1_distance",),
-         "serve": ("fused_probe", "fused_rerank", "topk_merge"),
-         "serve_rw_hash": ("rw_hash", "fused_probe", "fused_rerank", "topk_merge"),
+         "serve": (*PROBE, "fused_rerank", "topk_merge"),
+         "serve_rw_hash": ("rw_hash", *PROBE, "fused_rerank", "topk_merge"),
          "checks": ("l1_distance_rows",)}
 
 
@@ -127,31 +132,37 @@ def cuda_ms_pair(fa, fb, reps: int = 20, warm: int = 2):
     return float(np.median(ta)), float(np.median(tb))
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, tries: int = 3) -> float:
     """Device time of one call: torch.profiler's device-side time over
-    ``reps`` calls (every kernel, memset and copy the call launches) / reps."""
+    ``reps`` calls (every kernel, memset and copy the call launches) / reps.
+    A window in which the profiler recorded no device event at all (seen
+    now and then on the H100) is profiled again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        total += getattr(e, "self_cuda_time_total", 0.0) if dev is None else dev
-    check(total > 0, "the profiler recorded device time")
-    return total / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            dev = getattr(e, "self_device_time_total", None)
+            total += getattr(e, "self_cuda_time_total", 0.0) if dev is None else dev
+        if total > 0:
+            return total / 1e3 / reps
+    check(False, f"the profiler recorded device time in one of {tries} windows")
 
 
 def previous_designs(_build, ktm):
-    """Callables for the earlier designs of the two redesigned kernels, bound
-    to their own C entry points (nothing in the package reaches them), and
-    not counted in the launch counters."""
+    """Callables for the earlier designs of the three redesigned kernels,
+    bound to their own C entry points (nothing in the package reaches them),
+    and not counted in the launch counters."""
     import ctypes
+    _build.declare("fused_probe", {
+        "fused_probe_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]})
     _build.declare("fused_rerank", {
         f"fused_rerank_rowwise_{s}": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_void_p] for s in ("i32", "i16")})
@@ -161,6 +172,16 @@ def previous_designs(_build, ktm):
     def call(lib, name, *args):
         status = _build.entry(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
         check(status == 0, f"{name} launched (CUDA error {status})")
+
+    def probe(sorted_keys, sorted_ids, occ_from, probe_keys, cap, cbucket):
+        l, n = sorted_keys.shape
+        q, _, p = probe_keys.shape
+        out = torch.empty((q, cbucket), dtype=torch.int32, device=probe_keys.device)
+        counts = torch.empty((q,), dtype=torch.int32, device=probe_keys.device)
+        call("fused_probe", "fused_probe_launch", sorted_keys.data_ptr(), sorted_ids.data_ptr(),
+             occ_from.data_ptr(), probe_keys.data_ptr(), out.data_ptr(), counts.data_ptr(),
+             q, n, l * p, p, cap, cbucket)
+        return out, counts
 
     def rerank(dataset, queries, ids, k):
         n, m = dataset.shape
@@ -182,7 +203,7 @@ def previous_designs(_build, ktm):
              db.data_ptr(), ib.data_ptr(), d.data_ptr(), i.data_ptr(), q, k)
         return d, i
 
-    return rerank, merge
+    return probe, rerank, merge
 
 
 def nvidia_smi_line() -> str:
@@ -316,8 +337,8 @@ def main() -> int:
     from repro_torch.kernels import rw_hash as krw
     from repro_torch.kernels import topk_merge as ktm
     from repro_torch.serve.engine import AnnServingEngine, ServeConfig
-    from test_torch_cases import (L1_CASES, L1_ROWS_CASES, MERGE_CASES, PROBE_CASES,
-                                  RERANK_CASES, RW_HASH_CASES)
+    from test_torch_cases import (KERNEL_RERANK_CASES, L1_CASES, L1_ROWS_CASES, MERGE_CASES,
+                                  PROBE_CASES, RERANK_CASES, RW_HASH_CASES)
 
     t_start = time.perf_counter()
     card = torch.device("cuda")
@@ -332,7 +353,7 @@ def main() -> int:
     for name in libs:
         _build.library(name)
     log(f"phase build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}")
-    rerank_prev, merge_prev = previous_designs(_build, ktm)
+    probe_prev, rerank_prev, merge_prev = previous_designs(_build, ktm)
     for name, path in libs.items():
         regs = [ln.strip() for ln in (path.parent / f"{name}.log").read_text().splitlines()
                 if "Used" in ln and "registers" in ln]
@@ -347,15 +368,28 @@ def main() -> int:
         tpk = torch.from_numpy(pk.astype(np.int64)).to(card)
         occ = (torch.searchsorted(tk, tk, right=True)
                - torch.arange(tk.shape[1], device=card)).to(torch.int32)
-        lo, raw, _ = kfp.probe_extents(tk, tpk, cap, occ)
+        for occ_from in (None, occ):
+            got, want = ops.probe_extents(tk, tpk, cap, occ_from), kfp.probe_extents(
+                tk, tpk, cap, occ_from)
+            check(all(equal(g, w) for g, w in zip(got, want)),
+                  f"fused_probe extents kernel == plain on {name}")
+            n_cases += 1
+        lo, raw, _ = got
         for c in sorted({cap, 1, 3}):               # the full and tighter caps
             want = kfp.compact_gather(tids, lo, raw, pk.shape[2], cbucket, c)
-            for occ_from in (None, occ):
+            for occ_from in (None, occ):            # the one-pass route
                 got = ops.fused_probe(tk, tids, tpk, c, cbucket, occ_from=occ_from)
                 check(equal(got[0], want[0]) and equal(got[1], want[1]),
-                      f"fused_probe kernel == plain on {name} cap={c}")
+                      f"fused_probe one-pass kernels == plain on {name} cap={c}")
                 n_cases += 1
-    for name, (data, queries, ids, k) in sorted(RERANK_CASES.items()):
+            for slices in (None, 1, 2, 3, 7, 32):   # the served route's gather
+                got = kfp.compact_gather_cuda(tids, lo, raw, pk.shape[2], cbucket, c,
+                                              slices=slices)
+                check(equal(got[0], want[0]) and equal(got[1], want[1]),
+                      f"fused_probe gather kernel at {slices} slices == plain on {name} "
+                      f"cap={c}")
+                n_cases += 1
+    for name, (data, queries, ids, k) in sorted(KERNEL_RERANK_CASES.items()):
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(card)
                 for x in (data, queries, ids)]
         want = kfr.fused_rerank_plain(*args, k)
@@ -368,6 +402,19 @@ def main() -> int:
             check(equal(got[0], want[0]) and equal(got[1], want[1]),
                   f"fused_rerank kernel at {slices} slices == plain on {name}")
             n_cases += 1
+    for name in sorted(set(RERANK_CASES) - set(KERNEL_RERANK_CASES)):
+        data, queries, _, k = RERANK_CASES[name]    # a distance reaches BIG_DIST
+        small = IndexConfig(num_tables=2, num_hashes=4, width=24, num_probes=8,
+                            candidate_cap=8, universe=64, k=k, hash_impl="thermo")
+        eng = AnnServingEngine(small, ServeConfig(batch_size=4, warm_buckets=False,
+                                                  cand_cap_sample=2), data, device="cuda")
+        try:
+            eng.query_batch(queries)
+        except ValueError as err:
+            check("BIG_DIST" in str(err), f"the refusal of {name} names BIG_DIST")
+        else:
+            check(False, f"an index on the card refuses the queries of {name}")
+        n_cases += 1
     for name, arrays in sorted(MERGE_CASES.items()):
         args = [torch.from_numpy(x).to(card) for x in arrays]
         got, want = ops.topk_merge(*args), ktm.topk_merge_plain(*args)
@@ -526,12 +573,28 @@ def main() -> int:
     cap = cfg.candidate_cap if c_cap is None else min(cfg.candidate_cap, c_cap)
     p = cfg.probes_per_table
     tomb = idx._tombstone_array()
+    ext_k = lambda: kfp.probe_extents_cuda(st.sorted_keys, pk, cfg.candidate_cap, st.occ_from)
+    ext_p = lambda: kfp.probe_extents(st.sorted_keys, pk, cfg.candidate_cap, st.occ_from)
+    ext_got, ext_want = ext_k(), ext_p()
+    check(all(equal(a, b) for a, b in zip(ext_got, ext_want)) and equal(ext_got[0], lo),
+          "fused_probe extents kernel == plain on the served batch")
+    gat_k = lambda: kfp.compact_gather_cuda(st.sorted_ids, lo, occ, p, cb, cap)
+    gat_p = lambda: kfp.compact_gather(st.sorted_ids, lo, occ, p, cb, cap)
+    got, want = gat_k(), gat_p()
+    check(equal(got[0], want[0]) and equal(got[1], want[1]),
+          "fused_probe gather kernel == plain on the served batch")
     probe_k = lambda: kfp.fused_probe_cuda(st.sorted_keys, st.sorted_ids, pk, cap, cb,
                                            occ_from=st.occ_from)
-    probe_p = lambda: kfp.compact_gather(st.sorted_ids, lo, occ, p, cb, cap)
-    got, want = probe_k(), probe_p()
-    check(equal(got[0], want[0]) and equal(got[1], want[1]),
-          "fused_probe kernel == plain on the served batch")
+    probe_p = lambda: kfp.fused_probe_plain(st.sorted_keys, st.sorted_ids, pk, cap, cb,
+                                            occ_from=st.occ_from)
+    probe_pr = lambda: probe_prev(st.sorted_keys, st.sorted_ids, st.occ_from, pk, cap, cb)
+    one_got = probe_k()
+    check(all(equal(a, b) for a, b in zip(one_got, want)),
+          "fused_probe one-pass kernels == plain on the served batch")
+    check(all(equal(a, b) for a, b in zip(probe_pr(), want)),
+          "the probe's previous design == plain on the served batch")
+    gat_slices = kfr.plan_slices(pk.shape[0], cb, kfp.gather_resident_blocks(
+        torch.cuda.current_device(), lo.shape[1]))
     ids = pipe.stage_tombstone(got[0], seg.gids, tomb, st.dataset.shape[0])
     rr_k = lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids, K)
     rr_p = lambda: kfr.fused_rerank_plain(st.dataset, batch, ids, K, chunk=cfg.rerank_chunk)
@@ -570,8 +633,14 @@ def main() -> int:
     # byte written once; the rerank reads each distinct candidate row once.
     q_rows, lp = pk.shape[0], pk.shape[1] * pk.shape[2]
     gathered = int(torch.minimum(got[1], torch.tensor(cb, device=card)).sum())
+    # the one-pass route, counted as for the single-launch design: each
+    # probe key, the key and the run length at its lower bound, the
+    # gathered ids, the output row
     probe_bytes = q_rows * lp * (8 + 8 + 4) + gathered * 4 + q_rows * (cb + 1) * 4
     probe_ops = q_rows * lp * math.ceil(math.log2(max(2, st.dataset.shape[0])))
+    # extents: those reads, lo and occ written; gather: lo and occ read
+    ext_bytes = q_rows * lp * (8 + 8 + 4 + 4 + 4) + q_rows * 4
+    gat_bytes = q_rows * lp * (4 + 4) + gathered * 4 + q_rows * (cb + 1) * 4
     valid = ids[(ids >= 0) & (ids < st.dataset.shape[0])]
     uniq_rows = int(torch.unique(valid).numel())
     pairs = sum(int(torch.unique(r[(r >= 0) & (r < st.dataset.shape[0])]).numel())
@@ -609,8 +678,8 @@ def main() -> int:
 
     rows = []
     for name, kfn, pfn, lib, prev, nbytes, nops, errs, src, repl in [
-        ("fused_probe", probe_k, probe_p, None, None, probe_bytes, probe_ops,
-         [(got[0], want[0]), (got[1], want[1])], "fused_probe.cu",
+        ("fused_probe", probe_k, probe_p, None, probe_pr, probe_bytes, probe_ops,
+         [(one_got[0], want[0]), (one_got[1], want[1])], "fused_probe.cu",
          "src/repro/kernels/fused_probe.py:158"),
         ("fused_rerank", rr_k, rr_p, None, rr_prev, rr_bytes, rr_ops,
          [(sd, wd), (si, wi)], "fused_rerank.cu",
@@ -621,8 +690,20 @@ def main() -> int:
     ]:
         rows.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-            "replaces": repl, "launches": launches[name], "equal_to_plain": True,
-            **timed(kfn, pfn, lib, nbytes, nops, errs, prev)})
+            "replaces": repl, "equal_to_plain": True,
+            "launches": sum(launches[k] for k in PROBE) if name == "fused_probe" else
+            launches[name], **timed(kfn, pfn, lib, nbytes, nops, errs, prev)})
+    # the probe's row holds the one-pass route (the extents, then the
+    # gather) and, apart, its two launches: the served route runs the
+    # extents in phase A and the gather alone in phase B
+    for key, kfn, pfn, nbytes, nops, errs in [
+            ("extents", ext_k, ext_p, ext_bytes, probe_ops,
+             list(zip(ext_got, ext_want))),
+            ("gather", gat_k, gat_p, gat_bytes, q_rows * lp,
+             [(got[0], want[0]), (got[1], want[1])])]:
+        rows[0][key] = {"launches": launches[f"fused_probe_{key}"],
+                        **timed(kfn, pfn, None, nbytes, nops, errs)}
+    rows[0]["gather"]["slices"] = gat_slices
     rows[1]["pair_bound_ms"] = bound(rr_pair_bytes, rr_pair_ops)[0]
     rows[1]["slices"] = rr_slices
     rows[1]["ms_by_slices"] = {
@@ -634,7 +715,7 @@ def main() -> int:
     rows[1]["delta_scan_previous_ms"] = cuda_ms(lambda: rerank_prev(delta_pts, batch, dids, K))
     log(f"phase batch: Q {q_rows}, rung cbucket {cb} c_cap {c_cap}, gathered "
         f"{gathered}, valid slots {n_slots}, distinct rows {uniq_rows}, delta rows "
-        f"{idx._delta_count}, rerank slices {rr_slices}")
+        f"{idx._delta_count}, rerank slices {rr_slices}, gather slices {gat_slices}")
 
     # rw_hash at the build's shape (every point) and at one served batch;
     # plain on a subset, the prefix-gather hash on every point

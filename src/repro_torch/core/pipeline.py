@@ -55,7 +55,7 @@ def stage_probe_keys(cfg, params: hashes_lib.LshParams, template: torch.Tensor,
 
 def stage_probe_extents(cfg, sorted_keys, probe_keys, occ_from=None):
     """Phase A: raw extents (lo, occ) and per-query counts under
-    ``cfg.candidate_cap`` — plain torch on every device."""
+    ``cfg.candidate_cap`` — the extents kernel on the card."""
     return kops.probe_extents(sorted_keys, probe_keys, cfg.candidate_cap,
                               occ_from=occ_from)
 

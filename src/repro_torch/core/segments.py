@@ -134,6 +134,34 @@ class SegmentedIndex:
         self.compactions = 0
         self._delta_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._tomb_cache: Optional[torch.Tensor] = None
+        self._coord_range: Optional[Tuple[int, int]] = None  # of every point held
+
+    def _within_reach(self, lo: int, hi: int, what: str) -> Tuple[int, int]:
+        """The union of ``(lo, hi)`` and the held points' range; raises when
+        an L1 distance inside it could reach ``BIG_DIST``."""
+        if self._coord_range is not None:
+            lo, hi = min(lo, self._coord_range[0]), max(hi, self._coord_range[1])
+        if self.dim * (hi - lo) >= pipe.BIG_DIST:
+            raise ValueError(
+                f"{what}: coordinates in [{lo}, {hi}] over {self.dim} dims could "
+                f"reach an L1 distance of BIG_DIST ({pipe.BIG_DIST}), which the "
+                f"rerank kernel does not rank as the reference does")
+        return lo, hi
+
+    def admit_points(self, points) -> None:
+        """Record points about to enter the index (build, insert, restore),
+        refusing them if a distance between held points and queries in
+        their range could reach ``BIG_DIST``."""
+        if points.shape[0] == 0:
+            return
+        self._coord_range = self._within_reach(int(points.min()), int(points.max()),
+                                               "points")
+
+    def admit_queries(self, queries: np.ndarray) -> None:
+        """Refuse a host batch whose distances to held points could reach
+        ``BIG_DIST``; reads nothing from the device."""
+        if queries.shape[0]:
+            self._within_reach(int(queries.min()), int(queries.max()), "queries")
 
     def _segment(self, state: IndexState, gids) -> Segment:
         return Segment(state=state, gids=gids, fingerprint=self.fingerprint,
@@ -155,6 +183,7 @@ class SegmentedIndex:
         n, dim = dataset.shape
         idx = cls(cfg, int(dim), delta_cap, params, cap_quantile=cap_quantile,
                   cap_sample=cap_sample, device=device, seed=seed)
+        idx.admit_points(dataset)
         state = idx._build(dataset)
         idx.segments = [idx._segment(
             state, torch.arange(n, dtype=torch.int32, device=idx.device))]
@@ -172,6 +201,7 @@ class SegmentedIndex:
         idx = cls(cfg, int(state.dataset.shape[1]), delta_cap,
                   params=state.params, cap_quantile=cap_quantile,
                   cap_sample=cap_sample, device=device)
+        idx.admit_points(state.dataset)
         gids = torch.as_tensor(np.asarray(gids, np.int32)
                                if not torch.is_tensor(gids) else gids)
         idx.segments = [idx._segment(state, gids.to(torch.int32).to(device))]
@@ -219,6 +249,7 @@ class SegmentedIndex:
         pts = np.atleast_2d(np.asarray(points, np.int32))
         if pts.shape[1] != self.dim:
             raise ValueError(f"expected dim {self.dim}, got {pts.shape[1]}")
+        self.admit_points(pts)
         gids = np.arange(self._next_gid, self._next_gid + pts.shape[0],
                          dtype=np.int32)
         self._next_gid += pts.shape[0]

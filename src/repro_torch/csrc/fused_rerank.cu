@@ -5,7 +5,13 @@
 // (src/repro/kernels/fused_rerank.py:78, :140).  Contract: the k
 // lex-(dist, id)-smallest pairs over the unique valid candidate ids of each
 // query row (an id < 0 or >= n is invalid; ids arrive un-deduplicated),
-// ascending; empty slots carry (INT32_MAX/2, -1).
+// ascending; empty slots carry (INT32_MAX/2, -1).  The kernel needs every
+// valid candidate's int32 distance below INT32_MAX/2 (BIG_DIST): the
+// reference ranks a valid candidate at or beyond it after the row's
+// invalid and duplicate slots, whose number needs a count of the row's
+// distinct ids.  The serving entry points refuse data and queries whose
+// coordinate range could reach it (SegmentedIndex.admit_points and
+// admit_queries), so they never hand the kernel such a row.
 //
 // Bound: bytes, and in practice the latency of dependent loads.  Every valid
 // candidate costs one dataset row (m * 2 or 4 bytes, a random gather) after
@@ -36,8 +42,10 @@
 //  * the 4 candidates' partial sums reduce with 6 shuffles instead of 20
 //    (halving exchanges at distances 16 and 8, then a butterfly), leaving
 //    each candidate's distance in one group of 8 lanes;
-//  * selection runs on packed 64-bit keys (dist << 32) | id, which order
-//    exactly as (dist, id) since dist < 2^31 and valid ids are >= 0.  Each
+//  * selection runs on packed 64-bit keys ((dist ^ 2^31) << 32) | id, which
+//    order exactly as (dist, id) for any int32 dist (a wrapped sum is
+//    negative and sorts first, as in the reference) since valid ids are
+//    >= 0.  Each
 //    warp keeps a sorted running list of its k best keys in shared memory.
 //    A key >= the list's worst is dropped at once (one ballot decides the
 //    common case for all 4 candidates); a key equal to one already listed is
@@ -98,9 +106,19 @@ __device__ __forceinline__ int elem<int16_t>(const int4& x, int w) {
   return (w & 1) ? (wd >> 16) : static_cast<int>(static_cast<int16_t>(wd & 0xffff));
 }
 
+// The sign bit of d is flipped so that unsigned keys order as signed
+// distances: a wrapped (negative) int32 sum sorts first, as in the
+// reference.  An empty slot (all ones) stays above every key, whose id word
+// is below 2^31 - 1.
+constexpr unsigned kSignFlip = 0x80000000u;
+
 __device__ __forceinline__ unsigned long long make_key(int d, int id) {
-  return (static_cast<unsigned long long>(static_cast<unsigned>(d)) << 32) |
+  return (static_cast<unsigned long long>(static_cast<unsigned>(d) ^ kSignFlip) << 32) |
          static_cast<unsigned>(id);
+}
+
+__device__ __forceinline__ int key_dist(unsigned long long key) {
+  return static_cast<int>(static_cast<unsigned>(key >> 32) ^ kSignFlip);
 }
 
 // Per-lane partial L1 sums of up to kUnroll candidate rows (cid[u] < 0: no
@@ -219,7 +237,7 @@ __device__ void warp_merge(const unsigned long long* lists, int nlists, int k, i
       if (keys_out) {
         keys_out[r] = best;
       } else {
-        dout[r] = static_cast<int>(best >> 32);
+        dout[r] = key_dist(best);
         iout[r] = static_cast<int>(best & 0xffffffffu);
       }
     }
@@ -451,7 +469,7 @@ __global__ void rowwise_kernel(const T* __restrict__ dataset, const int* __restr
       ++head[bw];
       if (best == prev) continue;
       prev = best;
-      dout[out + filled] = static_cast<int>(best >> 32);
+      dout[out + filled] = key_dist(best);
       iout[out + filled] = static_cast<int>(best & 0xffffffffu);
       ++filled;
     }

@@ -5,7 +5,10 @@ Replaces ``fused_rerank_pallas`` (``src/repro/kernels/fused_rerank.py:140``).
 Contract (both versions, and the JAX package's): the k lex-(dist,
 id)-smallest pairs over the *unique* valid candidate ids, ascending; ids < 0
 or >= n are invalid and ids need not be deduplicated; empty slots carry
-``(BIG_DIST, -1)``.
+``(BIG_DIST, -1)``, and so does every invalid or duplicate slot in the sort,
+so a valid distance >= BIG_DIST ranks after them.  The kernel needs every
+valid distance below BIG_DIST (the serving entry points refuse inputs that
+could reach it, ``SegmentedIndex.admit_points`` and ``admit_queries``).
 
 The kernel splits each query's candidate slots into ``S`` slices, one block
 each, and merges the slices' top-k lists: slice s holds the ``CHUNK``-slot
@@ -24,7 +27,7 @@ __all__ = ["BIG_DIST", "fused_rerank_plain", "fused_rerank_cuda", "empty_result"
            "plan_slices", "slice_slots", "resident_blocks"]
 
 BIG_DIST = np.iinfo(np.int32).max // 2
-_INT64_MAX = np.iinfo(np.int64).max
+_EMPTY_KEY = BIG_DIST << 32  # (BIG_DIST, -1) with the id stored as id + 1
 SMEM_LIMIT = 48 * 1024  # bytes of shared memory the kernel may ask for
 MAX_SLICES = 32         # the slice merge gives each slice's list one lane
 CHUNK = 256             # slots a block takes a step (its 256 threads' ids)
@@ -40,9 +43,13 @@ def fused_rerank_plain(dataset, queries, ids, k: int, chunk: int = 512):
     """Plain-torch rerank: id-sort dedup, chunked distances, one key sort.
 
     Chunked over candidates like ``fused_rerank_xla``, so the gathered
-    (Q, chunk, m) rows stay small at any candidate width.  Selection sorts
-    packed int64 keys ``(dist << 32) | id``, whose order is exactly the
-    lex-(dist, id) order.
+    (Q, chunk, m) rows stay small at any candidate width.  As in the
+    reference, every slot takes part in the sort: a unique valid id as
+    ``(dist, id)``, an invalid or duplicate slot as ``(BIG_DIST, -1)``.  The
+    packed int64 keys ``(dist << 32) | (id + 1)`` order exactly as lex-(dist,
+    id) for any int32 dist, so a wrapped (negative) sum sorts first and a
+    valid distance >= BIG_DIST sorts after every empty slot; an output whose
+    distance is >= BIG_DIST carries the id -1.
     """
     n = dataset.shape[0]
     q, ctot = ids.shape
@@ -54,21 +61,17 @@ def fused_rerank_plain(dataset, queries, ids, k: int, chunk: int = 512):
     dup[:, 1:] = sid[:, 1:] == sid[:, :-1]
     sid = torch.where(dup, n, sid)
     qs = queries.to(torch.int32)
-    keys = torch.empty((q, ctot), dtype=torch.int64, device=ids.device)
+    keys = torch.empty((q, max(ctot, k)), dtype=torch.int64, device=ids.device)
+    keys[:, ctot:] = _EMPTY_KEY
     for lo in range(0, ctot, chunk):
         step = sid[:, lo:lo + chunk]
         rows = dataset[step.clamp(0, n - 1)].to(torch.int32)        # (Q, c, m)
         d = (rows - qs[:, None, :]).abs().sum(dim=-1, dtype=torch.int32)
-        keys[:, lo:lo + chunk] = torch.where(
-            step < n, (d.to(torch.int64) << 32) | step, _INT64_MAX)
+        keys[:, lo:lo + step.shape[1]] = torch.where(
+            step < n, (d.to(torch.int64) << 32) | (step + 1), _EMPTY_KEY)
     keys = torch.sort(keys, dim=-1).values[:, :k]
-    if keys.shape[1] < k:
-        fill = torch.full((q, k - keys.shape[1]), _INT64_MAX, dtype=torch.int64,
-                          device=keys.device)
-        keys = torch.cat([keys, fill], dim=-1)
-    bad = keys == _INT64_MAX
-    d = torch.where(bad, BIG_DIST, keys >> 32).to(torch.int32)
-    i = torch.where(bad, -1, keys & 0xFFFFFFFF).to(torch.int32)
+    d = (keys >> 32).to(torch.int32)
+    i = torch.where(d >= BIG_DIST, -1, (keys & 0xFFFFFFFF) - 1).to(torch.int32)
     return d, i
 
 

@@ -11,8 +11,9 @@ it), so a run can show that it went through the kernels.
 from __future__ import annotations
 
 from ._build import LAUNCHES, reset_launches
-from .fused_probe import (compact_gather, fused_probe_cuda, fused_probe_plain,
-                          probe_extents)
+from .fused_probe import (compact_gather, compact_gather_cuda, fused_probe_cuda,
+                          fused_probe_plain, probe_extents_cuda)
+from .fused_probe import probe_extents as probe_extents_plain
 from .fused_rerank import fused_rerank_cuda, fused_rerank_plain
 from .l1_distance import (l1_distance_cuda, l1_distance_plain,
                           l1_distance_rows_cuda, l1_distance_rows_plain)
@@ -43,22 +44,35 @@ def fused_rerank(dataset, queries, ids, k: int, chunk: int = 512):
     return fused_rerank_plain(dataset, queries, ids, k, chunk=chunk)
 
 
+def probe_extents(sorted_keys, probe_keys, cap: int, occ_from=None):
+    """Phase A: raw bucket extents (lo, occ (Q, L*P) int32, unclamped) and
+    counts (Q,) = sum min(occ, cap).  ``occ_from``, the build-time run-length
+    table, turns the right-side search into a hit test."""
+    if _on_cuda(probe_keys):
+        return probe_extents_cuda(sorted_keys, probe_keys, cap, occ_from=occ_from)
+    return probe_extents_plain(sorted_keys, probe_keys, cap, occ_from=occ_from)
+
+
 def fused_probe(sorted_keys, sorted_ids, probe_keys, cap: int, cbucket: int,
                 extents=None, occ_from=None):
     """Bucket lookup + compacted gather.
 
-    ``extents`` — phase A's (lo, occ) — lets the plain version skip the
-    search; the kernel re-searches from the probe keys, as the TPU kernel
-    does.  ``cap`` may be tighter than the cap of the extents' counts.
+    Given ``extents`` — phase A's (lo, occ) — it gathers from them and
+    searches nothing (the served path, which runs phase A first); without
+    them it computes the extents first (the one-pass path).  On the card
+    these are the gather kernel alone, or the extents kernel and then the
+    gather kernel.  ``cap`` may be tighter than the cap of the extents'
+    counts (the truncate rung).
     """
-    if _on_cuda(probe_keys):
-        return fused_probe_cuda(sorted_keys, sorted_ids, probe_keys, cap,
-                                cbucket, occ_from=occ_from)
-    if extents is not None:
-        return compact_gather(sorted_ids, extents[0], extents[1],
-                              probe_keys.shape[2], cbucket, cap)
-    return fused_probe_plain(sorted_keys, sorted_ids, probe_keys, cap, cbucket,
-                             occ_from=occ_from)
+    if extents is None:
+        if _on_cuda(probe_keys):
+            return fused_probe_cuda(sorted_keys, sorted_ids, probe_keys, cap,
+                                    cbucket, occ_from=occ_from)
+        return fused_probe_plain(sorted_keys, sorted_ids, probe_keys, cap,
+                                 cbucket, occ_from=occ_from)
+    gather = compact_gather_cuda if _on_cuda(extents[0]) else compact_gather
+    return gather(sorted_ids, extents[0], extents[1], probe_keys.shape[2],
+                  cbucket, cap)
 
 
 def rw_hash(pairs, points):

@@ -206,6 +206,7 @@ class AnnServingEngine:
     def _run_batch(self, batch: np.ndarray, n_real: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Run one padded batch; returns PADDED (B, k) host results."""
+        self.index.admit_queries(batch[:n_real])
         sig = self._index_signature()
         key = (batch.shape[0], sig)
         if key not in self._warm:

@@ -4,6 +4,8 @@ so the card-side tests need no jax).
 PROBE_CASES  : name -> (keys (L, n) uint32 sorted, ids (L, n) int32,
                         probe keys (Q, L, P) uint32, cap, cbucket)
 RERANK_CASES : name -> (dataset (n, m), queries (Q, m) int32, ids (Q, Ctot) int32, k)
+RERANK_WRAP_CASES: the same, with L1 sums that wrap in int32
+KERNEL_RERANK_CASES: the rerank cases inside the CUDA kernel's contract
 MERGE_CASES  : name -> (da, ia, db, ib), each (Q, k)
 RW_HASH_CASES: name -> (pairs (F, m, U2) int8, points (n, m) int32)
 L1_CASES     : name -> (queries (Q, m), points (N, m)), one dtype
@@ -50,6 +52,22 @@ def _probe_cases():
     keys = np.zeros((4, 8), np.uint32)                  # dups across tables
     cases["dup_across_tables"] = (keys, np.tile(np.arange(8, dtype=np.int32), (4, 1)),
                                   np.zeros((1, 4, 1), np.uint32), 8, 64)
+    # L*P over one block's width (256 threads): L 4 x P 100 and L 8 x P 200
+    cases["wide_l4_p100"] = _probe_case(5, 4, 300, 100, 3, 40, 5, 2000)
+    cases["wide_l8_p200"] = _probe_case(6, 8, 200, 200, 2, 60, 4, 700)
+    # total > cbucket = 600: the row is cut inside the third 256-slot chunk
+    cases["truncate_in_chunk"] = _probe_case(7, 4, 400, 50, 3, 20, 8, 600)
+    # buckets far over the cap next to empty ones; query 1 finds nothing
+    rng = np.random.default_rng(8)
+    keys = np.stack([np.sort(np.concatenate([np.full(300, 7), np.full(150, 9),
+                                             rng.integers(20, 60, 50)])),
+                     np.sort(np.concatenate([np.full(200, 3), rng.integers(0, 12, 300)]))
+                     ]).astype(np.uint32)
+    ids = np.stack([rng.permutation(500) for _ in range(2)]).astype(np.int32)
+    pk = np.asarray([[[7, 8, 9, 6, 30, 7], [9, 100, 7, 8, 21, 0]],
+                     [[1000, 1001, 8, 0, 6, 10], [100, 200, 13, 14, 15, 16]],
+                     [[9, 9, 9, 7, 7, 7], [61, 62, 63, 64, 65, 66]]], np.uint32)
+    cases["skewed_and_empty"] = (keys, ids, pk, 6, 200)
     return cases
 
 
@@ -79,6 +97,12 @@ def _rerank_cases():
                              np.full((3, 16), 20, np.int32), 6)
     for dtype in (np.int32, np.int16):
         cases.update(_split_cases(np.dtype(dtype)))
+    # valid candidates at ~1.34e9 >= BIG: the reference ranks them after
+    # every invalid slot, so row 0 is six (BIG, -1)
+    data = (2 ** 28 - np.random.default_rng(0).integers(0, 1000, (40, 5))).astype(np.int32)
+    ids = np.full((2, 30), -1, np.int32)
+    ids[0, :5] = [8, 19, 12, 8, 36]
+    cases["beyond_big_dist"] = (data, np.zeros((2, 5), np.int32), ids, 6)
     return cases
 
 
@@ -118,6 +142,28 @@ def _split_cases(dtype):
 
 
 RERANK_CASES = _rerank_cases()
+
+# rows 0-2 sum to 9 * 2**28, which wraps to -1879048192 and ranks first
+_WRAP_DATA = np.concatenate([np.full((3, 9), 2 ** 28), np.arange(5, 8)[:, None].repeat(9, 1)])
+RERANK_WRAP_CASES = {"wrapped_sum": (_WRAP_DATA.astype(np.int32), np.zeros((1, 9), np.int32),
+                                     np.arange(6, dtype=np.int32)[None], 4)}
+
+
+def reaches_big(case) -> bool:
+    """Whether a valid candidate's int32 L1 distance is >= BIG: outside the
+    rerank kernel's contract (the serving entry points refuse such data)."""
+    data, queries, ids, _ = case
+    n = data.shape[0]
+    if n == 0:
+        return False
+    rows = data[np.clip(ids, 0, n - 1)].astype(np.int64)
+    d = np.abs(rows - queries[:, None, :].astype(np.int64)).sum(-1)
+    d = (d + 2 ** 31) % 2 ** 32 - 2 ** 31                    # the int32 sum
+    return bool((((ids >= 0) & (ids < n)) & (d >= BIG)).any())
+
+
+KERNEL_RERANK_CASES = {name: case for name, case in {**RERANK_CASES, **RERANK_WRAP_CASES}.items()
+                       if not reaches_big(case)}
 
 
 def _merge_cases():

@@ -9,13 +9,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.index import IndexConfig
 from repro_torch.kernels import fused_probe as tfp
+from repro_torch.kernels import ops
 from repro_torch.kernels import fused_rerank as tfr
 from repro_torch.kernels import l1_distance as tl1
 from repro_torch.kernels import rw_hash as trw
 from repro_torch.kernels import topk_merge as ttm
-from test_torch_cases import (L1_CASES, L1_ROWS_CASES, MERGE_CASES, PROBE_CASES,
-                              RERANK_CASES, RW_HASH_CASES)
+from repro_torch.serve.engine import AnnServingEngine, ServeConfig
+from test_torch_cases import (KERNEL_RERANK_CASES, L1_CASES, L1_ROWS_CASES, MERGE_CASES,
+                              PROBE_CASES, RERANK_CASES, RW_HASH_CASES, reaches_big)
 
 torch.set_num_threads(1)
 
@@ -35,27 +38,66 @@ def card():
     return torch.device("cuda")
 
 
+def _probe_inputs(name, card):
+    """(keys, ids, probe keys, run-length table) of a probe case on the card."""
+    keys, ids, pk, cap, cbucket = PROBE_CASES[name]
+    tk = _t(keys.astype(np.int64)).to(card)
+    occ = (torch.searchsorted(tk, tk, right=True)
+           - torch.arange(tk.shape[1], device=card)).to(torch.int32)
+    return tk, _t(ids).to(card), _t(pk.astype(np.int64)).to(card), occ, cap, cbucket
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(PROBE_CASES))
 def test_fused_probe_kernel_matches_plain(card, name):
-    keys, ids, pk, cap, cbucket = PROBE_CASES[name]
-    tk = _t(keys.astype(np.int64)).to(card)
-    tpk = _t(pk.astype(np.int64)).to(card)
-    tids = _t(ids).to(card)
-    occ = (torch.searchsorted(tk, tk, right=True)
-           - torch.arange(tk.shape[1], device=card)).to(torch.int32)
+    """The one-pass route (the extents kernel, then the gather kernel) and
+    its dispatch through ``ops.fused_probe``."""
+    tk, tids, tpk, occ, cap, cbucket = _probe_inputs(name, card)
     want = tfp.fused_probe_plain(tk, tids, tpk, cap, cbucket)
     for occ_from in (None, occ):
-        got = tfp.fused_probe_cuda(tk, tids, tpk, cap, cbucket, occ_from=occ_from)
-        torch.cuda.synchronize()
-        _eq(want[0].cpu(), got[0].cpu())
-        _eq(want[1].cpu(), got[1].cpu())
+        for fn in (tfp.fused_probe_cuda, ops.fused_probe):
+            got = fn(tk, tids, tpk, cap, cbucket, occ_from=occ_from)
+            torch.cuda.synchronize()
+            _eq(want[0].cpu(), got[0].cpu())
+            _eq(want[1].cpu(), got[1].cpu())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(RERANK_CASES))
+@pytest.mark.parametrize("name", sorted(PROBE_CASES))
+def test_probe_extents_kernel_matches_plain(card, name):
+    tk, _, tpk, occ, cap, _ = _probe_inputs(name, card)
+    for occ_from in (None, occ):
+        want = tfp.probe_extents(tk, tpk, cap, occ_from)
+        got = tfp.probe_extents_cuda(tk, tpk, cap, occ_from)
+        torch.cuda.synchronize()
+        for w, g, what in zip(want, got, ("lo", "occ", "counts")):
+            _eq(w.cpu(), g.cpu(), f"{what}, occ_from {'given' if occ_from is not None else None}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [None, 1, 2, 3, 7, 32])
+@pytest.mark.parametrize("name", sorted(PROBE_CASES))
+def test_compact_gather_kernel_matches_plain(card, name, slices):
+    """The gather from phase A's extents at the full cap and tighter ones,
+    at the planned split and at fixed ones; the served route through
+    ``ops.fused_probe(extents=...)`` too."""
+    tk, tids, tpk, occ, cap, cbucket = _probe_inputs(name, card)
+    lo, raw, _ = tfp.probe_extents(tk, tpk, cap, occ)
+    p = tpk.shape[2]
+    for c in sorted({cap, 1, 3}):
+        want = tfp.compact_gather(tids, lo, raw, p, cbucket, c)
+        got = tfp.compact_gather_cuda(tids, lo, raw, p, cbucket, c, slices=slices)
+        served = ops.fused_probe(tk, tids, tpk, c, cbucket, extents=(lo, raw))
+        torch.cuda.synchronize()
+        for g in (got, served):
+            _eq(want[0].cpu(), g[0].cpu(), f"ids at cap {c}")
+            _eq(want[1].cpu(), g[1].cpu(), f"counts at cap {c}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KERNEL_RERANK_CASES))
 def test_fused_rerank_kernel_matches_plain(card, name):
-    data, queries, ids, k = RERANK_CASES[name]
+    data, queries, ids, k = KERNEL_RERANK_CASES[name]
     args = [_t(x).to(card) for x in (data, queries, ids)]
     want = tfr.fused_rerank_plain(*args, k)
     got = tfr.fused_rerank_cuda(*args, k)
@@ -66,17 +108,34 @@ def test_fused_rerank_kernel_matches_plain(card, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("slices", [1, 2, 3, 7, 32])
-@pytest.mark.parametrize("name", sorted(RERANK_CASES))
+@pytest.mark.parametrize("name", sorted(KERNEL_RERANK_CASES))
 def test_fused_rerank_kernel_at_each_split(card, name, slices):
     """The kernel at a fixed slice count (one block a query, a few, the
-    most) equals plain: the slice lists and their merge lose nothing."""
-    data, queries, ids, k = RERANK_CASES[name]
+    most) equals plain: the slice lists and their merge lose nothing.  The
+    cases include a wrapped int32 sum, which ranks first."""
+    data, queries, ids, k = KERNEL_RERANK_CASES[name]
     args = [_t(x).to(card) for x in (data, queries, ids)]
     want = tfr.fused_rerank_plain(*args, k)
     got = tfr.fused_rerank_cuda(*args, k, slices=slices)
     torch.cuda.synchronize()
     _eq(want[0].cpu(), got[0].cpu())
     _eq(want[1].cpu(), got[1].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(set(RERANK_CASES) - set(KERNEL_RERANK_CASES)))
+def test_serving_on_card_refuses_distances_beyond_big_dist(card, name):
+    """The rerank cases outside the kernel's contract (a valid distance >=
+    BIG_DIST) never reach it from the serving path: an index on the card
+    holding their data refuses their queries."""
+    data, queries, ids, k = RERANK_CASES[name]
+    assert reaches_big(RERANK_CASES[name])
+    cfg = IndexConfig(num_tables=2, num_hashes=4, width=24, num_probes=8,
+                      candidate_cap=8, universe=64, k=k, hash_impl="thermo")
+    eng = AnnServingEngine(cfg, ServeConfig(batch_size=4, warm_buckets=False,
+                                            cand_cap_sample=2), data, device="cuda")
+    with pytest.raises(ValueError, match="BIG_DIST"):
+        eng.query_batch(queries)
 
 
 @pytest.mark.cuda

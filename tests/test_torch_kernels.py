@@ -12,13 +12,14 @@ import torch
 from repro.kernels import ref
 from repro.kernels.fused_probe import (compact_gather_xla, fused_probe_xla,
                                        probe_extents_xla)
-from repro.kernels.fused_rerank import fused_rerank_xla
+from repro.kernels.fused_rerank import fused_rerank_pallas, fused_rerank_xla
 from repro.kernels.topk_merge import topk_merge_pallas
 from repro_torch.kernels import fused_probe as tfp
 from repro_torch.kernels import fused_rerank as tfr
 from repro_torch.kernels import ops
 from repro_torch.kernels import topk_merge as ttm
-from test_torch_cases import BIG, MERGE_CASES, PROBE_CASES, RERANK_CASES
+from test_torch_cases import (BIG, MERGE_CASES, PROBE_CASES, RERANK_CASES,
+                              RERANK_WRAP_CASES)
 
 torch.set_num_threads(1)
 
@@ -49,11 +50,14 @@ def test_fused_probe_plain_matches_jax(name):
     _eq(want_c, ops_c)
 
 
-@pytest.mark.parametrize("name", ["random", "truncating_cbucket", "uint32_extremes"])
+@pytest.mark.parametrize("name", ["random", "truncating_cbucket", "uint32_extremes",
+                                  "wide_l4_p100", "wide_l8_p200", "truncate_in_chunk",
+                                  "skewed_and_empty"])
 @pytest.mark.parametrize("c_cap", [1, 3, None])
 def test_two_phase_extents_and_tighter_cap(name, c_cap):
     """Phase A at the full cap, gathered at a tighter ``c_cap``, equals the
-    JAX pair and the oracle run directly at ``c_cap``."""
+    JAX pair and the oracle run directly at ``c_cap``; phase A through the
+    run-length table equals the JAX package's too."""
     keys, ids, pk, cap, cbucket = PROBE_CASES[name]
     c = cap if c_cap is None else c_cap
     jlo, jocc, jcnt = probe_extents_xla(jnp.asarray(keys), jnp.asarray(pk), cap)
@@ -61,6 +65,13 @@ def test_two_phase_extents_and_tighter_cap(name, c_cap):
     tlo, tocc, tcnt = tfp.probe_extents(tk, tpk, cap)
     for a, b in ((jlo, tlo), (jocc, tocc), (jcnt, tcnt)):
         _eq(a, b)
+    occ_from = np.stack([np.searchsorted(row, row, side="right") - np.arange(row.size)
+                         for row in keys]).astype(np.int32)
+    want_from = probe_extents_xla(jnp.asarray(keys), jnp.asarray(pk), cap,
+                                  occ_from=jnp.asarray(occ_from))
+    got_from = ops.probe_extents(tk, tpk, cap, occ_from=_t(occ_from))
+    for a, b in zip(want_from, got_from):
+        _eq(a, b, "extents through occ_from")
     got = tfp.compact_gather(_t(ids), tlo, tocc, pk.shape[2], cbucket, c)
     want = compact_gather_xla(jnp.asarray(ids), jlo, jocc, pk.shape[2], cbucket, c)
     oracle = ref.fused_probe(jnp.asarray(keys), jnp.asarray(ids), jnp.asarray(pk),
@@ -86,6 +97,25 @@ def test_fused_rerank_plain_matches_jax(name):
     got = tfr.fused_rerank_plain(_t(data), _t(queries), _t(ids), k, chunk=16)
     via_ops = ops.fused_rerank(_t(data), _t(queries), _t(ids), k, chunk=5)
     for other in (xla, got, via_ops):
+        _eq(want[0], other[0], "dists")
+        _eq(want[1], other[1], "ids")
+
+
+@pytest.mark.parametrize("name", sorted(RERANK_WRAP_CASES))
+def test_fused_rerank_plain_wrapped_sums(name):
+    """An int32 L1 sum that wraps ranks by its wrapped (negative) value, as
+    in ``ref.fused_rerank`` and the Pallas kernel.  Not held against
+    ``fused_rerank_xla``: its packed int32 key drops the wrapped distance
+    (it returns 0 for -1879048192), so it disagrees with the reference
+    itself here."""
+    data, queries, ids, k = RERANK_WRAP_CASES[name]
+    args = [jnp.asarray(x) for x in (data, queries, ids)]
+    want = ref.fused_rerank(*args, k)
+    pallas = fused_rerank_pallas(*args, k, interpret=True)
+    got = tfr.fused_rerank_plain(_t(data), _t(queries), _t(ids), k, chunk=4)
+    via_ops = ops.fused_rerank(_t(data), _t(queries), _t(ids), k)
+    assert int(np.asarray(want[0])[0, 0]) < 0          # the sum did wrap
+    for other in (pallas, got, via_ops):
         _eq(want[0], other[0], "dists")
         _eq(want[1], other[1], "ids")
 

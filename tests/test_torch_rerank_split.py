@@ -66,6 +66,9 @@ def test_split_merge_equals_whole(name, slices):
 
 @pytest.mark.parametrize("q,ctot,resident,slices,want", [
     (64, 131_072, 792, None, 12),    # the served batch, 6 blocks an SM: one wave
+    (64, 131_072, 1056, None, 16),   # the probe's gather there, 8 blocks an SM
+    (64, 131_072, 660, None, 10),    # ... at 5 blocks an SM
+    (3, 600, 1056, None, 1),         # a gather row of 3 chunks: one slice
     (64, 131_072, 4224, None, 32),   # 32 blocks an SM: capped at 32
     (64, 2048, 792, None, 4),        # the delta scan: >= 2 chunks a slice
     (3, 4000, 792, None, 8),
@@ -74,7 +77,8 @@ def test_split_merge_equals_whole(name, slices):
     (5, 67, 0, 7, 1), (2, 5000, 0, 3, 3), (4, 10_000, 0, 64, 32)])
 def test_plan_slices(q, ctot, resident, slices, want):
     """At most MAX_SLICES slices, none empty; planned, one wave of resident
-    blocks; each slot in exactly one slice."""
+    blocks; each slot in exactly one slice.  The probe's gather kernel
+    splits its output rows with the same planner and chunks."""
     n = tfr.plan_slices(q, ctot, resident, slices)
     assert n == want
     parts = [tfr.slice_slots(ctot, n, s) for s in range(n)]

@@ -161,6 +161,27 @@ def test_engine_drain(setup):
     _eq(ti[:3], qi)
 
 
+def test_engine_refuses_distances_beyond_big_dist():
+    """Data and queries whose L1 distances could reach BIG_DIST are refused
+    where they enter: at build, at insert and in a served batch (the rerank
+    kernel ranks only distances below it as the reference does)."""
+    cfg = dataclasses.replace(TCFG, num_probes=8, hash_impl="thermo")  # clamps coordinates
+    serve = TServe(batch_size=4, warm_buckets=False, cand_cap_sample=2)
+    far = (2 ** 28 - np.random.default_rng(0).integers(0, 1000, (40, 5))).astype(np.int32)
+    eng = TEngine(cfg, serve, far, device="cpu")        # spread ~1000: admitted
+    d, i = eng.query_batch(far[:2])
+    assert (d[:, 0] == 0).all() and (i[:, 0] == [0, 1]).all()
+    with pytest.raises(ValueError, match="BIG_DIST"):
+        eng.query_batch(np.zeros((2, 5), np.int32))     # the fault's queries
+    with pytest.raises(ValueError, match="BIG_DIST"):
+        eng.insert(np.zeros((1, 5), np.int32))
+    assert eng.index.next_gid == 40                     # nothing was inserted
+    wide = np.zeros((4, 5), np.int32)
+    wide[0] = 2 ** 28
+    with pytest.raises(ValueError, match="BIG_DIST"):
+        TSeg.from_dataset(cfg, wide, device="cpu")
+
+
 def test_brute_force_l1(setup):
     data, queries, _, _ = setup
     jd, ji = j_brute(jnp.asarray(data), jnp.asarray(queries), 8)
