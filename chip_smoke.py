@@ -16,8 +16,10 @@ read just after, and must launch the kernels named in ``PATHS``):
                  extents with and without the run-length table, its gather
                  at every cap, the rerank and the gather at their planned
                  split and at 1, 2, 3, 7 and 32 slices; a wrapped int32
-                 sum), bit for bit; an index on the card refuses the rerank
-                 cases whose distances reach BIG_DIST;
+                 sum; rw_hash's table kernel, its hash kernel at the
+                 planned split and at 1, 2, 3, 7 and m slices, and its
+                 first design), bit for bit; an index on the card refuses
+                 the rerank cases whose distances reach BIG_DIST;
   ground_truth   exact L1 k-NN of the queries through ``ops.l1_distance``,
                  each chunk of distances held against the plain version;
   serve          the main path: build the engine on the card, insert 512
@@ -41,10 +43,14 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ``device_ms`` the kernels' own device time a call from
                  torch.profiler, the same two for the library call, and
                  ``previous_ms`` for the earlier design of a redesigned
-                 kernel (the probe's and the rerank's one block a query and
+                 kernel (the probe's and the rerank's one block a query,
                  the merge's shared-memory network, reached through their
-                 own C entry points from here only).  The probe's row
-                 gives its two launches apart and the one-pass route.
+                 own C entry points from here only, and rw_hash's one
+                 launch that scans every table in every block).  The
+                 probe's row gives its two launches apart and the one-pass
+                 route; the rw_hash row gives the build's shape (1 M rows)
+                 and the served batch's (``batch_*``), the table kernel
+                 alone (``table``) and its path's calls by row count.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -76,7 +82,8 @@ ORDER_ROUNDS = 32           # alternating batches of each engine
 PROBE = ("fused_probe_extents", "fused_probe_gather")
 PATHS = {"ground_truth": ("l1_distance",),
          "serve": (*PROBE, "fused_rerank", "topk_merge"),
-         "serve_rw_hash": ("rw_hash", *PROBE, "fused_rerank", "topk_merge"),
+         "serve_rw_hash": ("rw_hash", "rw_prefix_table", *PROBE, "fused_rerank",
+                           "topk_merge"),
          "checks": ("l1_distance_rows",)}
 
 
@@ -355,9 +362,11 @@ def main() -> int:
     log(f"phase build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}")
     probe_prev, rerank_prev, merge_prev = previous_designs(_build, ktm)
     for name, path in libs.items():
-        regs = [ln.strip() for ln in (path.parent / f"{name}.log").read_text().splitlines()
-                if "Used" in ln and "registers" in ln]
-        log(f"  ptxas {name}: {' | '.join(regs)}")
+        lines = (path.parent / f"{name}.log").read_text().splitlines()
+        regs = [ln.strip() for ln in lines if "Used" in ln and "registers" in ln]
+        spills = [ln.strip() for ln in lines if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        log(f"  ptxas {name}: {' | '.join(regs)}; spills: {' | '.join(spills) or 'none'}")
 
     # -- kernels at adversarial shapes ---------------------------------------
     t0 = time.perf_counter()
@@ -423,9 +432,18 @@ def main() -> int:
         n_cases += 1
     for name, arrays in sorted(RW_HASH_CASES.items()):
         args = [torch.from_numpy(x).to(card) for x in arrays]
-        check(equal(ops.rw_hash(*args), krw.rw_hash_plain(*args)),
-              f"rw_hash kernel == plain on {name}")
-        n_cases += 1
+        want = krw.rw_hash_plain(*args)
+        check(equal(krw.rw_prefix_table_cuda(args[0]),
+                    krw.rw_prefix_table_plain(args[0], krw.padded_fns(args[0].shape[0]))),
+              f"rw_hash table kernel == plain on {name}")
+        check(equal(ops.rw_hash(*args), want), f"rw_hash kernel == plain on {name}")
+        check(equal(krw.rw_hash_previous_cuda(*args), want),
+              f"rw_hash previous design == plain on {name}")
+        n_cases += 3
+        for slices in (1, 2, 3, 7, args[0].shape[1]):
+            check(equal(krw.rw_hash_cuda(*args, slices=slices), want),
+                  f"rw_hash kernel at {slices} slices == plain on {name}")
+            n_cases += 1
     for cases, kfn, pfn in ((L1_CASES, ops.l1_distance, kl1.l1_distance_plain),
                             (L1_ROWS_CASES, ops.l1_distance_rows,
                              kl1.l1_distance_rows_plain)):
@@ -503,8 +521,24 @@ def main() -> int:
     (engine, phases), launches = run_path("serve", ops, lambda: serve(cfg, "serve"))
     check(launches["rw_hash"] == 0, "the 'gather' path launches no rw_hash")
     rw_cfg = dataclasses.replace(cfg, hash_impl="pallas")
-    (rw_engine, rw_phases), rw_launches = run_path(
-        "serve_rw_hash", ops, lambda: serve(rw_cfg, "serve_rw_hash"))
+    rw_rows, dispatch = [], ops.rw_hash
+
+    def rw_hash_recorded(pairs, points):    # the row count of each call
+        rw_rows.append(points.shape[0])
+        return dispatch(pairs, points)
+
+    ops.rw_hash = rw_hash_recorded
+    try:
+        (rw_engine, rw_phases), rw_launches = run_path(
+            "serve_rw_hash", ops, lambda: serve(rw_cfg, "serve_rw_hash"))
+    finally:
+        ops.rw_hash = dispatch
+    rw_rows = [r for r in rw_rows if r > 0]     # a call on no rows launches nothing
+    check(len(rw_rows) == rw_launches["rw_hash"] == rw_launches["rw_prefix_table"],
+          "every rw_hash call of the path launched both kernels once")
+    rest = [r for r in rw_rows if r < N_POINTS]
+    rw_by_rows = {"build_and_compaction": len(rw_rows) - len(rest), "rest": len(rest),
+                  "rest_max_rows": max(rest, default=0)}
     for (name, _, _, d, i), (rw_name, _, _, rd, ri) in zip(phases, rw_phases):
         check(np.array_equal(d, rd) and np.array_equal(i, ri),
               f"{rw_name} serves the (d, i) of {name}, bit for bit")
@@ -718,37 +752,57 @@ def main() -> int:
         f"{idx._delta_count}, rerank slices {rr_slices}, gather slices {gat_slices}")
 
     # rw_hash at the build's shape (every point) and at one served batch;
-    # plain on a subset, the prefix-gather hash on every point
+    # plain on a subset, the prefix-gather hash on every point; the table
+    # kernel alone, and the first design at both shapes
     walk_tab = idx.params.walks
     wp = walk_tab.pairs
     n_fns, _, u2 = wp.shape
     n_pts = data_c.shape[0]
+    fp = krw.padded_fns(n_fns)
     rw_k = lambda: krw.rw_hash_cuda(wp, data_c)
     rw_p = lambda: krw.rw_hash_plain(wp, data_c[:RW_PLAIN_ROWS])
+    rw_prev = lambda: krw.rw_hash_previous_cuda(wp, data_c)
     rw_out, rw_plain = rw_k(), rw_p()
     check(equal(rw_out, walks.eval_prefix(walk_tab, data_c)),
           "rw_hash kernel == eval_prefix on every point")
     check(equal(rw_out[:RW_PLAIN_ROWS], rw_plain),
           f"rw_hash kernel == plain on {RW_PLAIN_ROWS} rows")
+    check(equal(rw_prev(), rw_out), "the rw_hash previous design == the kernel on every point")
+    tab_k = lambda: krw.rw_prefix_table_cuda(wp)
+    tab_p = lambda: krw.rw_prefix_table_plain(wp, fp)
+    tab_got, tab_want = tab_k(), tab_p()
+    check(equal(tab_got, tab_want), "rw_hash table kernel == plain at the served steps")
     rw_bk = lambda: krw.rw_hash_cuda(wp, batch)
-    rw_batch, rw_batch_plain = rw_bk(), krw.rw_hash_plain(wp, batch)
+    rw_bp = lambda: krw.rw_hash_plain(wp, batch)
+    rw_bprev = lambda: krw.rw_hash_previous_cuda(wp, batch)
+    rw_batch, rw_batch_plain = rw_bk(), rw_bp()
     check(equal(rw_batch, rw_batch_plain), "rw_hash kernel == plain on the served batch")
+    check(equal(rw_bprev(), rw_batch_plain),
+          "the rw_hash previous design == plain on the served batch")
     rw_row = timed(rw_k, rw_p, None, n_pts * DIM * 4 + wp.numel() + n_pts * n_fns * 4,
-                   n_pts * n_fns * DIM, [(rw_out[:RW_PLAIN_ROWS], rw_plain)])
-    b_ms, _ = bound(batch.numel() * 4 + wp.numel() + batch.shape[0] * n_fns * 4,
-                    batch.shape[0] * n_fns * DIM)
+                   n_pts * n_fns * DIM, [(rw_out[:RW_PLAIN_ROWS], rw_plain)], rw_prev)
+    rw_batch_row = timed(rw_bk, rw_bp, None, batch.numel() * 4 + wp.numel()
+                         + batch.shape[0] * n_fns * 4, batch.shape[0] * n_fns * DIM,
+                         [(rw_batch, rw_batch_plain)], rw_bprev)
+    # the table: the steps read once, the table written once, an add a step
+    tab_row = timed(tab_k, tab_p, None, wp.numel() + tab_want.numel() * 4, wp.numel(),
+                    [(tab_got, tab_want)])
+    resident = krw.resident_blocks(torch.cuda.current_device(), u2)
     rows.append({
         "name": "rw_hash", "route": "cuda", "source": "src/repro_torch/csrc/rw_hash.cu",
         "replaces": "src/repro/kernels/rw_hash.py:55",
-        "launches": rw_launches["rw_hash"], "equal_to_plain": True, **rw_row,
-        "rows": n_pts, "plain_rows": RW_PLAIN_ROWS,
+        "launches": rw_launches["rw_hash"], "launches_by_rows": rw_by_rows,
+        "equal_to_plain": True, **rw_row, "rows": n_pts, "plain_rows": RW_PLAIN_ROWS,
         "gather_ms": cuda_ms(lambda: walks.eval_prefix(walk_tab, data_c), reps=5),
         "thermo_int8_mma_bound_ms": 2 * n_pts * n_fns * DIM * u2 / INT8_TENSOR_OPS_PER_S * 1e3,
-        "batch_rows": batch.shape[0], "batch_ms": cuda_ms(rw_bk),
-        "batch_plain_ms": cuda_ms(lambda: krw.rw_hash_plain(wp, batch), reps=5),
-        "batch_bound_ms": b_ms,
-        "batch_max_abs_err": max_abs_err([(rw_batch, rw_batch_plain)])})
-    del rw_out, rw_plain
+        "resident_blocks": resident,
+        "slices": krw.plan_rw_hash(n_pts, n_fns, DIM, resident),
+        "batch_rows": batch.shape[0],
+        "batch_slices": krw.plan_rw_hash(batch.shape[0], n_fns, DIM, resident),
+        **{f"batch_{k}": v for k, v in rw_batch_row.items() if not k.startswith("library")},
+        "table": {"launches": rw_launches["rw_prefix_table"], "shape": list(tab_want.shape),
+                  **tab_row}})
+    del rw_out, rw_plain, tab_got, tab_want
 
     # l1_distance at the ground truth's shape: one batch against every point
     l1_k = lambda: kl1.l1_distance_cuda(batch, data_c)

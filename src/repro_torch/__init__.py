@@ -7,7 +7,8 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             pipeline, segmented mutable index, baselines
   kernels/  the six kernels: fused_probe (as two launches, extents and
             gather), fused_rerank and topk_merge of the serving path,
-            rw_hash of ``hash_impl='pallas'``, and the
+            rw_hash of ``hash_impl='pallas'`` (as two launches, the
+            prefix table and the row-tile hash), and the
             l1_distance and l1_distance_rows ops; a CUDA source under
             ``csrc/`` and a plain-torch version of the same function each;
             ``ops`` dispatches by the tensors' device

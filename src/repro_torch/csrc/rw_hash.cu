@@ -15,37 +15,172 @@
 // (n * m * 4 bytes) are read once and the hashes (n * F * 4) written once;
 // the least work is n * F * m integer adds.  The thermometer product on the
 // int8 tensor cores would do 2 * U2 = 510 times more operations for the
-// same sum, so the design takes the prefix form.  A block takes 1024 rows
-// and 32 hash functions (one per lane) and, for each dimension in turn:
-//  * copies the 32 functions' U2 steps (int8, one coalesced run each) and
-//    the rows' clamped offsets into shared memory;
-//  * scans the steps into the (U2+1) x 32 prefix table: each of the 16
-//    warps sums a 1/16 segment of the steps, one lane per function, then
-//    rewrites its segment as running sums from the segments before it.  The
-//    step rows are padded to an odd number of words, so the 32 lanes read
-//    32 banks;
-//  * adds table[offset(row) + lane] for its 64 rows per thread.  The lanes
-//    of a warp read 32 consecutive words of one table row, so the lookups
-//    have no bank conflicts.
-// No table leaves the block: the kernel reads pairs (F * m * U2 bytes per
-// row tile) and points, and writes the hashes.  When rows x functions give
-// fewer blocks than the card holds at once (a served batch of 64 queries),
-// the dimensions are split over blockIdx.z and the slices add into a zeroed
-// output with integer atomics, which give the same bits in any order.
+// same sum, so the design takes the prefix form, in two launches:
+//
+//  * rw_table_kernel writes every prefix table once a call, into a
+//    workspace tab (m, U2 + 1, Fp) int32 (Fp = F rounded up to 32, columns
+//    F..Fp-1 zero): tab[i, u, f] = sum_{v < u} pairs[f, i, v].  Block
+//    (dimension, 32 functions): it copies the 32 step rows with reads
+//    coalesced along u, and scans them with a segmented scan (each of the
+//    16 warps sums a 1/16 segment, one lane per function, then rewrites its
+//    segment as running sums from the segments before it).  Its writes are
+//    rows of 128 contiguous bytes.  int32, since a prefix of int8 steps can
+//    reach 128 * U2.  At the build's shape the table is 12.6 MB, which L2
+//    holds for the second launch.
+//  * rw_hash_kernel takes 512 rows x 32 functions a block (one function a
+//    lane, 64 rows a thread).  For each chunk of 16 dimensions it stages the
+//    rows' clamped offsets in shared memory, read row by row so that 16
+//    lanes read one row's 64 contiguous bytes; for each dimension it copies
+//    the 32 functions' table slice ((U2 + 1) rows of 128 bytes) with 16-byte
+//    loads and adds table[offset(row) + lane] for its rows.  The lanes of a
+//    warp read one broadcast offset and 32 consecutive words of one table
+//    row, so the lookups have no bank conflicts.  Two blocks are resident on
+//    an SM, so one block's copy overlaps the other's lookups.
+//
+// When rows x function tiles give fewer blocks than the card holds at once
+// (a served batch of 64 queries), the dimensions are split over blockIdx.z
+// and the slices add into a zeroed output with integer atomics, which give
+// the same bits in any order.  The caller plans the split.
+//
+// rw_hash_scan keeps the first design (one launch; every block builds each
+// dimension's table in shared memory from the int8 steps, and loads its
+// 1024 rows' coordinates strided by a row) for comparison only.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kFns = 32;                   // hash functions per block, one per lane
-constexpr int kWarps = 16;                 // 512 threads
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 1024;                // rows per block
-constexpr int kPerThread = kRows / kWarps; // rows (accumulators) per thread
+
+// ---- prefix table: the segmented scan of 32 functions' steps --------------
+constexpr int kScanWarps = 16;
+constexpr int kScanThreads = kScanWarps * 32;
 
 // Bytes between two functions' step rows in shared memory: U2 rounded up
 // to an odd number of words, so 32 lanes reading one step each hit 32 banks.
 __host__ __device__ inline int raw_stride(int u2) { return 4 * (((u2 + 3) / 4) | 1); }
+
+__host__ __device__ inline int table_smem(int u2) {
+  return static_cast<int>(kScanWarps * kFns * sizeof(int)) + kFns * raw_stride(u2);
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+rw_table_kernel(const int8_t* __restrict__ pairs, int* __restrict__ tab,
+                int n_fns, int m, int u2, int fp) {
+  extern __shared__ int smem[];
+  int* s_part = smem;                       // kScanWarps x kFns segment sums
+  int8_t* s_raw = reinterpret_cast<int8_t*>(s_part + kScanWarps * kFns);  // kFns step rows
+  const int stride = raw_stride(u2);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x;
+  const int f0 = blockIdx.y * kFns;
+  const int fw = min(kFns, n_fns - f0);
+  // the step rows, consecutive threads on consecutive steps of a row; the
+  // padding functions' rows are zero
+  for (int e = threadIdx.x; e < kFns * u2; e += kScanThreads) {
+    const int fl = e / u2, u = e - fl * u2;
+    s_raw[fl * stride + u] =
+        fl < fw ? pairs[(static_cast<size_t>(f0 + fl) * m + i) * u2 + u] : 0;
+  }
+  __syncthreads();
+  const int seg = (u2 + kScanWarps - 1) / kScanWarps;
+  const int u_lo = min(u2, warp * seg);
+  const int u_hi = min(u2, u_lo + seg);
+  const int8_t* raw = s_raw + lane * stride;
+  int sum = 0;
+  for (int u = u_lo; u < u_hi; ++u) sum += raw[u];
+  s_part[warp * kFns + lane] = sum;
+  __syncthreads();
+  int carry = 0;
+  for (int w = 0; w < warp; ++w) carry += s_part[w * kFns + lane];
+  int* dst = tab + static_cast<size_t>(i) * (u2 + 1) * fp + f0;
+  if (warp == 0) dst[lane] = 0;
+  for (int u = u_lo; u < u_hi; ++u) {
+    carry += raw[u];
+    dst[(u + 1) * fp + lane] = carry;       // one 128-byte row a warp
+  }
+}
+
+// ---- row-tile hash over the table ------------------------------------------
+constexpr int kWarps = 8;                  // 256 threads
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 512;                 // rows per block
+constexpr int kPerThread = kRows / kWarps; // rows (accumulators) per thread
+constexpr int kDims = 16;                  // dimensions whose offsets are staged at once
+
+__host__ __device__ inline int hash_smem(int u2) {
+  return static_cast<int>(((u2 + 1) * kFns + kRows * kDims) * sizeof(int));
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+rw_hash_kernel(const int* __restrict__ points, const int* __restrict__ tab,
+               int* __restrict__ out, int n, int n_fns, int m, int u2, int fp,
+               int fn_tiles, int dims_per_slice) {
+  extern __shared__ int4 smem4[];
+  int* s_tab = reinterpret_cast<int*>(smem4);   // (u2 + 1) x kFns table slice
+  int* s_off = s_tab + (u2 + 1) * kFns;         // kRows x kDims offsets into s_tab
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tile = blockIdx.x / fn_tiles;
+  const int f0 = (blockIdx.x - tile * fn_tiles) * kFns;
+  const int row0 = tile * kRows;
+  const int rows = min(kRows, n - row0);
+  const int i_lo = blockIdx.z * dims_per_slice;
+  const int i_hi = min(m, i_lo + dims_per_slice);
+  const int vecs = (u2 + 1) * (kFns / 4);       // 16-byte words of a slice
+  const int fp4 = fp / 4;
+
+  int acc[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) acc[j] = 0;
+
+  for (int c = i_lo; c < i_hi; c += kDims) {
+    const int dims = min(kDims, i_hi - c);
+    for (int e = threadIdx.x; e < rows * kDims; e += kThreads) {
+      const int r = e / kDims, d = e % kDims;
+      const int t = d < dims ? points[static_cast<size_t>(row0 + r) * m + c + d] >> 1 : 0;
+      s_off[e] = min(max(t, 0), u2) * kFns;
+    }
+    for (int d = 0; d < dims; ++d) {
+      const int4* src = reinterpret_cast<const int4*>(
+          tab + static_cast<size_t>(c + d) * (u2 + 1) * fp + f0);
+      for (int e = threadIdx.x; e < vecs; e += kThreads) {
+        const int u = e / (kFns / 4), q = e % (kFns / 4);
+        smem4[e] = src[u * fp4 + q];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        const int r = warp + j * kWarps;
+        if (r < rows) acc[j] += s_tab[s_off[r * kDims + d] + lane];
+      }
+      __syncthreads();                          // the slice and offsets are free again
+    }
+  }
+
+  if (f0 + lane >= n_fns) return;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int r = warp + j * kWarps;
+    if (r < rows) {
+      int* o = out + static_cast<size_t>(row0 + r) * n_fns + f0 + lane;
+      if (gridDim.z == 1) {
+        *o = acc[j];
+      } else {
+        atomicAdd(o, acc[j]);
+      }
+    }
+  }
+}
+
+// ---- the first design, kept as it was for comparison ------------------------
+namespace scan {
+
+constexpr int kWarps = kScanWarps;         // 512 threads
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 1024;                // rows per block
+constexpr int kPerThread = kRows / kWarps; // rows (accumulators) per thread
 
 __host__ __device__ inline int smem_bytes(int u2) {
   return static_cast<int>(((u2 + 1) * kFns + kRows + kWarps * kFns) * sizeof(int))
@@ -53,8 +188,9 @@ __host__ __device__ inline int smem_bytes(int u2) {
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-rw_hash_kernel(const int8_t* __restrict__ pairs, const int* __restrict__ points,
-               int* __restrict__ out, int n, int n_fns, int m, int u2, int dims_per_slice) {
+rw_hash_scan_kernel(const int8_t* __restrict__ pairs, const int* __restrict__ points,
+                    int* __restrict__ out, int n, int n_fns, int m, int u2,
+                    int dims_per_slice) {
   extern __shared__ int smem[];
   int* s_tab = smem;                        // (u2 + 1) x kFns prefix sums
   int* s_off = s_tab + (u2 + 1) * kFns;     // kRows offsets into s_tab
@@ -121,42 +257,108 @@ rw_hash_kernel(const int8_t* __restrict__ pairs, const int* __restrict__ points,
   }
 }
 
+}  // namespace scan
+
 }  // namespace
 
-// The largest U2 whose block fits the current device's shared memory.
-extern "C" int rw_hash_max_u2() {
+// Sets each kernel's dynamic shared memory limit to the current device's
+// opt-in maximum (once a device: a launch then asks no attribute) and
+// returns the largest U2 both launches of rw_hash take there, or minus a
+// CUDA error.
+extern "C" int rw_hash_setup() {
   int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+          != cudaSuccess ||
+      (err = cudaFuncSetAttribute(rw_table_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
+          != cudaSuccess ||
+      (err = cudaFuncSetAttribute(rw_hash_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
+          != cudaSuccess ||
+      (err = cudaFuncSetAttribute(scan::rw_hash_scan_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
           != cudaSuccess) {
-    return -1;
+    return -static_cast<int>(err);
   }
   int u2 = 0;
-  while (smem_bytes(u2 + 1) <= limit) ++u2;
+  while (hash_smem(u2 + 1) <= limit && table_smem(u2 + 1) <= limit) ++u2;
   return u2;
 }
 
-// pairs (F, m, U2) int8, points (n, m) int32, out (n, F) int32; all
-// contiguous.  n, F, m > 0 and 0 < U2 <= rw_hash_max_u2().
-extern "C" int rw_hash(const void* pairs, const void* points, void* out,
-                       int n, int n_fns, int m, int u2, void* stream) {
+// Blocks of rw_hash_kernel the current device keeps resident at once for
+// this U2 (SMs x blocks an SM), or minus a CUDA error.  After rw_hash_setup.
+extern "C" int rw_hash_resident(int u2) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+          != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, rw_hash_kernel, kThreads, hash_smem(u2))) != cudaSuccess) {
+    return -static_cast<int>(err);
+  }
+  return sms * per_sm;
+}
+
+// pairs (F, m, U2) int8 -> tab (m, U2 + 1, Fp) int32, Fp = F rounded up to a
+// multiple of 32; both contiguous.  F, m > 0, 0 < U2 <= rw_hash_setup().
+extern "C" int rw_prefix_table(const void* pairs, void* tab, int n_fns, int m, int u2,
+                               void* stream) {
+  const int fp = (n_fns + kFns - 1) / kFns * kFns;
+  rw_table_kernel<<<dim3(m, fp / kFns), kScanThreads, table_smem(u2),
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(pairs), static_cast<int*>(tab), n_fns, m, u2, fp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pairs (F, m, U2) int8, points (n, m) int32, tab (m, U2 + 1, Fp) int32
+// workspace, out (n, F) int32; all contiguous.  n, F, m > 0,
+// 0 < U2 <= rw_hash_setup(), and 1 <= slices <= m with no slice empty
+// (slices == ceil(m / ceil(m / slices))).  Launches the table kernel, the
+// memset of a split output and the hash kernel.
+extern "C" int rw_hash(const void* pairs, const void* points, void* tab, void* out,
+                       int n, int n_fns, int m, int u2, int slices, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = smem_bytes(u2);
+  int err = rw_prefix_table(pairs, tab, n_fns, m, u2, stream);
+  if (err != 0) return err;
+  if (slices > 1) {
+    err = static_cast<int>(
+        cudaMemsetAsync(out, 0, static_cast<size_t>(n) * n_fns * sizeof(int), s));
+    if (err != 0) return err;
+  }
+  const int fp = (n_fns + kFns - 1) / kFns * kFns;
+  const int fn_tiles = fp / kFns;
+  const unsigned row_tiles = static_cast<unsigned>((n + kRows - 1) / kRows);
+  rw_hash_kernel<<<dim3(row_tiles * fn_tiles, 1, slices), kThreads, hash_smem(u2), s>>>(
+      static_cast<const int*>(points), static_cast<const int*>(tab),
+      static_cast<int*>(out), n, n_fns, m, u2, fp, fn_tiles, (m + slices - 1) / slices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design: pairs (F, m, U2) int8, points (n, m) int32, out (n, F)
+// int32; all contiguous.  n, F, m > 0 and 0 < U2 with its block in the
+// device's shared memory.  Plans its own split, asking the device each call.
+extern "C" int rw_hash_scan(const void* pairs, const void* points, void* out,
+                            int n, int n_fns, int m, int u2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = scan::smem_bytes(u2);
   cudaError_t err = cudaFuncSetAttribute(
-      rw_hash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      scan::rw_hash_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
           != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, rw_hash_kernel, kThreads, smem)) != cudaSuccess) {
+           &per_sm, scan::rw_hash_scan_kernel, scan::kThreads, smem)) != cudaSuccess) {
     return static_cast<int>(err);
   }
   // split the dimensions until the grid holds as many blocks as are resident
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int fn_tiles = (n_fns + kFns - 1) / kFns;
-  const long long row_tiles = (static_cast<long long>(n) + kRows - 1) / kRows;
+  const long long row_tiles = (static_cast<long long>(n) + scan::kRows - 1) / scan::kRows;
   const long long blocks = row_tiles * fn_tiles;
   const long long want = blocks < resident ? (resident + blocks - 1) / blocks : 1;
   int slices = static_cast<int>(want < m ? want : m);
@@ -166,8 +368,8 @@ extern "C" int rw_hash(const void* pairs, const void* points, void* out,
     err = cudaMemsetAsync(out, 0, static_cast<size_t>(n) * n_fns * sizeof(int), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  rw_hash_kernel<<<dim3(static_cast<unsigned>(row_tiles), fn_tiles, slices),
-                   kThreads, smem, s>>>(
+  scan::rw_hash_scan_kernel<<<dim3(static_cast<unsigned>(row_tiles), fn_tiles, slices),
+                              scan::kThreads, smem, s>>>(
       static_cast<const int8_t*>(pairs), static_cast<const int*>(points),
       static_cast<int*>(out), n, n_fns, m, u2, dims_per_slice);
   return static_cast<int>(cudaGetLastError());

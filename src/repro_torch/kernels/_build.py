@@ -38,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launch counts per kernel: the proof that a run went through the kernels.
 LAUNCHES: Dict[str, int] = {"fused_probe_extents": 0, "fused_probe_gather": 0,
                             "fused_rerank": 0, "topk_merge": 0, "rw_hash": 0,
-                            "l1_distance": 0, "l1_distance_rows": 0}
+                            "rw_prefix_table": 0, "l1_distance": 0,
+                            "l1_distance_rows": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SIGNATURES: Dict[str, Dict[str, Sequence]] = {}   # library -> entry -> argtypes

@@ -9,8 +9,11 @@ Contract (both versions, and the JAX package's ``ref.rw_hash``):
 pairs (F, m, U2) int8, points (n, m) int32 -> (n, F) int32, for every int32
 coordinate: ``>>`` is arithmetic, so the code is all zeros for a negative
 coordinate and saturates at U2 above the universe.  The plain version is
-the float32 thermometer product; the kernel sums prefix sums of the steps
-at ``clamp(points >> 1, 0, U2)`` in int32, which is the same sum.
+the float32 thermometer product.  On the card one call launches two
+kernels: the table kernel writes the prefix sums of the steps once, as an
+(m, U2+1, Fp) int32 workspace (``rw_prefix_table_plain`` is its plain
+version), and the hash kernel adds them up at ``clamp(points >> 1, 0, U2)``
+in tiles of 512 rows x 32 functions, which is the same sum.
 """
 from __future__ import annotations
 
@@ -20,9 +23,13 @@ import torch
 
 from . import _build
 
-__all__ = ["rw_hash_plain", "rw_hash_cuda"]
+__all__ = ["rw_hash_plain", "rw_hash_cuda", "rw_prefix_table_plain", "rw_prefix_table_cuda",
+           "plan_rw_hash", "padded_fns", "max_u2", "resident_blocks",
+           "rw_hash_previous_cuda"]
 
 PLAIN_CHUNK_BYTES = 1 << 30  # bound on one row chunk's float32 code
+ROW_TILE = 512  # rows a hash block takes
+FN_TILE = 32    # hash functions a block takes, one a lane
 
 
 def _check_shapes(pairs: torch.Tensor, points: torch.Tensor) -> None:
@@ -56,41 +63,151 @@ def rw_hash_plain(pairs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# pairs, points, out, n, F, m, U2, stream
+def padded_fns(f: int) -> int:
+    """F rounded up to the kernels' 32-function tile: the table's last axis."""
+    return -(-f // FN_TILE) * FN_TILE
+
+
+def rw_prefix_table_plain(pairs: torch.Tensor, fp: int) -> torch.Tensor:
+    """The table kernel's plain version: pairs (F, m, U2) int8 -> (m, U2+1,
+    fp) int32 with ``tab[i, u, f] = sum_{v < u} pairs[f, i, v]`` for f < F,
+    and zero in row u = 0 and in columns F..fp-1.  int32 is exact: a prefix
+    of U2 int8 steps is at most 128 * U2 in magnitude."""
+    f, m, u2 = pairs.shape
+    tab = torch.zeros((m, u2 + 1, fp), dtype=torch.int32, device=pairs.device)
+    tab[:, 1:, :f] = torch.cumsum(pairs, dim=2, dtype=torch.int32).permute(1, 2, 0)
+    return tab
+
+
+def plan_rw_hash(n: int, f: int, m: int, resident: int, slices=None) -> int:
+    """The number of slices S the m dimensions are split into (blockIdx.z).
+
+    Unless ``slices`` is given, the grid's row tiles x function tiles x S
+    blocks fill the ``resident`` blocks the card holds at once.  A slice
+    takes ceil(m / S) dimensions, so S is cut to the count that leaves no
+    slice empty.  Always 1 <= S <= m.
+    """
+    if slices is None:
+        blocks = -(-n // ROW_TILE) * -(-f // FN_TILE)
+        slices = -(-resident // blocks) if blocks < resident else 1
+    slices = max(1, min(int(slices), m))
+    return -(-m // -(-m // slices))
+
+
+# pairs, points, tab, out, n, F, m, U2, slices, stream
 _build.declare("rw_hash", {
-    "rw_hash": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "rw_hash_max_u2": []})
+    "rw_hash": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "rw_prefix_table": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "rw_hash_scan": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "rw_hash_setup": [],
+    "rw_hash_resident": [ctypes.c_int]})
+_LIMITS = {}    # device -> the largest U2 the kernels take there
+_RESIDENT = {}  # (device, U2) -> hash blocks resident at once
+
+
+def _limit(device: int) -> int:
+    """The U2 limit of CUDA device ``device``; the first call on a device
+    also sets the kernels' shared-memory attribute there."""
+    got = _LIMITS.get(device)
+    if got is None:
+        with torch.cuda.device(device):
+            got = _build.entry("rw_hash", "rw_hash_setup")()
+        if got <= 0:
+            raise RuntimeError(f"rw_hash: device set-up failed with error {-got}")
+        _LIMITS[device] = got
+    return got
 
 
 def max_u2() -> int:
-    """The largest U2 the kernel takes on the current device: its block
-    holds the (U2+1) x 32 prefix table in shared memory."""
-    return _build.entry("rw_hash", "rw_hash_max_u2")()
+    """The largest U2 the kernels take on the current CUDA device: a hash
+    block holds the (U2+1) x 32 table slice and 512 x 16 offsets in shared
+    memory."""
+    return _limit(torch.cuda.current_device())
 
 
-def rw_hash_cuda(pairs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors; raises on what it cannot take.
+def resident_blocks(device: int, u2: int) -> int:
+    """Hash blocks CUDA device ``device`` keeps resident at once at this U2:
+    SMs x blocks an SM, read from the device once."""
+    got = _RESIDENT.get((device, u2))
+    if got is None:
+        _limit(device)
+        with torch.cuda.device(device):
+            got = _build.entry("rw_hash", "rw_hash_resident")(u2)
+        if got <= 0:
+            raise RuntimeError(f"rw_hash: occupancy query failed with error {-got}")
+        _RESIDENT[(device, u2)] = got
+    return got
+
+
+def _check_cuda(pairs: torch.Tensor, points=None) -> int:
+    """The inputs' CUDA device, U2 checked against its limit."""
+    if pairs.dtype != torch.int8 or (points is not None and points.dtype != torch.int32):
+        raise TypeError(f"rw_hash: pairs int8 and points int32 expected, got "
+                        f"{pairs.dtype} and {None if points is None else points.dtype}")
+    device = pairs.get_device()
+    if device < 0 or (points is not None and points.get_device() != device):
+        raise ValueError("rw_hash: pairs and points must lie on one CUDA device")
+    if not (pairs.is_contiguous() and (points is None or points.is_contiguous())):
+        raise ValueError("rw_hash: pairs and points must be contiguous")
+    u2 = pairs.shape[2]
+    limit = _limit(device)
+    if u2 > limit:
+        raise ValueError(f"rw_hash kernel takes U2 <= {limit} here, got {u2}")
+    return device
+
+
+def rw_prefix_table_cuda(pairs: torch.Tensor) -> torch.Tensor:
+    """Launch the table kernel alone: ``rw_prefix_table_plain(pairs,
+    padded_fns(F))`` on the card.  ``rw_hash_cuda`` launches it itself."""
+    if pairs.dim() != 3:
+        raise ValueError(f"rw_hash: pairs (F, m, U2) expected, got {tuple(pairs.shape)}")
+    device = _check_cuda(pairs)
+    f, m, u2 = pairs.shape
+    tab = torch.empty((m, u2 + 1, padded_fns(f)), dtype=torch.int32, device=pairs.device)
+    if tab.numel():
+        _build.launch("rw_prefix_table", _build.entry("rw_hash", "rw_prefix_table"), device,
+                      pairs.data_ptr(), tab.data_ptr(), f, m, u2)
+    return tab
+
+
+def rw_hash_cuda(pairs: torch.Tensor, points: torch.Tensor, slices=None) -> torch.Tensor:
+    """Launch the table kernel and the hash kernel on CUDA tensors, in one
+    call; raises on what they cannot take.
 
     pairs must be contiguous int8 and points contiguous int32, on one card,
-    and U2 at most ``max_u2()``.
+    and U2 at most ``max_u2()``.  ``slices`` fixes the split of the
+    dimensions (the tests use it); by default ``plan_rw_hash`` picks it.
     """
     _check_shapes(pairs, points)
-    if pairs.dtype != torch.int8 or points.dtype != torch.int32:
-        raise TypeError(f"rw_hash: pairs int8 and points int32 expected, got "
-                        f"{pairs.dtype} and {points.dtype}")
-    if pairs.device.type != "cuda" or points.device != pairs.device:
-        raise ValueError("rw_hash: pairs and points must lie on one CUDA device")
-    if not (pairs.is_contiguous() and points.is_contiguous()):
-        raise ValueError("rw_hash: pairs and points must be contiguous")
+    device = _check_cuda(pairs, points)
+    f, m, u2 = pairs.shape
+    n = points.shape[0]
+    if n == 0 or f == 0 or m == 0 or u2 == 0:
+        return torch.zeros((n, f), dtype=torch.int32, device=points.device)
+    n_slices = plan_rw_hash(n, f, m, resident_blocks(device, u2) if slices is None else 0,
+                            slices)
+    tab = torch.empty((m, u2 + 1, padded_fns(f)), dtype=torch.int32, device=points.device)
+    out = torch.empty((n, f), dtype=torch.int32, device=points.device)
+    _build.launch("rw_hash", _build.entry("rw_hash", "rw_hash"), device, pairs.data_ptr(),
+                  points.data_ptr(), tab.data_ptr(), out.data_ptr(), n, f, m, u2, n_slices)
+    _build.LAUNCHES["rw_prefix_table"] += 1     # the same call launched the table kernel
+    return out
+
+
+def rw_hash_previous_cuda(pairs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """The first design (``rw_hash_scan``: one launch, each block scanning
+    each dimension's steps itself), for comparison only: ``kernels.ops``
+    never reaches it, and it counts no launch."""
+    _check_shapes(pairs, points)
+    device = _check_cuda(pairs, points)
     f, m, u2 = pairs.shape
     n = points.shape[0]
     if n == 0 or f == 0 or m == 0 or u2 == 0:
         return torch.zeros((n, f), dtype=torch.int32, device=points.device)
     out = torch.empty((n, f), dtype=torch.int32, device=points.device)
-    with torch.cuda.device(points.device):
-        limit = max_u2()
-        if u2 > limit:
-            raise ValueError(f"rw_hash kernel takes U2 <= {limit} here, got {u2}")
-        _build.launch("rw_hash", _build.entry("rw_hash", "rw_hash"), points.get_device(),
-                      pairs.data_ptr(), points.data_ptr(), out.data_ptr(), n, f, m, u2)
+    status = _build.entry("rw_hash", "rw_hash_scan")(
+        pairs.data_ptr(), points.data_ptr(), out.data_ptr(), n, f, m, u2,
+        torch._C._cuda_getCurrentRawStream(device))
+    if status != 0:
+        raise RuntimeError(f"rw_hash_scan: CUDA launch failed with error {status}")
     return out

@@ -229,6 +229,23 @@ def _rw_hash_cases():
     # enough rows that the kernel does not split the dimensions
     cases["many_rows"] = (_walk_pairs(rng, 65, 2, 5),
                           rng.integers(-3, 14, (100_000, 2)).astype(np.int32))
+    # around the hash kernel's 512-row tile, its 16-dimension chunk and the
+    # table's 32-function padding
+    for n in (511, 513, 1025):
+        cases[f"rows{n}"] = (_walk_pairs(rng, 5, 3, 15),
+                             rng.integers(-3, 34, (n, 3)).astype(np.int32))
+    for m in (17, 33):
+        cases[f"m{m}"] = (_walk_pairs(rng, 6, m, 31),
+                          rng.integers(-3, 66, (40, m)).astype(np.int32))
+    for f in (33, 96):
+        cases[f"f{f}"] = (_walk_pairs(rng, f, 5, 15),
+                          rng.integers(-3, 34, (50, 5)).astype(np.int32))
+    # constant and extreme int8 steps at U2 = 255: the int32 table is exact
+    pts = rng.integers(-10, 2 * 255 + 10, (60, 4)).astype(np.int32)
+    for name, steps in (("steps_plus2", np.full((7, 4, 255), 2)),
+                        ("steps_minus2", np.full((7, 4, 255), -2)),
+                        ("steps_extreme", rng.choice([-128, 127], (7, 4, 255)))):
+        cases[name] = (steps.astype(np.int8), pts)
     return cases
 
 

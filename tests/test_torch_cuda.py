@@ -173,6 +173,41 @@ def test_rw_hash_kernel_matches_plain(card, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RW_HASH_CASES))
+def test_rw_prefix_table_kernel_matches_plain(card, name):
+    pairs = _t(RW_HASH_CASES[name][0]).to(card)
+    want = trw.rw_prefix_table_plain(pairs, trw.padded_fns(pairs.shape[0]))
+    got = trw.rw_prefix_table_cuda(pairs)
+    torch.cuda.synchronize()
+    _eq(want.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 2, 3, 7, "m"])
+@pytest.mark.parametrize("name", sorted(RW_HASH_CASES))
+def test_rw_hash_kernel_at_each_split(card, name, slices):
+    """The hash kernel with the dimensions split over a fixed number of
+    slices (one, a few, one dimension each) equals plain: the atomics add
+    the same bits in any order."""
+    pairs, pts = (_t(x).to(card) for x in RW_HASH_CASES[name])
+    want = trw.rw_hash_plain(pairs, pts)
+    got = trw.rw_hash_cuda(pairs, pts, slices=pairs.shape[1] if slices == "m" else slices)
+    torch.cuda.synchronize()
+    _eq(want.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RW_HASH_CASES))
+def test_rw_hash_previous_kernel_matches_plain(card, name):
+    """The first design, kept for comparison, still equals plain."""
+    pairs, pts = (_t(x).to(card) for x in RW_HASH_CASES[name])
+    want = trw.rw_hash_plain(pairs, pts)
+    got = trw.rw_hash_previous_cuda(pairs, pts)
+    torch.cuda.synchronize()
+    _eq(want.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
 def test_rw_hash_kernel_at_the_u2_limit(card):
     """U2 up to the device's limit equals plain (a table over 48 KB of
     shared memory, scan segments of many steps); one step more raises."""

@@ -6,6 +6,7 @@ the engine against the JAX package with ``hash_impl='pallas'`` — all on the
 CPU, bit for bit, at the tests/test_torch_serving.py config.  The CUDA
 kernel is held against the plain version in tests/test_torch_cuda.py."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from repro_torch.core import index as tidx
 from repro_torch.core import walks as tw
 from repro_torch.core.segments import SegmentedIndex as TSeg
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import rw_hash as trw
 from repro_torch.kernels.rw_hash import rw_hash_plain
 from repro_torch.serve.engine import AnnServingEngine as TEngine
 from repro_torch.serve.engine import ServeConfig as TServe
@@ -66,6 +68,26 @@ def setup():
     return data, queries, jparams, tparams
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_hash(name):
+    """(ref.rw_hash, the Pallas kernel in interpret mode or None for n = 0)
+    of a case, as numpy, computed once for the tests of this module."""
+    pairs, pts = RW_HASH_CASES[name]
+    jp, jx = jnp.asarray(pairs), jnp.asarray(pts)
+    pallas = None
+    if pts.shape[0]:        # the Pallas wrapper cannot slice an empty row block
+        bn = 128 if pts.shape[0] <= 4096 else 8192  # few interpreted grid steps
+        pallas = np.asarray(jops.rw_hash(jp, jx, bn=bn))
+    return np.asarray(ref.rw_hash(jp, jx)), pallas
+
+
+def _eq_jax(name, got):
+    want_ref, want_pallas = _jax_hash(name)
+    _eq(want_ref, got, "ref")
+    if want_pallas is not None:
+        _eq(want_pallas, got, "pallas interpret")
+
+
 @pytest.mark.parametrize("name", sorted(RW_HASH_CASES))
 def test_rw_hash_plain_matches_jax(name):
     """(a) plain == ref == the Pallas kernel (interpret) == the thermo form,
@@ -73,14 +95,28 @@ def test_rw_hash_plain_matches_jax(name):
     pairs, pts = RW_HASH_CASES[name]
     got = rw_hash_plain(_t(pairs), _t(pts))
     assert got.dtype == torch.int32 and got.shape == (pts.shape[0], pairs.shape[0])
-    jp, jx = jnp.asarray(pairs), jnp.asarray(pts)
-    _eq(ref.rw_hash(jp, jx), got, "ref")
-    if pts.shape[0]:        # the Pallas wrapper cannot slice an empty row block
-        bn = 128 if pts.shape[0] <= 4096 else 8192  # few interpreted grid steps
-        _eq(jops.rw_hash(jp, jx, bn=bn), got, "pallas interpret")
+    _eq_jax(name, got)
     _eq(tops.rw_hash(_t(pairs), _t(pts)), got, "ops dispatch on the CPU")
     walks = tw.WalkTable(_t(pairs), tw.prefix_from_pairs(_t(pairs)))
     _eq(tw.eval_pairs_thermo(walks, _t(pts)), got, "eval_pairs_thermo")
+
+
+@pytest.mark.parametrize("name", sorted(RW_HASH_CASES))
+def test_prefix_table_plain_sums_to_the_hash(name):
+    """The table kernel's plain version, summed as the hash kernel sums it
+    (row ``clamp(p >> 1, 0, U2)`` of each dimension's table, columns :F),
+    equals ref and the Pallas kernel (interpret); row 0 and the padding
+    columns are zero."""
+    pairs, pts = RW_HASH_CASES[name]
+    f, m, u2 = pairs.shape
+    fp = trw.padded_fns(f)
+    assert fp % trw.FN_TILE == 0 and f <= fp < f + trw.FN_TILE
+    tab = trw.rw_prefix_table_plain(_t(pairs), fp)
+    assert tab.dtype == torch.int32 and tab.shape == (m, u2 + 1, fp)
+    assert not tab[:, 0].any() and not tab[:, :, f:].any()
+    at = (_t(pts) >> 1).clamp(0, u2).long()
+    got = tab[torch.arange(m)[None, :], at].sum(dim=1, dtype=torch.int32)[:, :f]
+    _eq_jax(name, got)
 
 
 def test_raw_hash_impls_agree(setup):
@@ -151,10 +187,31 @@ def test_engine_drain(setup, jax_drains, impl):
 def test_chunking_changes_no_bit(monkeypatch):
     """The plain thermometer product gives the same bits at any row chunk,
     through ``rw_hash_plain`` and through ``eval_pairs_thermo``."""
-    from repro_torch.kernels import rw_hash as trw
     pairs, pts = RW_HASH_CASES["out_of_range"]
     walks = tw.WalkTable(_t(pairs), tw.prefix_from_pairs(_t(pairs)))
     whole = trw.rw_hash_plain(_t(pairs), _t(pts))
     monkeypatch.setattr(trw, "PLAIN_CHUNK_BYTES", 4 * 7 * pairs[0].size)
     _eq(whole, trw.rw_hash_plain(_t(pairs), _t(pts)))
     _eq(whole, tw.eval_pairs_thermo(walks, _t(pts)))
+
+
+@pytest.mark.parametrize("n,f,m,resident,slices,want", [
+    (1_000_000, 96, 128, 264, None, 1),  # the build: 5,862 blocks, no split
+    (1_000_512, 96, 128, 264, None, 1),  # the compaction's rebuild
+    (64, 96, 128, 264, None, 64),        # a served batch, 2 blocks an SM: 2 dims a slice
+    (64, 96, 128, 132, None, 43),        # ... at 1 block an SM: 3 dims a slice
+    (512, 96, 128, 264, None, 64),       # the delta's inserts, one row tile
+    (8, 96, 128, 264, None, 64),
+    (1, 9, 4, 264, None, 4),             # at most one dimension a slice
+    (100_000, 65, 2, 264, None, 1),
+    (64, 96, 128, 0, 7, 7), (64, 96, 17, 0, 7, 6), (5, 3, 2, 0, 7, 2),
+    (64, 96, 128, 0, 128, 128), (64, 96, 128, 0, 0, 1)])
+def test_plan_rw_hash(n, f, m, resident, slices, want):
+    """Planned, the grid fills the resident blocks; given, the count is cut
+    to 1..m; and the slices of ceil(m / S) dimensions cover the m
+    dimensions with none empty, as the kernel takes them."""
+    got = trw.plan_rw_hash(n, f, m, resident, slices)
+    assert got == want
+    width = -(-m // got)
+    dims = [range(s * width, min(m, (s + 1) * width)) for s in range(got)]
+    assert all(len(d) for d in dims) and sum(len(d) for d in dims) == m
