@@ -15,10 +15,12 @@ read just after, and must launch the kernels named in ``PATHS``):
                  with m = 300 and m = 1 in four input types; the probe's
                  extents with and without the run-length table, its gather
                  at every cap, the rerank and the gather at their planned
-                 split and at 1, 2, 3, 7 and 32 slices; a wrapped int32
-                 sum; rw_hash's table kernel, its hash kernel at the
-                 planned split and at 1, 2, 3, 7 and m slices, and its
-                 first design), bit for bit; an index on the card refuses
+                 split and at 1, 2, 3, 7 and 32 slices; wrapped int32
+                 sums; l1_distance's two loops, a block mixing them, float
+                 sums flushed, and its previous design; rw_hash's table
+                 kernel, its hash kernel at the planned split and at 1, 2,
+                 3, 7 and m slices, and its first design), bit for bit;
+                 an index on the card refuses
                  the rerank cases whose distances reach BIG_DIST;
   ground_truth   exact L1 k-NN of the queries through ``ops.l1_distance``,
                  each chunk of distances held against the plain version;
@@ -46,11 +48,19 @@ read just after, and must launch the kernels named in ``PATHS``):
                  kernel (the probe's and the rerank's one block a query,
                  the merge's shared-memory network, reached through their
                  own C entry points from here only, and rw_hash's one
-                 launch that scans every table in every block).  The
+                 launch that scans every table in every block, and
+                 l1_distance's 64 x 64 integer tiles).  The
                  probe's row gives its two launches apart and the one-pass
                  route; the rw_hash row gives the build's shape (1 M rows)
                  and the served batch's (``batch_*``), the table kernel
-                 alone (``table``) and its path's calls by row count.
+                 alone (``table``) and its path's calls by row count; the
+                 l1_distance row gives a wide input's times (``wide_*``:
+                 coordinates in +-2^30, the int32 loop), int16's
+                 (``int16_*``), and the SASS of each inner loop
+                 (``sass``: instructions per update from cuobjdump) with
+                 the issue floor it gives (``*issue_floor_ms``: that count
+                 x updates / (SMs x 128 lanes x the SM clock's maximum, which
+                 nvidia-smi reports as ``clocks.max.sm``)).
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -62,6 +72,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -73,6 +86,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12     # the data sheet's 32-bit non-tensor rate
+# instruction issue: 4 schedulers an SM, each one warp instruction (32
+# lanes) a clock; times the SM count and the card's clock gives
+# lane-instructions/s
+LANES_PER_SM_CLOCK = 4 * 32
 N_POINTS, DIM, UNIVERSE = 1_000_000, 128, 510
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
 N_QUERIES, N_INSERT, N_DELETE, K = 1024, 512, 64, 10
@@ -213,9 +230,51 @@ def previous_designs(_build, ktm):
     return probe, rerank, merge
 
 
-def nvidia_smi_line() -> str:
+def sass_loops(lib: Path, kernel: str, updates_per_lds) -> list:
+    """The innermost loops of one kernel in a built library, read from
+    ``cuobjdump -sass``: for each, its instructions (NOPs left out), shared
+    loads, FADDs, and instructions per |q - x| update, where
+    ``updates_per_lds(opcode)`` gives the updates one shared load feeds.
+    ``kernel`` is a substring of the mangled name.  A loop is a backward
+    branch; an innermost one holds no other.  None without ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    code, func = [], None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            func = head.group(1)
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.+?)\s*;", line)
+        if ins and func and kernel in func:
+            words = [w for w in ins.group(2).split() if not w.startswith("@")]
+            code.append((int(ins.group(1), 16), words[0], ins.group(2)))
+    back = []
+    for addr, op, text in code:
+        target = re.search(r"0x([0-9a-f]+)", text.split(op, 1)[1]) if op.startswith("BRA") else None
+        if target and int(target.group(1), 16) < addr:
+            back.append((int(target.group(1), 16), addr))
+    loops = []
+    for lo, hi in back:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in back):
+            continue
+        body = [op for addr, op, _ in code if lo <= addr <= hi and op != "NOP"]
+        updates = sum(updates_per_lds(op) for op in body if op.startswith("LDS"))
+        if updates:
+            loops.append({"instructions": len(body), "updates": updates,
+                          "lds": sum(op.startswith("LDS") for op in body),
+                          "fadd": sum(op.startswith("FADD") for op in body),
+                          "per_update": len(body) / updates})
+    return loops
+
+
+def nvidia_smi_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -444,16 +503,19 @@ def main() -> int:
             check(equal(krw.rw_hash_cuda(*args, slices=slices), want),
                   f"rw_hash kernel at {slices} slices == plain on {name}")
             n_cases += 1
-    for cases, kfn, pfn in ((L1_CASES, ops.l1_distance, kl1.l1_distance_plain),
-                            (L1_ROWS_CASES, ops.l1_distance_rows,
-                             kl1.l1_distance_rows_plain)):
+    for cases, kfns, pfn in (
+            (L1_CASES, (ops.l1_distance, kl1.l1_distance_previous_cuda),
+             kl1.l1_distance_plain),
+            (L1_ROWS_CASES, (ops.l1_distance_rows,), kl1.l1_distance_rows_plain)):
         for name, (qs, xs, dtype) in sorted(cases.items()):
             args = [torch.from_numpy(x).to(card).to(getattr(torch, dtype)).contiguous()
                     for x in (qs, xs)]
-            got, want = kfn(*args), pfn(*args)
-            check(got.dtype == want.dtype and equal(got, want),
-                  f"{kfn.__name__} kernel == plain on {name}")
-            n_cases += 1
+            want = pfn(*args)
+            for kfn in kfns:
+                got = kfn(*args)
+                check(got.dtype == want.dtype and equal(got, want),
+                      f"{kfn.__name__} kernel == plain on {name}")
+                n_cases += 1
     torch.cuda.synchronize()
     log(f"phase kernels: {n_cases} adversarial cases equal to plain, bit for bit, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -804,23 +866,79 @@ def main() -> int:
                   **tab_row}})
     del rw_out, rw_plain, tab_got, tab_want
 
-    # l1_distance at the ground truth's shape: one batch against every point
+    # l1_distance at the ground truth's shape: one batch against every point,
+    # beside the previous design; then the same shape with every coordinate
+    # drawn in +-2^30 (every stage of every block runs the int32 loop), and
+    # in int16
     l1_k = lambda: kl1.l1_distance_cuda(batch, data_c)
     l1_p = lambda: kl1.l1_distance_plain(batch, data_c)
+    l1_prev = lambda: kl1.l1_distance_previous_cuda(batch, data_c)
     l1_out, l1_plain = l1_k(), l1_p()
     check(equal(l1_out, l1_plain), "l1_distance kernel == plain at 64 x 1 M x 128")
+    check(equal(l1_prev(), l1_plain),
+          "the l1_distance previous design == plain at 64 x 1 M x 128")
     qf, xf = batch.to(torch.float32), data_c.to(torch.float32)
     l1_lib = lambda: torch.cdist(qf, xf, p=1)
     check(equal(l1_lib().to(torch.int32), l1_out), "torch.cdist(p=1) agrees (exact)")
+    l1_updates = batch.shape[0] * n_pts * DIM
+    l1_row = timed(l1_k, l1_p, l1_lib, batch.numel() * 4 + data_c.numel() * 4
+                   + batch.shape[0] * n_pts * 4, l1_updates * 3, [(l1_out, l1_plain)],
+                   l1_prev)
+    del l1_out, l1_plain, xf
+    gen = torch.Generator(device=card).manual_seed(18)
+    wq, wx = (torch.randint(-2 ** 30, 2 ** 30, t.shape, generator=gen, device=card,
+                            dtype=torch.int32) for t in (batch, data_c))
+    w_k = lambda: kl1.l1_distance_cuda(wq, wx)
+    w_prev = lambda: kl1.l1_distance_previous_cuda(wq, wx)
+    w_out, w_plain = w_k(), kl1.l1_distance_plain(wq, wx)
+    check(equal(w_out, w_plain), "l1_distance kernel == plain on the wide input (int32 loop)")
+    check(equal(w_prev(), w_plain), "the l1_distance previous design == plain on the wide input")
+    l1_row.update(wide_max_abs_err=max_abs_err([(w_out, w_plain)]), wide_ms=cuda_ms(w_k),
+                  wide_device_ms=device_ms(w_k), wide_previous_device_ms=device_ms(w_prev))
+    del w_out, w_plain, wq, wx
+    hq, hx = batch.to(torch.int16), data_c.to(torch.int16)
+    h_k = lambda: kl1.l1_distance_cuda(hq, hx)
+    h_out, h_plain = h_k(), kl1.l1_distance_plain(hq, hx)
+    check(equal(h_out, h_plain), "l1_distance kernel == plain in int16 at 64 x 1 M x 128")
+    l1_row.update(int16_max_abs_err=max_abs_err([(h_out, h_plain)]), int16_ms=cuda_ms(h_k),
+                  int16_device_ms=device_ms(h_k), int16_previous_device_ms=device_ms(
+                      lambda: kl1.l1_distance_previous_cuda(hq, hx)))
+    del h_out, h_plain, hq, hx
+    # instruction issue floor: the inner loops' SASS instructions per update
+    # x updates / lane-instructions a second
+    # at the highest SM clock the card reports in this run
+    issue_clock_hz = float(nvidia_smi_line("clocks.max.sm").split()[0]) * 1e6
+    issue_rate = torch.cuda.get_device_properties(0).multi_processor_count \
+        * LANES_PER_SM_CLOCK * issue_clock_hz
+    lib = libs["l1_distance"]
+    per_lds128 = lambda op: 32 / 3 if ".128" in op else 0   # 3 LDS.128: 32 updates
+    sass = {"float32_loop_int32_input": None, "int32_loop": None,
+            "float32_loop_int16_input": None, "previous_int32": None}
+    found = sass_loops(lib, "l1_pairwise_kernelIiE", per_lds128)
+    if found is None:
+        log("l1_distance SASS: cuobjdump is not on this machine; no issue floor")
+    else:
+        for loop in found:
+            sass["float32_loop_int32_input" if loop["fadd"] else "int32_loop"] = loop
+        sass["float32_loop_int16_input"] = next(iter(
+            sass_loops(lib, "l1_pairwise_kernelIsE", per_lds128)), None)
+        # the first design: 8 scalar shared loads feed 16 updates
+        sass["previous_int32"] = next(iter(sass_loops(
+            lib, "l1_pairwise_previous_kernelIiE", lambda op: 0 if ".128" in op else 2)), None)
+        log(f"l1_distance SASS inner loops: {json.dumps(sass)}")
+    floor = lambda key: None if sass[key] is None else \
+        sass[key]["per_update"] * l1_updates / issue_rate * 1e3
     rows.append({
         "name": "l1_distance", "route": "cuda",
         "source": "src/repro_torch/csrc/l1_distance.cu",
         "replaces": "src/repro/kernels/l1_distance.py:59",
-        "launches": gt_launches["l1_distance"], "equal_to_plain": True,
-        **timed(l1_k, l1_p, l1_lib, batch.numel() * 4 + data_c.numel() * 4
-                + batch.shape[0] * n_pts * 4, batch.shape[0] * n_pts * DIM * 3,
-                [(l1_out, l1_plain)])})
-    del l1_out, l1_plain, xf
+        "launches": gt_launches["l1_distance"], "equal_to_plain": True, **l1_row,
+        "updates": l1_updates, "sass": sass, "issue_clock_ghz": issue_clock_hz / 1e9,
+        "issue_lane_rate": issue_rate, "issue_floor_ms": floor("float32_loop_int32_input"),
+        "wide_issue_floor_ms": floor("int32_loop"),
+        "int16_issue_floor_ms": floor("float32_loop_int16_input"),
+        "previous_issue_floor_ms": floor("previous_int32"),
+        "sm_clocks_max_now": nvidia_smi_line("clocks.max.sm,clocks.sm")})
 
     # l1_distance_rows at one served batch's first 4096 candidates a query
     cand = ids[:, :4096].clamp(0, st.dataset.shape[0] - 1).long()

@@ -6,6 +6,12 @@ Replace ``l1_distance_pallas`` and ``l1_distance_rows_pallas``
 versions, and the JAX package's ``ref.l1_distance``/``ref.l1_distance_rows``):
 integer inputs (int32, int16) accumulate in int32, float32 and bfloat16
 inputs in float32; the accumulation type of the queries decides.
+
+The pairwise kernel runs each 32-coordinate stage of a block in one of two
+loops, chosen from the values the block staged: a float32 loop, exact on
+integers while every sum stays below 2^24, and an int32 loop for wider
+values (see ``csrc/l1_distance.cu``).  ``l1_distance_previous_cuda`` launches
+the first design, for comparison only.
 """
 from __future__ import annotations
 
@@ -16,10 +22,10 @@ import torch
 from . import _build
 
 __all__ = ["l1_distance_plain", "l1_distance_rows_plain", "l1_distance_cuda",
-           "l1_distance_rows_cuda"]
+           "l1_distance_rows_cuda", "l1_distance_previous_cuda"]
 
 PLAIN_CHUNK_ELEMS = 1 << 26  # bound on one chunk's (Q, chunk, m) difference
-_MAX_GRID_Y = 65535          # the pairwise kernel's query tiles of 64
+_MAX_GRID_Y = 65535          # the pairwise kernels' query tiles of 64
 _ENTRY = {torch.int32: "i32", torch.int16: "i16", torch.float32: "f32",
           torch.bfloat16: "bf16"}
 
@@ -62,7 +68,7 @@ def l1_distance_rows_plain(queries: torch.Tensor, rows: torch.Tensor) -> torch.T
 # queries, points or rows, out, then (q, n, m) or (q, c, m), stream
 _build.declare("l1_distance", {
     f"l1_{kind}_{suffix}": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    for kind in ("pairwise", "rows") for suffix in _ENTRY.values()})
+    for kind in ("pairwise", "pairwise_previous", "rows") for suffix in _ENTRY.values()})
 
 
 def _fn(kind: str, dtype: torch.dtype):
@@ -79,8 +85,9 @@ def _check(queries: torch.Tensor, other: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: inputs must be contiguous")
 
 
-def l1_distance_cuda(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Launch the pairwise kernel on CUDA tensors; raises on what it cannot take."""
+def _pairwise_out(queries: torch.Tensor, points: torch.Tensor):
+    """Check the pairwise inputs; return the output and whether a kernel must
+    fill it (an empty output comes back as zeros)."""
     _check(queries, points, "l1_distance")
     if queries.dim() != 2 or points.dim() != 2 or points.shape[1] != queries.shape[1]:
         raise ValueError(f"l1_distance: (Q, m) and (N, m) expected, got "
@@ -91,10 +98,32 @@ def l1_distance_cuda(queries: torch.Tensor, points: torch.Tensor) -> torch.Tenso
         raise ValueError(f"l1_distance kernel takes Q <= {64 * _MAX_GRID_Y}, got {q}")
     acc = _acc_dtype(queries.dtype)
     if q == 0 or n == 0 or m == 0:
-        return torch.zeros((q, n), dtype=acc, device=queries.device)
-    out = torch.empty((q, n), dtype=acc, device=queries.device)
-    _build.launch("l1_distance", _fn("pairwise", queries.dtype), queries.get_device(),
-                  queries.data_ptr(), points.data_ptr(), out.data_ptr(), q, n, m)
+        return torch.zeros((q, n), dtype=acc, device=queries.device), False
+    return torch.empty((q, n), dtype=acc, device=queries.device), True
+
+
+def l1_distance_cuda(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Launch the pairwise kernel on CUDA tensors; raises on what it cannot take."""
+    out, work = _pairwise_out(queries, points)
+    if work:
+        _build.launch("l1_distance", _fn("pairwise", queries.dtype), queries.get_device(),
+                      queries.data_ptr(), points.data_ptr(), out.data_ptr(), *out.shape,
+                      queries.shape[1])
+    return out
+
+
+def l1_distance_previous_cuda(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """The first design (64 x 64 tiles, integer arithmetic only), for
+    comparison only: ``kernels.ops`` never reaches it, and it counts no
+    launch."""
+    out, work = _pairwise_out(queries, points)
+    if work:
+        device = queries.get_device()
+        status = _fn("pairwise_previous", queries.dtype)(
+            queries.data_ptr(), points.data_ptr(), out.data_ptr(), *out.shape,
+            queries.shape[1], torch._C._cuda_getCurrentRawStream(device))
+        if status != 0:
+            raise RuntimeError(f"l1_pairwise_previous: CUDA launch failed with error {status}")
     return out
 
 

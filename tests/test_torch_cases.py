@@ -10,6 +10,7 @@ MERGE_CASES  : name -> (da, ia, db, ib), each (Q, k)
 RW_HASH_CASES: name -> (pairs (F, m, U2) int8, points (n, m) int32)
 L1_CASES     : name -> (queries (Q, m), points (N, m)), one dtype
 L1_ROWS_CASES: name -> (queries (Q, m), rows (Q, C, m)), one dtype
+L1_INT_CASES : the integer-only pairwise cases of L1_CASES
 
 The L1 cases hold integer values, which float32 and bfloat16 sum exactly
 in any order, so every kernel equals its plain version bit for bit.
@@ -283,4 +284,48 @@ def _typed(cases):
             for name, arrays in cases.items() for dt in L1_DTYPES}
 
 
+# The pairwise kernel runs a full 32-coordinate stage in its float loop while
+# 2 * max|value| * 32 <= 2^24, i.e. max|value| <= 2^18 (csrc/l1_distance.cu).
+L1_FLOAT_LIMIT = 1 << 18
+
+
+def _l1_int_cases():
+    """Integer-only pairwise cases that reach every branch of the CUDA
+    kernel: the int32 loop, a block that mixes both loops, flushes of the
+    float sums, and the edges of its 64 x 128 tile and 32-coordinate stage.
+    Float32 sums of values near 2^30 depend on the order of the additions,
+    so these cases are not cast to every input type."""
+    rng = np.random.default_rng(18)
+    top = 1 << 30
+    cases = {"wrap_q5_n70_m40": (top - rng.integers(0, 1000, (5, 40)),
+                                 rng.integers(0, 1000, (70, 40)) - top)}
+    q, x = rng.integers(0, 511, (70, 64)), rng.integers(0, 511, (200, 64))
+    x[130, 40] = L1_FLOAT_LIMIT + 1     # point tile 1, stage 1: the int32 loop
+    x[5, 10] = L1_FLOAT_LIMIT           # point tile 0, stage 0: float, then a flush
+    cases["mixed_q70_n200_m64"] = (q, x)
+    # m = 33: the last stage holds one coordinate (s = 1), so values above
+    # 2^18 may take the float loop there: 2 * 2^22 * 1 <= 2^24 runs it
+    # (exact), 2 * (2^23 + 1) * 1 > 2^24 runs the int32 loop
+    q, x = rng.integers(0, 511, (5, 33)), rng.integers(0, 511, (200, 33))
+    x[10, 32] = 1 << 22                 # point tile 0, stage 1: the float loop
+    x[150, 32] = (1 << 23) + 1          # point tile 1, stage 1: the int32 loop
+    cases["partial_stage_q5_n200_m33"] = (q, x)
+    full = np.iinfo(np.int32)
+    q, x = (rng.integers(full.min, full.max, s, endpoint=True) for s in ((9, 70), (130, 70)))
+    q[0, :2], x[0, :2] = (full.min, full.max), (full.max, full.min)
+    cases["full_range_q9_n130_m70"] = (q, x)
+    for q, n, m in [(63, 129, 31), (65, 127, 33), (65, 129, 65)]:
+        cases[f"edge_q{q}_n{n}_m{m}"] = (rng.integers(0, 511, (q, m)),
+                                         rng.integers(0, 511, (n, m)))
+    out = {f"{name}_int32": (a.astype(np.int32), b.astype(np.int32), "int32")
+           for name, (a, b) in cases.items()}
+    # int16 at its extremes: |q - x| = 65535, so the float sums flush across
+    # the 10 stages of m = 300
+    ext = [rng.choice(np.array([-32768, 32767], np.int16), s) for s in ((5, 300), (40, 300))]
+    out["extremes_q5_n40_m300_int16"] = (*ext, "int16")
+    return out
+
+
+L1_INT_CASES = _l1_int_cases()
 L1_CASES, L1_ROWS_CASES = (_typed(c) for c in _l1_cases())
+L1_CASES.update(L1_INT_CASES)

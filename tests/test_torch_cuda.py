@@ -243,6 +243,61 @@ def test_l1_distance_kernel_matches_plain(card, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(L1_CASES))
+def test_l1_distance_previous_kernel_matches_plain(card, name):
+    queries, points, dtype = L1_CASES[name]
+    q, x = _typed(queries, dtype, card), _typed(points, dtype, card)
+    want = tl1.l1_distance_plain(q, x)
+    got = tl1.l1_distance_previous_cuda(q, x)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    _eq(want.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_l1_distance_kernel_at_scale(card, wide):
+    """64 x 300,000 x 128 in [0, 510]: every block runs the float loop; with
+    one value at 2^30, the blocks of its point tile run the int32 loop for
+    that value's stage."""
+    gen = torch.Generator(device=card).manual_seed(18)
+    q = torch.randint(0, 511, (64, 128), generator=gen, device=card, dtype=torch.int32)
+    x = torch.randint(0, 511, (300_000, 128), generator=gen, device=card, dtype=torch.int32)
+    if wide:
+        x[123_457, 77] = 1 << 30
+    want = tl1.l1_distance_plain(q, x)
+    for fn in (tl1.l1_distance_cuda, tl1.l1_distance_previous_cuda):
+        got = fn(q, x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+
+
+@pytest.mark.cuda
+def test_l1_distance_kernel_non_integer_floats(card):
+    """Non-integer float32 values: the kernel adds the m terms in order, the
+    plain version in torch's order; 64 float32 additions of positive terms
+    differ by at most 63 * 2^-24 (3.8e-6) relative, so rtol 1e-5."""
+    rng = np.random.default_rng(4)
+    q = _t(rng.uniform(-3, 3, (70, 64)).astype(np.float32)).to(card)
+    x = _t(rng.uniform(-3, 3, (300, 64)).astype(np.float32)).to(card)
+    want = tl1.l1_distance_plain(q, x)
+    for fn in (tl1.l1_distance_cuda, tl1.l1_distance_previous_cuda):
+        got = fn(q, x)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+                                   err_msg=fn.__name__)
+
+
+@pytest.mark.cuda
+def test_l1_distance_query_limit(card):
+    """The grid's y axis holds 65,535 query tiles of 64: one query more raises."""
+    q = torch.zeros((64 * 65_535 + 1, 1), dtype=torch.int32, device=card)
+    x = torch.zeros((3, 1), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        tl1.l1_distance_cuda(q, x)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(L1_ROWS_CASES))
 def test_l1_distance_rows_kernel_matches_plain(card, name):
     queries, rows, dtype = L1_ROWS_CASES[name]

@@ -15,7 +15,7 @@ from repro.kernels import ref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.l1_distance import (l1_distance_plain,
                                              l1_distance_rows_plain)
-from test_torch_cases import L1_CASES, L1_ROWS_CASES
+from test_torch_cases import L1_CASES, L1_INT_CASES, L1_ROWS_CASES
 
 torch.set_num_threads(1)
 
@@ -49,10 +49,12 @@ def _check(jax_fn, ref_fn, plain_fn, ops_fn, queries, other, dtype):
 
 def _cpu_cases(cases):
     """Each JAX call compiles once per shape and type, so the CPU takes every
-    shape in int32 and the m = 300 and signed shapes in every type; the card
-    takes every case (tests/test_torch_cuda.py)."""
-    return sorted(n for n in cases
-                  if n.endswith("_int32") or "_m300_" in n or n.startswith("signed_"))
+    shape in int32, the m = 300 and signed shapes in every type, and the
+    integer-only cases (wrapped int32 sums, both loops of the CUDA kernel,
+    its tile and stage edges); the card takes every case
+    (tests/test_torch_cuda.py)."""
+    return sorted(n for n in cases if n.endswith("_int32") or "_m300_" in n
+                  or n.startswith("signed_") or n in L1_INT_CASES)
 
 
 @pytest.mark.parametrize("name", _cpu_cases(L1_CASES))
