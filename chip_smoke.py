@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: serve a SIFT1M-shaped segmented
-MP-RW-LSH index on one NVIDIA card through the port's own entry points, and
-hold every CUDA kernel of that path against its plain-torch version.
+MP-RW-LSH index on one NVIDIA card through the port's own entry points, run
+the paper's quality protocol at the same size, and hold every CUDA kernel of
+those paths against its plain-torch version.
 
   python3 chip_smoke.py          # from the repository root; needs one card
 
@@ -10,18 +11,17 @@ read just after, and must launch the kernels named in ``PATHS``):
   build          compile csrc/*.cu with nvcc (sm_90a), one process per source;
   kernels        each kernel against its plain version at small adversarial
                  shapes (ties, duplicate ids, uint32 extremes, truncating
-                 buckets, tighter caps, n in {0, 1}, Ctot < k, int16; odd,
-                 negative and above-universe coordinates; ragged Q, N, C, m
-                 with m = 300 and m = 1 in four input types; the probe's
-                 extents with and without the run-length table, its gather
-                 at every cap, the rerank and the gather at their planned
-                 split and at 1, 2, 3, 7 and 32 slices; wrapped int32
-                 sums; l1_distance's two loops, a block mixing them, float
-                 sums flushed, and its previous design; rw_hash's table
-                 kernel, its hash kernel at the planned split and at 1, 2,
-                 3, 7 and m slices, and its first design), bit for bit;
-                 an index on the card refuses
-                 the rerank cases whose distances reach BIG_DIST;
+                 buckets, tighter caps, n in {0, 1}, Ctot < k, k > 32, int16;
+                 odd, negative and above-universe coordinates; ragged Q, N,
+                 C, m with m = 300 and m = 1 in four input types; the
+                 probe's extents with and without the run-length table, its
+                 gather at every cap, the rerank and the gather at their
+                 planned split and at 1, 2, 3, 7 and 32 slices; wrapped
+                 int32 sums; l1_distance's two loops, a block mixing them and
+                 float sums flushed; rw_hash's table kernel and its hash
+                 kernel at the planned split and at 1, 2, 3, 7 and m
+                 slices), bit for bit; an index on the card refuses the
+                 rerank cases whose distances reach BIG_DIST;
   ground_truth   exact L1 k-NN of the queries through ``ops.l1_distance``,
                  each chunk of distances held against the plain version;
   serve          the main path: build the engine on the card, insert 512
@@ -37,19 +37,26 @@ read just after, and must launch the kernels named in ``PATHS``):
   order          the two engines' batches timed alternately (ABBA), so the
                  order of the two serve phases does not enter the gap, and
                  one profiled batch of each;
+  quality        the paper's protocol (``repro_torch.eval.QualityRun``) on
+                 the same 1 M points and 256 queries at the JAX package's
+                 full QualitySpec: the exact ground truth, 35 timed records
+                 over MP-RW-LSH, RW-LSH, CP-LSH, MP-CP-LSH and SRS, the
+                 tables-needed claim, the served configuration's recall, and
+                 the segmented and compacted cross-layer oracles at the
+                 claim's configuration; then, outside the counted path, the
+                 path's ground truth, SRS and fragmented index's fold, and
+                 one configuration of each family ('rw', 'cauchy',
+                 'gaussian'), through the kernels and through their plain
+                 versions on the card (equal bit for bit), and the card's
+                 Cauchy buckets against a float64 reference on the CPU with
+                 TF32 off and on;
   batch          the kernels against their plain versions at the main path's
                  shapes, and their times beside the least time the card
                  could take (bytes over 3.35 TB/s, or operations over 67 T/s,
                  the larger): ``ms`` from CUDA events around one call (for a
                  launch-bound kernel that is the wrapper's host work),
                  ``device_ms`` the kernels' own device time a call from
-                 torch.profiler, the same two for the library call, and
-                 ``previous_ms`` for the earlier design of a redesigned
-                 kernel (the probe's and the rerank's one block a query,
-                 the merge's shared-memory network, reached through their
-                 own C entry points from here only, and rw_hash's one
-                 launch that scans every table in every block, and
-                 l1_distance's 64 x 64 integer tiles).  The
+                 torch.profiler, the same two for the library call.  The
                  probe's row gives its two launches apart and the one-pass
                  route; the rw_hash row gives the build's shape (1 M rows)
                  and the served batch's (``batch_*``), the table kernel
@@ -60,15 +67,17 @@ read just after, and must launch the kernels named in ``PATHS``):
                  (``sass``: instructions per update from cuobjdump) with
                  the issue floor it gives (``*issue_floor_ms``: that count
                  x updates / (SMs x 128 lanes x the SM clock's maximum, which
-                 nvidia-smi reports as ``clocks.max.sm``)).
+                 nvidia-smi reports as ``clocks.max.sm``)).  Every row also
+                 gives ``quality_launches``, its launches on the quality path.
 
-Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
-so the exit code is not 0.  Exits 2 with no result when no card is present
-or the port's sources are missing.
+Prints one ``{"quality": ...}`` line, one ``{"kernels": [...]}`` line, the
+card's name and power limit, and as its last line ``{"ok": true, "device":
+{...}}``.  Any failed check raises, so the exit code is not 0.  Exits 2 with
+no result when no card is present or the port's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -101,7 +110,16 @@ PATHS = {"ground_truth": ("l1_distance",),
          "serve": (*PROBE, "fused_rerank", "topk_merge"),
          "serve_rw_hash": ("rw_hash", "rw_prefix_table", *PROBE, "fused_rerank",
                            "topk_merge"),
-         "checks": ("l1_distance_rows",)}
+         "checks": ("l1_distance_rows",),
+         "quality": (*PROBE, "fused_rerank", "topk_merge", "l1_distance",
+                     "l1_distance_rows")}
+QUALITY_QUERIES = 256
+# the JAX package's full QualitySpec (benchmarks/quality_bench.py:42-47)
+QUALITY_SPEC = dict(k=10, table_sweep=(1, 2, 4, 8, 16, 32),
+                    table_sweep_single=(8, 16, 32, 64, 128), probe_sweep=(50, 150),
+                    candidate_cap=64, num_hashes_rw=12, num_hashes_cp=8,
+                    rerank_chunk=1024, srs_t=1024, target_recall=0.9)
+CAUCHY_ROWS = 65_536        # rows of the card's Cauchy buckets held against float64
 
 
 def log(msg: str) -> None:
@@ -180,56 +198,6 @@ def device_ms(fn, reps: int = 10, tries: int = 3) -> float:
     check(False, f"the profiler recorded device time in one of {tries} windows")
 
 
-def previous_designs(_build, ktm):
-    """Callables for the earlier designs of the three redesigned kernels,
-    bound to their own C entry points (nothing in the package reaches them),
-    and not counted in the launch counters."""
-    import ctypes
-    _build.declare("fused_probe", {
-        "fused_probe_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]})
-    _build.declare("fused_rerank", {
-        f"fused_rerank_rowwise_{s}": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p] for s in ("i32", "i16")})
-    _build.declare("topk_merge", {"topk_merge_smem_i32": ktm.SIGNATURE,
-                                  "topk_merge_smem_f32": ktm.SIGNATURE})
-
-    def call(lib, name, *args):
-        status = _build.entry(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
-        check(status == 0, f"{name} launched (CUDA error {status})")
-
-    def probe(sorted_keys, sorted_ids, occ_from, probe_keys, cap, cbucket):
-        l, n = sorted_keys.shape
-        q, _, p = probe_keys.shape
-        out = torch.empty((q, cbucket), dtype=torch.int32, device=probe_keys.device)
-        counts = torch.empty((q,), dtype=torch.int32, device=probe_keys.device)
-        call("fused_probe", "fused_probe_launch", sorted_keys.data_ptr(), sorted_ids.data_ptr(),
-             occ_from.data_ptr(), probe_keys.data_ptr(), out.data_ptr(), counts.data_ptr(),
-             q, n, l * p, p, cap, cbucket)
-        return out, counts
-
-    def rerank(dataset, queries, ids, k):
-        n, m = dataset.shape
-        q, ctot = ids.shape
-        d = torch.empty((q, k), dtype=torch.int32, device=ids.device)
-        i = torch.empty_like(d)
-        vec = int(m % (16 // dataset.element_size()) == 0 and dataset.data_ptr() % 16 == 0)
-        suffix = "i32" if dataset.dtype == torch.int32 else "i16"
-        call("fused_rerank", f"fused_rerank_rowwise_{suffix}", dataset.data_ptr(),
-             queries.data_ptr(), ids.data_ptr(), d.data_ptr(), i.data_ptr(), q, n, m,
-             ctot, k, vec)
-        return d, i
-
-    def merge(da, ia, db, ib):
-        q, k = da.shape
-        d, i = torch.empty_like(da), torch.empty_like(ia)
-        suffix = "i32" if da.dtype == torch.int32 else "f32"
-        call("topk_merge", f"topk_merge_smem_{suffix}", da.data_ptr(), ia.data_ptr(),
-             db.data_ptr(), ib.data_ptr(), d.data_ptr(), i.data_ptr(), q, k)
-        return d, i
-
-    return probe, rerank, merge
-
-
 def sass_loops(lib: Path, kernel: str, updates_per_lds) -> list:
     """The innermost loops of one kernel in a built library, read from
     ``cuobjdump -sass``: for each, its instructions (NOPs left out), shared
@@ -270,6 +238,170 @@ def sass_loops(lib: Path, kernel: str, updates_per_lds) -> list:
                           "fadd": sum(op.startswith("FADD") for op in body),
                           "per_update": len(body) / updates})
     return loops
+
+
+@contextlib.contextmanager
+def plain_kernels(ops, kfp, kfr, ktm, kl1, krw):
+    """Route every ``ops`` wrapper to its kernel's plain version, on the
+    tensors' own device (the card too), for as long as the block runs."""
+    saved = {name: getattr(ops, name) for name in (
+        "topk_merge", "fused_rerank", "probe_extents", "fused_probe", "rw_hash",
+        "l1_distance", "l1_distance_rows")}
+
+    def fused_probe(sorted_keys, sorted_ids, probe_keys, cap, cbucket, extents=None,
+                    occ_from=None):
+        if extents is None:
+            return kfp.fused_probe_plain(sorted_keys, sorted_ids, probe_keys, cap, cbucket,
+                                         occ_from=occ_from)
+        return kfp.compact_gather(sorted_ids, extents[0], extents[1], probe_keys.shape[2],
+                                  cbucket, cap)
+
+    ops.topk_merge, ops.fused_rerank = ktm.topk_merge_plain, kfr.fused_rerank_plain
+    ops.probe_extents, ops.fused_probe = kfp.probe_extents, fused_probe
+    ops.rw_hash, ops.l1_distance = krw.rw_hash_plain, kl1.l1_distance_plain
+    ops.l1_distance_rows = kl1.l1_distance_rows_plain
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def quality_phase(ops, spec, data, queries, served_cfg, kernel_modules):
+    """The paper's protocol on the card (the ``quality`` path), then the
+    checks that need plain versions or the CPU.  Returns the summary that
+    the ``{"quality": ...}`` line prints and the path's launch counts."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import hashes
+    from repro_torch.core.index import build_index, query_index
+    from repro_torch.eval import QualityRun, QualitySpec
+
+    t0 = time.perf_counter()
+    qspec = QualitySpec(**QUALITY_SPEC)
+
+    def protocol():
+        qrun = QualityRun(data, queries, spec.universe, qspec, device="cuda")
+        records = qrun.sweep(timed=True)
+        claim = qrun.table_claim(records)
+        l_mp = claim["tables_needed"]["mp-rw-lsh"] or max(qspec.table_sweep)
+        oracle_cfg = qrun.scheme_config("mp-rw-lsh", l_mp, qspec.probe_sweep[-1])
+        cross = qrun.check_cross_layer(oracle_cfg)
+        served = qrun.eval_config(served_cfg, timed=True)
+        return qrun, records, claim, oracle_cfg, cross, served
+
+    (qrun, records, claim, oracle_cfg, cross, served), launches = run_path(
+        "quality", ops, protocol)
+    protocol_s = time.perf_counter() - t0
+    for r in records:
+        check(0.0 <= r["recall"] <= 1.0 and r["ratio"] >= 1.0 - 1e-9,
+              f"quality record {r} has recall in [0, 1] and ratio >= 1")
+    flags = {k: v for k, v in cross.items() if isinstance(v, bool)}
+    check(len(flags) == 5 and all(flags.values()),
+          f"every cross-layer flag holds at the claim's config: {flags}")
+
+    # one configuration of each family through the kernels and through their
+    # plain versions, both on the card
+    plain_equal = {}
+    mp_cp = qrun.scheme_config("mp-cp-lsh", 8, qspec.probe_sweep[-1])
+    for family, cfg in (("rw", qrun.scheme_config("mp-rw-lsh", 8, qspec.probe_sweep[-1])),
+                        ("cauchy", mp_cp),
+                        ("gaussian", dataclasses.replace(mp_cp, family="gaussian"))):
+        state = build_index(cfg, qrun.data, params=qrun.params(cfg))
+        got = query_index(cfg, state, qrun.queries)
+        before = dict(ops.LAUNCHES)
+        with plain_kernels(ops, *kernel_modules):
+            want = query_index(cfg, state, qrun.queries)
+        check(dict(ops.LAUNCHES) == before, f"the plain route of {family} launched no kernel")
+        check(equal(got[0], want[0]) and equal(got[1], want[1]),
+              f"query_index on the card == its plain kernel versions on the card ({family})")
+        plain_equal[family] = {"num_tables": cfg.num_tables, "num_probes": cfg.num_probes,
+                               "width": cfg.width, "equal": True,
+                               "recall": qrun._score(*got)["recall"]}
+        del state
+
+    # the path's l1_distance, l1_distance_rows and topk_merge at its own
+    # inputs: the ground truth, SRS and the fragmented index's fold, again
+    # through the plain versions on the card
+    k = qspec.k
+    srs = qrun._srs_state()
+    srs_t = min(qspec.srs_t, int(qrun.data.shape[0]))
+    srs_got = bl.query_srs(srs, qrun.queries, srs_t, k)
+    frag = qrun.fragmented(oracle_cfg)
+    frag_got = frag.query(qrun.queries)
+    before = dict(ops.LAUNCHES)
+    with plain_kernels(ops, *kernel_modules):
+        gt_plain = bl.brute_force_l1(qrun.data, qrun.queries, k)
+        srs_plain = bl.query_srs(srs, qrun.queries, srs_t, k)
+        frag_plain = frag.query(qrun.queries)
+    check(dict(ops.LAUNCHES) == before, "the plain route of the quality path launched no kernel")
+    check(np.array_equal(gt_plain[0].cpu().numpy(), qrun.true_d)
+          and np.array_equal(gt_plain[1].cpu().numpy(), qrun.true_i),
+          "the quality ground truth (l1_distance) == its plain version on the card")
+    srs_rec = next(r for r in records if r["scheme"] == "srs")
+    check(equal(srs_got[0], srs_plain[0]) and equal(srs_got[1], srs_plain[1])
+          and {x: srs_rec[x] for x in ("recall", "ratio")} == qrun._score(*srs_plain),
+          "SRS (l1_distance_rows) == its plain version on the card, and its record")
+    check(all(equal(torch.as_tensor(a), torch.as_tensor(b))
+              for a, b in zip(frag_got, frag_plain))
+          and qrun._score(*frag_plain)["recall"] == cross["mutated_recall"],
+          "the fragmented index's query (topk_merge) == its plain version on the card")
+    plain_path = {"ground_truth": {"queries": int(qrun.queries.shape[0]),
+                                   "rows": int(qrun.data.shape[0]), "equal": True},
+                  "srs": {"t": srs_t, "equal": True},
+                  "fragmented": {"segments": frag.num_segments,
+                                 "delta_fill": frag.delta_fill, "equal": True}}
+    del frag, srs
+
+    # the card's Cauchy buckets against float64 on the CPU, with the global
+    # float32 matmul precision as it is and with TF32 allowed
+    cfg = qrun.scheme_config("cp-lsh", 16)
+    params = qrun.params(cfg)
+    sub = qrun.data[:CAUCHY_ROWS]
+    precision = torch.get_float32_matmul_precision()
+    card = lambda: hashes.bucket_and_offsets(params, hashes.raw_hash(params, sub))[0].cpu()
+    lm = cfg.num_tables * cfg.num_hashes
+    proj = params.proj.reshape(lm, -1)
+    b_card = card()
+    torch.set_float32_matmul_precision("high")       # TF32 for float32 products
+    try:
+        b_tf32 = card()
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    f64 = (sub.cpu().double() @ proj.cpu().double().t()).reshape(b_card.shape)
+    ref = torch.floor((f64 + params.offsets.cpu().double()) / params.width)
+    agree = float((b_card.double() == ref).double().mean())
+    check(agree >= 0.9999, f"the card's Cauchy buckets agree >= 0.9999 with float64 ({agree})")
+    check(equal(b_card, b_tf32), "the card's Cauchy buckets are the same with TF32 allowed")
+    cauchy = {"rows": int(sub.shape[0]), "functions": lm, "width": cfg.width,
+              "agreement_float64": agree,
+              "float32_matmul_precision": precision,
+              "same_with_tf32": True}
+
+    needed = claim["tables_needed"]
+    summary = {
+        "n": int(qrun.data.shape[0]), "dim": int(qrun.data.shape[1]),
+        "queries": int(qrun.queries.shape[0]), "k": qspec.k, "dbar": qrun.dbar,
+        "w_rw": qrun.w_rw, "w_cp": qrun.w_cp, "spec": QUALITY_SPEC,
+        "records": records, "table_claim": claim,
+        "cp_over_mp_rw": claim["ratio_vs_mp_rw"].get("cp-lsh"),
+        "cp_over_mp_rw_lower_bound": (
+            None if needed.get("mp-rw-lsh") is None or needed.get("cp-lsh") is not None
+            else claim["sweep_max_tables"] / needed["mp-rw-lsh"]),
+        "paper_cp_over_mp_rw": [15, 53],
+        # the same claim at lower targets, reported and not gated
+        "claims_by_target": {str(t): {k: c[k] for k in ("tables_needed", "ratio_vs_mp_rw")}
+                             for t in (0.8, 0.7, 0.6, 0.5, 0.4)
+                             for c in [qrun.table_claim(records, t)]},
+        "served": {"num_tables": served_cfg.num_tables, "num_hashes": served_cfg.num_hashes,
+                   "width": served_cfg.width, "num_probes": served_cfg.num_probes,
+                   "candidate_cap": served_cfg.candidate_cap, **served},
+        "oracle_config": {"scheme": "mp-rw-lsh", "num_tables": oracle_cfg.num_tables,
+                          "num_probes": oracle_cfg.num_probes},
+        "cross_layer": cross, "plain_equal": plain_equal, "plain_path": plain_path,
+        "cauchy_buckets": cauchy,
+        "protocol_seconds": protocol_s, "seconds": time.perf_counter() - t0,
+        "launches": launches}
+    return summary, launches
 
 
 def nvidia_smi_line(fields: str = "name,power.limit") -> str:
@@ -419,7 +551,6 @@ def main() -> int:
     for name in libs:
         _build.library(name)
     log(f"phase build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}")
-    probe_prev, rerank_prev, merge_prev = previous_designs(_build, ktm)
     for name, path in libs.items():
         lines = (path.parent / f"{name}.log").read_text().splitlines()
         regs = [ln.strip() for ln in lines if "Used" in ln and "registers" in ln]
@@ -496,16 +627,13 @@ def main() -> int:
                     krw.rw_prefix_table_plain(args[0], krw.padded_fns(args[0].shape[0]))),
               f"rw_hash table kernel == plain on {name}")
         check(equal(ops.rw_hash(*args), want), f"rw_hash kernel == plain on {name}")
-        check(equal(krw.rw_hash_previous_cuda(*args), want),
-              f"rw_hash previous design == plain on {name}")
-        n_cases += 3
+        n_cases += 2
         for slices in (1, 2, 3, 7, args[0].shape[1]):
             check(equal(krw.rw_hash_cuda(*args, slices=slices), want),
                   f"rw_hash kernel at {slices} slices == plain on {name}")
             n_cases += 1
     for cases, kfns, pfn in (
-            (L1_CASES, (ops.l1_distance, kl1.l1_distance_previous_cuda),
-             kl1.l1_distance_plain),
+            (L1_CASES, (ops.l1_distance,), kl1.l1_distance_plain),
             (L1_ROWS_CASES, (ops.l1_distance_rows,), kl1.l1_distance_rows_plain)):
         for name, (qs, xs, dtype) in sorted(cases.items()):
             args = [torch.from_numpy(x).to(card).to(getattr(torch, dtype)).contiguous()
@@ -655,6 +783,15 @@ def main() -> int:
         f"cand_buckets {summ['cand_buckets']}, cold hits {summ['bucket_cold_hits']}, "
         f"warmup {summ['warmup_ms']:.0f} ms, skew {json.dumps(summ['skew']['segments'])}")
 
+    # -- quality: the paper's protocol at the serving phases' size -------------
+    quality, q_launches = quality_phase(
+        ops, spec, data, ds.make_queries(spec, data, QUALITY_QUERIES), cfg,
+        (kfp, kfr, ktm, kl1, krw))
+    log(f"phase quality: {quality['seconds']:.1f} s (protocol "
+        f"{quality['protocol_seconds']:.1f} s), {len(quality['records'])} records, "
+        f"tables needed {json.dumps(quality['table_claim']['tables_needed'])}")
+    log(json.dumps({"quality": quality}))
+
     # -- one served batch: kernels against plain, and their times -------------
     idx = engine.index
     idx.insert(inserted[:N_INSERT // 2])     # a delta again, for the fold
@@ -683,23 +820,17 @@ def main() -> int:
                                            occ_from=st.occ_from)
     probe_p = lambda: kfp.fused_probe_plain(st.sorted_keys, st.sorted_ids, pk, cap, cb,
                                             occ_from=st.occ_from)
-    probe_pr = lambda: probe_prev(st.sorted_keys, st.sorted_ids, st.occ_from, pk, cap, cb)
     one_got = probe_k()
     check(all(equal(a, b) for a, b in zip(one_got, want)),
           "fused_probe one-pass kernels == plain on the served batch")
-    check(all(equal(a, b) for a, b in zip(probe_pr(), want)),
-          "the probe's previous design == plain on the served batch")
     gat_slices = kfr.plan_slices(pk.shape[0], cb, kfp.gather_resident_blocks(
         torch.cuda.current_device(), lo.shape[1]))
     ids = pipe.stage_tombstone(got[0], seg.gids, tomb, st.dataset.shape[0])
     rr_k = lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids, K)
     rr_p = lambda: kfr.fused_rerank_plain(st.dataset, batch, ids, K, chunk=cfg.rerank_chunk)
-    rr_prev = lambda: rerank_prev(st.dataset, batch, ids, K)
     sd, si = rr_k()
     wd, wi = rr_p()
     check(equal(sd, wd) and equal(si, wi), "fused_rerank kernel == plain on the served batch")
-    check(all(equal(a, b) for a, b in zip(rr_prev(), (wd, wi))),
-          "the rerank's previous design == plain on the served batch")
     rr_slices = kfr.plan_slices(ids.shape[0], ids.shape[1], kfr.resident_blocks(
         torch.cuda.current_device(), st.dataset.dtype, DIM, K,
         int(st.dataset.data_ptr() % 16 == 0)))
@@ -716,11 +847,8 @@ def main() -> int:
     db, ib = dd, _gid_map(di, delta_gids, cap_d)
     tm_k = lambda: ktm.topk_merge_cuda(da, ia, db, ib)
     tm_p = lambda: ktm.topk_merge_plain(da, ia, db, ib)
-    tm_prev = lambda: merge_prev(da, ia, db, ib)
     mk, mp = tm_k(), tm_p()
     check(equal(mk[0], mp[0]) and equal(mk[1], mp[1]), "topk_merge kernel == plain")
-    check(all(equal(a, b) for a, b in zip(tm_prev(), mp)),
-          "the merge's previous design == plain on the served batch")
     packed = torch.cat([(da.long() << 32) | (ia.long() & 0xFFFFFFFF),
                         (db.long() << 32) | (ib.long() & 0xFFFFFFFF)], dim=1)
     tm_lib = lambda: torch.topk(packed, K, dim=1, largest=False)
@@ -756,31 +884,29 @@ def main() -> int:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    def timed(kfn, pfn, lib, nbytes, nops, errs, prev=None):
+    def timed(kfn, pfn, lib, nbytes, nops, errs):
         """The measured numbers of one kernel row; kernel == plain already
-        held.  ``prev`` is the kernel's earlier design, where it has one."""
+        held."""
         b_ms, b_by = bound(nbytes, nops)
         # event times first, the kernel and the library call in turns; the
         # profiler's device times after them
         ms, lib_ms = (cuda_ms(kfn), None) if lib is None else cuda_ms_pair(kfn, lib)
         row = {"max_abs_err": max_abs_err(errs), "ms": ms,
-               "previous_ms": None if prev is None else cuda_ms(prev),
                "plain_ms": cuda_ms(pfn, reps=5), "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms}
         row["device_ms"] = device_ms(kfn)
-        row["previous_device_ms"] = None if prev is None else device_ms(prev)
         row["library_device_ms"] = None if lib is None else device_ms(lib)
         return row
 
     rows = []
-    for name, kfn, pfn, lib, prev, nbytes, nops, errs, src, repl in [
-        ("fused_probe", probe_k, probe_p, None, probe_pr, probe_bytes, probe_ops,
+    for name, kfn, pfn, lib, nbytes, nops, errs, src, repl in [
+        ("fused_probe", probe_k, probe_p, None, probe_bytes, probe_ops,
          [(one_got[0], want[0]), (one_got[1], want[1])], "fused_probe.cu",
          "src/repro/kernels/fused_probe.py:158"),
-        ("fused_rerank", rr_k, rr_p, None, rr_prev, rr_bytes, rr_ops,
+        ("fused_rerank", rr_k, rr_p, None, rr_bytes, rr_ops,
          [(sd, wd), (si, wi)], "fused_rerank.cu",
          "src/repro/kernels/fused_rerank.py:140"),
-        ("topk_merge", tm_k, tm_p, tm_lib, tm_prev, tm_bytes, tm_ops,
+        ("topk_merge", tm_k, tm_p, tm_lib, tm_bytes, tm_ops,
          [(mk[0], mp[0]), (mk[1], mp[1])], "topk_merge.cu",
          "src/repro/kernels/topk_merge.py:122"),
     ]:
@@ -788,7 +914,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
             "replaces": repl, "equal_to_plain": True,
             "launches": sum(launches[k] for k in PROBE) if name == "fused_probe" else
-            launches[name], **timed(kfn, pfn, lib, nbytes, nops, errs, prev)})
+            launches[name], **timed(kfn, pfn, lib, nbytes, nops, errs)})
     # the probe's row holds the one-pass route (the extents, then the
     # gather) and, apart, its two launches: the served route runs the
     # extents in phase A and the gather alone in phase B
@@ -808,14 +934,13 @@ def main() -> int:
     rows[1]["delta_scan_ms"] = cuda_ms(lambda: kfr.fused_rerank_cuda(delta_pts, batch, dids, K))
     rows[1]["delta_scan_device_ms"] = device_ms(
         lambda: kfr.fused_rerank_cuda(delta_pts, batch, dids, K))
-    rows[1]["delta_scan_previous_ms"] = cuda_ms(lambda: rerank_prev(delta_pts, batch, dids, K))
     log(f"phase batch: Q {q_rows}, rung cbucket {cb} c_cap {c_cap}, gathered "
         f"{gathered}, valid slots {n_slots}, distinct rows {uniq_rows}, delta rows "
         f"{idx._delta_count}, rerank slices {rr_slices}, gather slices {gat_slices}")
 
     # rw_hash at the build's shape (every point) and at one served batch;
     # plain on a subset, the prefix-gather hash on every point; the table
-    # kernel alone, and the first design at both shapes
+    # kernel alone
     walk_tab = idx.params.walks
     wp = walk_tab.pairs
     n_fns, _, u2 = wp.shape
@@ -823,29 +948,24 @@ def main() -> int:
     fp = krw.padded_fns(n_fns)
     rw_k = lambda: krw.rw_hash_cuda(wp, data_c)
     rw_p = lambda: krw.rw_hash_plain(wp, data_c[:RW_PLAIN_ROWS])
-    rw_prev = lambda: krw.rw_hash_previous_cuda(wp, data_c)
     rw_out, rw_plain = rw_k(), rw_p()
     check(equal(rw_out, walks.eval_prefix(walk_tab, data_c)),
           "rw_hash kernel == eval_prefix on every point")
     check(equal(rw_out[:RW_PLAIN_ROWS], rw_plain),
           f"rw_hash kernel == plain on {RW_PLAIN_ROWS} rows")
-    check(equal(rw_prev(), rw_out), "the rw_hash previous design == the kernel on every point")
     tab_k = lambda: krw.rw_prefix_table_cuda(wp)
     tab_p = lambda: krw.rw_prefix_table_plain(wp, fp)
     tab_got, tab_want = tab_k(), tab_p()
     check(equal(tab_got, tab_want), "rw_hash table kernel == plain at the served steps")
     rw_bk = lambda: krw.rw_hash_cuda(wp, batch)
     rw_bp = lambda: krw.rw_hash_plain(wp, batch)
-    rw_bprev = lambda: krw.rw_hash_previous_cuda(wp, batch)
     rw_batch, rw_batch_plain = rw_bk(), rw_bp()
     check(equal(rw_batch, rw_batch_plain), "rw_hash kernel == plain on the served batch")
-    check(equal(rw_bprev(), rw_batch_plain),
-          "the rw_hash previous design == plain on the served batch")
     rw_row = timed(rw_k, rw_p, None, n_pts * DIM * 4 + wp.numel() + n_pts * n_fns * 4,
-                   n_pts * n_fns * DIM, [(rw_out[:RW_PLAIN_ROWS], rw_plain)], rw_prev)
+                   n_pts * n_fns * DIM, [(rw_out[:RW_PLAIN_ROWS], rw_plain)])
     rw_batch_row = timed(rw_bk, rw_bp, None, batch.numel() * 4 + wp.numel()
                          + batch.shape[0] * n_fns * 4, batch.shape[0] * n_fns * DIM,
-                         [(rw_batch, rw_batch_plain)], rw_bprev)
+                         [(rw_batch, rw_batch_plain)])
     # the table: the steps read once, the table written once, an add a step
     tab_row = timed(tab_k, tab_p, None, wp.numel() + tab_want.numel() * 4, wp.numel(),
                     [(tab_got, tab_want)])
@@ -866,43 +986,36 @@ def main() -> int:
                   **tab_row}})
     del rw_out, rw_plain, tab_got, tab_want
 
-    # l1_distance at the ground truth's shape: one batch against every point,
-    # beside the previous design; then the same shape with every coordinate
+    # l1_distance at the ground truth's shape: one batch against every point;
+    # then the same shape with every coordinate
     # drawn in +-2^30 (every stage of every block runs the int32 loop), and
     # in int16
     l1_k = lambda: kl1.l1_distance_cuda(batch, data_c)
     l1_p = lambda: kl1.l1_distance_plain(batch, data_c)
-    l1_prev = lambda: kl1.l1_distance_previous_cuda(batch, data_c)
     l1_out, l1_plain = l1_k(), l1_p()
     check(equal(l1_out, l1_plain), "l1_distance kernel == plain at 64 x 1 M x 128")
-    check(equal(l1_prev(), l1_plain),
-          "the l1_distance previous design == plain at 64 x 1 M x 128")
     qf, xf = batch.to(torch.float32), data_c.to(torch.float32)
     l1_lib = lambda: torch.cdist(qf, xf, p=1)
     check(equal(l1_lib().to(torch.int32), l1_out), "torch.cdist(p=1) agrees (exact)")
     l1_updates = batch.shape[0] * n_pts * DIM
     l1_row = timed(l1_k, l1_p, l1_lib, batch.numel() * 4 + data_c.numel() * 4
-                   + batch.shape[0] * n_pts * 4, l1_updates * 3, [(l1_out, l1_plain)],
-                   l1_prev)
+                   + batch.shape[0] * n_pts * 4, l1_updates * 3, [(l1_out, l1_plain)])
     del l1_out, l1_plain, xf
     gen = torch.Generator(device=card).manual_seed(18)
     wq, wx = (torch.randint(-2 ** 30, 2 ** 30, t.shape, generator=gen, device=card,
                             dtype=torch.int32) for t in (batch, data_c))
     w_k = lambda: kl1.l1_distance_cuda(wq, wx)
-    w_prev = lambda: kl1.l1_distance_previous_cuda(wq, wx)
     w_out, w_plain = w_k(), kl1.l1_distance_plain(wq, wx)
     check(equal(w_out, w_plain), "l1_distance kernel == plain on the wide input (int32 loop)")
-    check(equal(w_prev(), w_plain), "the l1_distance previous design == plain on the wide input")
     l1_row.update(wide_max_abs_err=max_abs_err([(w_out, w_plain)]), wide_ms=cuda_ms(w_k),
-                  wide_device_ms=device_ms(w_k), wide_previous_device_ms=device_ms(w_prev))
+                  wide_device_ms=device_ms(w_k))
     del w_out, w_plain, wq, wx
     hq, hx = batch.to(torch.int16), data_c.to(torch.int16)
     h_k = lambda: kl1.l1_distance_cuda(hq, hx)
     h_out, h_plain = h_k(), kl1.l1_distance_plain(hq, hx)
     check(equal(h_out, h_plain), "l1_distance kernel == plain in int16 at 64 x 1 M x 128")
     l1_row.update(int16_max_abs_err=max_abs_err([(h_out, h_plain)]), int16_ms=cuda_ms(h_k),
-                  int16_device_ms=device_ms(h_k), int16_previous_device_ms=device_ms(
-                      lambda: kl1.l1_distance_previous_cuda(hq, hx)))
+                  int16_device_ms=device_ms(h_k))
     del h_out, h_plain, hq, hx
     # instruction issue floor: the inner loops' SASS instructions per update
     # x updates / lane-instructions a second
@@ -913,7 +1026,7 @@ def main() -> int:
     lib = libs["l1_distance"]
     per_lds128 = lambda op: 32 / 3 if ".128" in op else 0   # 3 LDS.128: 32 updates
     sass = {"float32_loop_int32_input": None, "int32_loop": None,
-            "float32_loop_int16_input": None, "previous_int32": None}
+            "float32_loop_int16_input": None}
     found = sass_loops(lib, "l1_pairwise_kernelIiE", per_lds128)
     if found is None:
         log("l1_distance SASS: cuobjdump is not on this machine; no issue floor")
@@ -922,9 +1035,6 @@ def main() -> int:
             sass["float32_loop_int32_input" if loop["fadd"] else "int32_loop"] = loop
         sass["float32_loop_int16_input"] = next(iter(
             sass_loops(lib, "l1_pairwise_kernelIsE", per_lds128)), None)
-        # the first design: 8 scalar shared loads feed 16 updates
-        sass["previous_int32"] = next(iter(sass_loops(
-            lib, "l1_pairwise_previous_kernelIiE", lambda op: 0 if ".128" in op else 2)), None)
         log(f"l1_distance SASS inner loops: {json.dumps(sass)}")
     floor = lambda key: None if sass[key] is None else \
         sass[key]["per_update"] * l1_updates / issue_rate * 1e3
@@ -937,7 +1047,6 @@ def main() -> int:
         "issue_lane_rate": issue_rate, "issue_floor_ms": floor("float32_loop_int32_input"),
         "wide_issue_floor_ms": floor("int32_loop"),
         "int16_issue_floor_ms": floor("float32_loop_int16_input"),
-        "previous_issue_floor_ms": floor("previous_int32"),
         "sm_clocks_max_now": nvidia_smi_line("clocks.max.sm,clocks.sm")})
 
     # l1_distance_rows at one served batch's first 4096 candidates a query
@@ -962,6 +1071,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/l1_distance.py:103",
         "launches": check_launches["l1_distance_rows"], "equal_to_plain": True,
         **l1r[torch.int32], "shape": list(rd.shape), "int16": l1r[torch.int16]})
+    for row in rows:
+        row["quality_launches"] = (sum(q_launches[k] for k in PROBE)
+                                   if row["name"] == "fused_probe" else q_launches[row["name"]])
+    for key in ("extents", "gather"):
+        rows[0][key]["quality_launches"] = q_launches[f"fused_probe_{key}"]
+    next(r for r in rows if r["name"] == "rw_hash")["table"]["quality_launches"] = \
+        q_launches["rw_prefix_table"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi_line())

@@ -3,8 +3,9 @@
 The port of the JAX package ``repro``; it imports ``torch`` and numpy and
 nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
 
-  core/     hashing, multi-probe template, index build, staged query
-            pipeline, segmented mutable index, baselines
+  core/     hashing (RW, Cauchy and Gaussian families), multi-probe
+            template, index build, staged query pipeline, segmented
+            mutable index, baselines (brute force, SRS, scheme configs)
   kernels/  the six kernels: fused_probe (as two launches, extents and
             gather), fused_rerank and topk_merge of the serving path,
             rw_hash of ``hash_impl='pallas'`` (as two launches, the
@@ -13,6 +14,8 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             ``csrc/`` and a plain-torch version of the same function each;
             ``ops`` dispatches by the tensors' device
   serve/    the batched serving engine
+  eval/     the quality protocol (``QualityRun``: recall sweeps over every
+            scheme, tables needed, cross-layer oracles)
   data/     seeded synthetic datasets (numpy, same bits as ``repro``)
   launch/   ``python -m repro_torch.launch.serve``
 

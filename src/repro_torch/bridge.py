@@ -16,18 +16,21 @@ from .core.walks import WalkTable
 __all__ = ["params_from_numpy"]
 
 
-def params_from_numpy(width, offsets, mix_a, mix_c, pairs, prefix,
-                      device="cpu") -> LshParams:
+def params_from_numpy(width, offsets, mix_a, mix_c, pairs=None, prefix=None,
+                      device="cpu", family="rw", proj=None) -> LshParams:
     """Build the port's ``LshParams`` from the JAX ``LshParams`` leaves.
 
-    offsets (L, M) float32, mix_a (L, M) uint32, mix_c (L,) uint32,
-    pairs (L*M, m, U2) int8, prefix (L*M, m, U2+1) int32, as numpy arrays
-    (the 'rw' family, the only one ported).
+    offsets (L, M) float32, mix_a (L, M) uint32, mix_c (L,) uint32, as numpy
+    arrays; for 'rw' pairs (L*M, m, U2) int8 and prefix (L*M, m, U2+1)
+    int32, for 'cauchy' and 'gaussian' proj (L, M, m) float32.
     """
 
     def t(arr, dtype):
         return torch.from_numpy(np.ascontiguousarray(arr).astype(dtype)).to(device)
 
-    walks = WalkTable(pairs=t(pairs, np.int8), prefix=t(prefix, np.int32))
-    return LshParams("rw", float(width), t(offsets, np.float32),
-                     t(mix_a, np.int64), t(mix_c, np.int64), walks=walks)
+    walks = None
+    if family == "rw":
+        walks = WalkTable(pairs=t(pairs, np.int8), prefix=t(prefix, np.int32))
+    return LshParams(family, float(width), t(offsets, np.float32),
+                     t(mix_a, np.int64), t(mix_c, np.int64), walks=walks,
+                     proj=None if proj is None else t(proj, np.float32))

@@ -35,21 +35,21 @@ class IndexConfig:
     num_probes: int = 100        # T extra buckets per table
     candidate_cap: int = 8       # max candidates gathered per probe
     universe: int = 256          # U, max (even) coordinate for 'rw'
-    family: str = "rw"           # only 'rw' is ported
+    family: str = "rw"           # 'rw' | 'cauchy' | 'gaussian'
     hash_impl: str = "gather"    # 'gather' | 'thermo' | 'pallas' (the rw_hash kernel)
-    rerank_chunk: int = 512      # candidates per plain-rerank step
-    rerank_impl: str = "fused"   # only 'fused' is ported
+    rerank_chunk: int = 512      # candidates per rerank scan step
+    rerank_impl: str = "fused"   # 'fused' (kernel, sort-free dedup) | 'scan'
     probe_impl: str = "fused"    # only 'fused' is ported
     k: int = 50                  # neighbors returned
     dataset_dtype: str = "int32" # 'int16' halves rerank-gather bytes
 
     def __post_init__(self):
+        if self.probe_impl == "staged":
+            raise NotImplementedError(
+                "probe_impl 'staged' is not ported yet (ROADMAP Queue 1 item 1); "
+                "use 'fused'")
         if self.probe_impl != "fused":
-            raise NotImplementedError(
-                f"probe_impl {self.probe_impl!r} is not ported yet (only 'fused')")
-        if self.rerank_impl != "fused":
-            raise NotImplementedError(
-                f"rerank_impl {self.rerank_impl!r} is not ported yet (only 'fused')")
+            raise ValueError(f"unknown probe_impl: {self.probe_impl!r}")
 
     @property
     def probes_per_table(self) -> int:
@@ -88,13 +88,20 @@ def make_template(cfg: IndexConfig) -> np.ndarray:
 
 def make_params(cfg: IndexConfig, dim: int, seed: int = 0,
                 device="cpu") -> hashes_lib.LshParams:
-    """Random parameters from a seeded ``torch.Generator``."""
-    if cfg.family != "rw":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (only 'rw')")
+    """Random parameters of ``cfg.family`` from a seeded ``torch.Generator``."""
     gen = torch.Generator().manual_seed(int(seed))
-    return hashes_lib.make_rw_params(cfg.num_tables, cfg.num_hashes, dim,
-                                     cfg.universe, cfg.width, gen).to(device)
+    if cfg.family == "rw":
+        params = hashes_lib.make_rw_params(cfg.num_tables, cfg.num_hashes, dim,
+                                           cfg.universe, cfg.width, gen)
+    elif cfg.family == "cauchy":
+        params = hashes_lib.make_cp_params(cfg.num_tables, cfg.num_hashes, dim,
+                                           cfg.width, gen)
+    elif cfg.family == "gaussian":
+        params = hashes_lib.make_gp_params(cfg.num_tables, cfg.num_hashes, dim,
+                                           cfg.width, gen)
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return params.to(device)
 
 
 def build_index(cfg: IndexConfig, dataset: torch.Tensor, row_offset: int = 0,
@@ -110,12 +117,8 @@ def build_index(cfg: IndexConfig, dataset: torch.Tensor, row_offset: int = 0,
     n, dim = dataset.shape
     if params is None:
         params = make_params(cfg, dim, seed, device)
-    f = hashes_lib.raw_hash(params, dataset.to(torch.int32), impl=cfg.hash_impl)
+    keys_t = _bucket_keys(cfg, params, dataset.to(torch.int32))     # (L, n)
     dataset = dataset.to(getattr(torch, cfg.dataset_dtype))
-    bucket, _ = hashes_lib.bucket_and_offsets(params, f)
-    del f
-    keys_t = hashes_lib.mix_keys(params, bucket).t().contiguous()   # (L, n)
-    del bucket
     sorted_keys, order = torch.sort(keys_t, dim=-1, stable=True)
     if template is None:
         template = torch.from_numpy(make_template(cfg)).to(device)
@@ -125,6 +128,26 @@ def build_index(cfg: IndexConfig, dataset: torch.Tensor, row_offset: int = 0,
                       template=template, row_offset=int(row_offset),
                       occ_from=occ_from,
                       occ_hist=_occ_histogram(sorted_keys, occ_from))
+
+
+BUILD_CHUNK_ELEMS = 1 << 27  # bound on one build step's (rows, L*M) temporaries
+
+
+def _bucket_keys(cfg: IndexConfig, params: hashes_lib.LshParams,
+                 points: torch.Tensor) -> torch.Tensor:
+    """(L, n) bucket keys of every point: hash, quantize and mix a block of
+    rows at a time, so that the (rows, L*M) temporaries stay within
+    ``BUILD_CHUNK_ELEMS`` however many hash functions a scheme takes."""
+    n = points.shape[0]
+    step = max(1, BUILD_CHUNK_ELEMS // (params.num_tables * params.num_hashes))
+    keys = torch.empty((params.num_tables, n), dtype=torch.int64,
+                       device=points.device)
+    for lo in range(0, n, step):
+        f = hashes_lib.raw_hash(params, points[lo:lo + step], impl=cfg.hash_impl)
+        bucket, _ = hashes_lib.bucket_and_offsets(params, f)
+        del f
+        keys[:, lo:lo + step] = hashes_lib.mix_keys(params, bucket).t()
+    return keys
 
 
 def _run_lengths(sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -187,6 +210,8 @@ def finish_index(cfg: IndexConfig, cbucket: int, c_cap: Optional[int],
     ids, _ = pipe.stage_fused_probe(
         cfg, state.sorted_keys, state.sorted_ids, probe_keys, n, cbucket,
         extents=(lo, occ), c_cap=c_cap, occ_from=state.occ_from)
+    if not pipe.rerank_handles_duplicates(cfg):
+        ids = pipe.stage_dedup(ids, n)
     d, i = pipe.stage_rerank(cfg, state.dataset, queries, ids)
     return d, torch.where(i >= 0, i + state.row_offset, -1)
 

@@ -7,11 +7,14 @@ Q queries, L tables, M hashes, P probes per table, C candidate cap:
   stage_probe_keys    : bucket, x_neg               -> probe_keys (Q, L, P) int64
   stage_probe_extents : sorted_keys, probe_keys     -> lo, occ (Q, L*P), counts (Q,)
   stage_fused_probe   : sorted keys/ids, probe_keys -> ids (Q, Cb), counts (Q,)
+  stage_dedup         : ids                         -> ids, duplicates -> sentinel
   stage_tombstone     : ids, gids, tombstones       -> ids, deleted -> sentinel
   stage_rerank        : dataset, queries, ids       -> (dists, ids) (Q, k) asc
   stage_merge_pair    : two (Q, k) lists            -> one (Q, k) list
 
-plus the host-side rung helpers of the two-phase compacted query.
+plus the host-side rung helpers of the two-phase compacted query.  The
+rerank is 'fused' (the kernel, which drops duplicate ids itself) or 'scan'
+(``l1_distance_chunked``, which takes ``stage_dedup``'s output).
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ from . import multiprobe as mp_lib
 
 __all__ = [
     "BIG_DIST", "stage_hash", "stage_probe_keys", "stage_probe_extents",
-    "stage_fused_probe", "stage_tombstone", "probe_candidates", "stage_rerank",
-    "stage_merge_pair", "max_bucket_occupancy", "occupancy_quantile",
-    "candidate_ladder", "candidate_bucket", "rung_ladder", "pick_rung",
+    "stage_fused_probe", "stage_dedup", "stage_tombstone", "probe_candidates",
+    "rerank_handles_duplicates", "stage_rerank", "l1_distance_chunked",
+    "stage_merge_pair", "max_bucket_occupancy", "oracle_candidate_cap",
+    "occupancy_quantile", "candidate_ladder", "candidate_bucket", "rung_ladder",
+    "pick_rung",
 ]
 
 # Sentinel distance for invalid/padded slots; iinfo//2 so two of them still
@@ -95,6 +100,12 @@ def max_bucket_occupancy(sorted_keys, occ_from=None) -> int:
         if idx.size:
             best = max(best, int((idx[1::2] - idx[::2]).max()) + 1)
     return best
+
+
+def oracle_candidate_cap(cfg, sorted_keys, occ_from=None) -> int:
+    """A candidate cap at which no probed bucket is truncated, so that the
+    candidate sets of segments or shards union to the flat index's set."""
+    return max(cfg.candidate_cap, max_bucket_occupancy(sorted_keys, occ_from))
 
 
 def occupancy_quantile(occ_hist, q: float = 0.999) -> int:
@@ -175,6 +186,20 @@ def pick_rung(count: int, ctot_cap: int, floor: int = 64,
 # Tombstone, rerank, merge
 # --------------------------------------------------------------------------
 
+def rerank_handles_duplicates(cfg) -> bool:
+    """True when ``stage_rerank`` drops duplicate ids itself ('fused'); the
+    'scan' rerank needs ``stage_dedup`` first."""
+    return getattr(cfg, "rerank_impl", "fused") != "scan"
+
+
+def stage_dedup(ids, n: int):
+    """Sort each row ascending and turn every repeat into the sentinel n."""
+    ids = torch.sort(ids, dim=-1).values
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    return torch.where(dup, n, ids)
+
+
 def stage_tombstone(ids, gids, tombstones, n: int):
     """Mask deleted points out of a (Q, Ctot) candidate list (sentinel n).
 
@@ -190,29 +215,87 @@ def stage_tombstone(ids, gids, tombstones, n: int):
 
 def probe_candidates(cfg, params, template, sorted_keys, sorted_ids, n: int,
                      queries, cbucket: Optional[int] = None,
-                     c_cap: Optional[int] = None, occ_from=None):
-    """hash -> probe keys -> fused lookup+gather; candidate ids, sentinel n.
-    Not deduplicated: the fused rerank drops duplicates itself."""
+                     c_cap: Optional[int] = None, occ_from=None,
+                     dedup: Optional[bool] = None):
+    """hash -> probe keys -> fused lookup+gather [-> dedup]; candidate ids,
+    sentinel n.  ``dedup`` defaults to what the configured rerank needs."""
     if cfg.probe_impl != "fused":
         raise NotImplementedError(
-            f"probe_impl {cfg.probe_impl!r} is not ported yet (only 'fused')")
+            f"probe_impl {cfg.probe_impl!r} is not ported yet (ROADMAP Queue 1 "
+            f"item 1); use 'fused'")
     bucket, x_neg = stage_hash(cfg, params, queries)
     probe_keys = stage_probe_keys(cfg, params, template, bucket, x_neg)
     ids, _ = stage_fused_probe(cfg, sorted_keys, sorted_ids, probe_keys, n,
                                cbucket, c_cap=c_cap, occ_from=occ_from)
-    return ids
+    if dedup is None:
+        dedup = not rerank_handles_duplicates(cfg)
+    return stage_dedup(ids, n) if dedup else ids
 
 
-def stage_rerank(cfg, dataset, queries, ids):
+def _rows_operands(dataset, queries):
+    """The queries and a row transform for ``l1_distance_rows``, which takes
+    one integer type for both: the dataset's, when every query coordinate
+    fits in it (one host read), else int32 for both."""
+    queries = queries.contiguous()
+    if queries.dtype == dataset.dtype:
+        return queries, lambda rows: rows
+    narrow = queries.to(dataset.dtype)
+    if torch.equal(narrow.to(queries.dtype), queries):
+        return narrow, lambda rows: rows
+    return queries.to(torch.int32), lambda rows: rows.to(torch.int32)
+
+
+def l1_distance_chunked(dataset, queries, ids, k: int, chunk: int):
+    """Exact L1 rerank as a scan over ``chunk`` candidates at a time with a
+    running top-k (the 'scan' rerank, SRS and the JAX package's brute force).
+
+    ids (Q, Ctot) int32, sentinel >= n marks invalid, **deduplicated** (a
+    repeated id takes a slot each time).  Each step gathers its rows and
+    takes their distances through ``l1_distance_rows`` (the kernel on the
+    card), then keeps the k smallest of the running list followed by the
+    step's, ties going to the earlier slot, as ``lax.top_k`` of the negated
+    distances does.  Returns (dists (Q, k) int32, ids (Q, k) int32)
+    ascending; entries at ``BIG_DIST`` or beyond come back as (dist, -1).
+    """
+    n = dataset.shape[0]
+    q, ctot = ids.shape
+    big = torch.tensor(BIG_DIST, dtype=torch.int32, device=ids.device)
+    pad = (-ctot) % chunk
+    if pad:
+        ids = torch.cat([ids, torch.full((q, pad), n, dtype=ids.dtype,
+                                         device=ids.device)], dim=1)
+    qs, widen = _rows_operands(dataset, queries)
+    best_d = big.expand(q, k)
+    best_i = torch.full((q, k), n, dtype=torch.int32, device=ids.device)
+    for lo in range(0, ids.shape[1], chunk):
+        step_ids = ids[:, lo:lo + chunk].to(torch.int32)
+        rows = widen(dataset[step_ids.clamp(0, n - 1).long()])     # (Q, c, m)
+        d = kops.l1_distance_rows(qs, rows.contiguous()).to(torch.int32)
+        d = torch.where(step_ids >= n, big, d)
+        cd = torch.cat([best_d, d], dim=1)
+        ci = torch.cat([best_i, step_ids], dim=1)
+        # lax.top_k(-cd, k): the k largest negated distances (int32 wrap
+        # included), equal ones in slot order
+        sel = torch.sort(-cd, dim=1, descending=True, stable=True).indices[:, :k]
+        best_d = torch.gather(cd, 1, sel)
+        best_i = torch.gather(ci, 1, sel)
+    best_i = torch.where(best_d >= big, -1, best_i)
+    return best_d, best_i
+
+
+def stage_rerank(cfg, dataset, queries, ids, impl: Optional[str] = None):
     """Exact rerank: the k lex-(dist, id)-smallest unique candidates,
-    ascending; invalid -> (BIG_DIST, -1)."""
-    if cfg.rerank_impl != "fused":
-        raise NotImplementedError(
-            f"rerank_impl {cfg.rerank_impl!r} is not ported yet (only 'fused')")
+    ascending; invalid -> (BIG_DIST, -1).  'fused' (``cfg.rerank_impl``'s
+    default) takes the raw gather, 'scan' deduplicated ids."""
+    impl = impl or getattr(cfg, "rerank_impl", "fused")
     if dataset.shape[0] == 0:
         q = ids.shape[0]
         return (torch.full((q, cfg.k), BIG_DIST, dtype=torch.int32, device=ids.device),
                 torch.full((q, cfg.k), -1, dtype=torch.int32, device=ids.device))
+    if impl == "scan":
+        return l1_distance_chunked(dataset, queries, ids, cfg.k, cfg.rerank_chunk)
+    if impl != "fused":
+        raise ValueError(f"unknown rerank_impl: {impl!r}")
     return kops.fused_rerank(dataset, queries, ids, cfg.k, chunk=cfg.rerank_chunk)
 
 

@@ -78,12 +78,14 @@ def _truncated_total(occ, counts, c_cap: int, cbucket: int) -> int:
 
 def _finish_segment(cfg, cbucket: int, c_cap: Optional[int], state: IndexState,
                     gids, tombstones, probe_keys, lo, occ, queries):
-    """Phase B over one segment: compacted gather at the rung -> tombstone
-    -> rerank -> gid map."""
+    """Phase B over one segment: compacted gather at the rung -> [dedup ->]
+    tombstone -> rerank -> gid map."""
     n = state.dataset.shape[0]
     ids, _ = pipe.stage_fused_probe(
         cfg, state.sorted_keys, state.sorted_ids, probe_keys, n, cbucket,
         extents=(lo, occ), c_cap=c_cap, occ_from=state.occ_from)
+    if not pipe.rerank_handles_duplicates(cfg):
+        ids = pipe.stage_dedup(ids, n)
     ids = pipe.stage_tombstone(ids, gids, tombstones, n)
     d, i = pipe.stage_rerank(cfg, state.dataset, queries, ids)
     if n == 0:

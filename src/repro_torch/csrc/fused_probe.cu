@@ -43,11 +43,6 @@
 // output row out.  Measured at ~3.7x that bound at the served batch, and a
 // variant with 4 id loads in flight a thread and lo in shared memory was
 // no faster, so the id load's latency is not what holds it (PERF.md).
-//
-// The first design (fused_probe_launch: one block per query, which
-// searches from the probe keys and copies each bucket by one thread) is
-// kept below only so that the smoke can time it beside the two launches in
-// one run.  Nothing in the package launches it.
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,53 +165,6 @@ cudaError_t gather_allow(size_t smem) {
                               static_cast<int>(smem));
 }
 
-// ---------------------------------------------------------------------------
-// The first design, for the smoke's comparison only.
-// ---------------------------------------------------------------------------
-
-__global__ void fused_probe_kernel(const long long* __restrict__ sorted_keys,
-                                   const int* __restrict__ sorted_ids,
-                                   const int* __restrict__ occ_from,  // may be null
-                                   const long long* __restrict__ probe_keys,
-                                   int* __restrict__ out, int* __restrict__ counts,
-                                   int n, int lp, int p, int cap, int cbucket) {
-  using Scan = cub::BlockScan<int, kThreads>;
-  __shared__ typename Scan::TempStorage scan_tmp;
-  const int q = blockIdx.x;
-  const long long* pk = probe_keys + static_cast<size_t>(q) * lp;
-  int* row = out + static_cast<size_t>(q) * cbucket;
-
-  int base = 0;  // output offset of the current chunk
-  for (int c0 = 0; c0 < lp; c0 += kThreads) {
-    const int j = c0 + threadIdx.x;
-    int lo = 0, cnt = 0;
-    size_t table_off = 0;
-    if (j < lp) {
-      table_off = static_cast<size_t>(j / p) * n;
-      const long long* keys = sorted_keys + table_off;
-      const long long key = pk[j];
-      lo = search<false>(keys, n, key);
-      int occ;
-      if (occ_from != nullptr) {
-        occ = (lo < n && keys[lo] == key) ? occ_from[table_off + lo] : 0;
-      } else {
-        occ = search<true>(keys, n, key) - lo;
-      }
-      cnt = min(occ, cap);
-    }
-    int excl, chunk_total;
-    Scan(scan_tmp).ExclusiveSum(cnt, excl, chunk_total);
-    __syncthreads();  // scan_tmp is reused by the next chunk
-    const int start = base + excl;
-    const int stop = min(start + cnt, cbucket);
-    const int* ids = sorted_ids + table_off + lo;
-    for (int s = start; s < stop; ++s) row[s] = ids[s - start];
-    base += chunk_total;
-  }
-  for (int s = min(base, cbucket) + threadIdx.x; s < cbucket; s += kThreads) row[s] = n;
-  if (threadIdx.x == 0) counts[q] = base;
-}
-
 }  // namespace
 
 // probe_keys (q, lp) int64; lo, occ (q, lp) int32; counts (q,) int32,
@@ -261,16 +209,5 @@ extern "C" int fused_probe_gather_launch(const void* sorted_ids, const void* lo,
       static_cast<const int*>(sorted_ids), static_cast<const int*>(lo),
       static_cast<const int*>(occ), static_cast<int*>(out), static_cast<int*>(counts), n, lp,
       p, cap, cbucket);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int fused_probe_launch(const void* sorted_keys, const void* sorted_ids,
-                                  const void* occ_from, const void* probe_keys, void* out,
-                                  void* counts, int q, int n, int lp, int p, int cap,
-                                  int cbucket, void* stream) {
-  fused_probe_kernel<<<q, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(sorted_keys), static_cast<const int*>(sorted_ids),
-      static_cast<const int*>(occ_from), static_cast<const long long*>(probe_keys),
-      static_cast<int*>(out), static_cast<int*>(counts), n, lp, p, cap, cbucket);
   return static_cast<int>(cudaGetLastError());
 }

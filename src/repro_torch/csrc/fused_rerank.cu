@@ -16,11 +16,10 @@
 // Bound: bytes, and in practice the latency of dependent loads.  Every valid
 // candidate costs one dataset row (m * 2 or 4 bytes, a random gather) after
 // the load of its id, against a few integer operations per element.  The
-// first design (kept below as fused_rerank_rowwise_*, for the smoke's
-// comparison only) ran one block per query, so a 64-query batch filled 64 of
-// 132 SMs, and each warp walked its candidates one row at a time: two
-// dependent trips to memory per candidate and one 16-byte load per lane in
-// flight.  This design:
+// first design (since deleted) ran one block per query, so a 64-query batch
+// filled 64 of 132 SMs, and each warp walked its candidates one row at a
+// time: two dependent trips to memory per candidate and one 16-byte load
+// per lane in flight.  This design:
 //  * grid (Q, S): each query's ctot slots are cut into chunks of kThreads
 //    (256) slots, and slice s takes chunks s, s + S, s + 2S, ...  Interleaved
 //    rather than contiguous slices, because a row's valid ids are packed to
@@ -393,103 +392,6 @@ int launch(const void* dataset, const void* queries, const void* ids, void* work
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// The first design (one block per query, each warp a row at a time, thread 0
-// merging the warp lists), kept only so that the smoke can time it beside the
-// split design in one run.  Nothing in the package launches it.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ int rowwise_l1(const T* __restrict__ row, const int* __restrict__ qs,
-                                          int m, int lane, bool vec) {
-  int acc = 0;
-  if (vec) {
-    constexpr int kPer = 16 / sizeof(T);
-    const int nvec = m / kPer;
-    const int4* r4 = reinterpret_cast<const int4*>(row);
-    for (int v = lane; v < nvec; v += 32) {
-      const int4 x = __ldg(r4 + v);
-      const T* e = reinterpret_cast<const T*>(&x);
-      const int* qv = qs + v * kPer;
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) acc += absdiff(static_cast<int>(e[u]), qv[u]);
-    }
-  } else {
-    for (int e = lane; e < m; e += 32) acc += absdiff(static_cast<int>(row[e]), qs[e]);
-  }
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-  return acc;
-}
-
-template <typename T>
-__global__ void rowwise_kernel(const T* __restrict__ dataset, const int* __restrict__ queries,
-                               const int* __restrict__ ids, int* __restrict__ dout,
-                               int* __restrict__ iout, int n, int m, int ctot, int k, int vec) {
-  extern __shared__ unsigned long long smem[];
-  const int q = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  unsigned long long* list = smem + warp * k;
-  int* qs = reinterpret_cast<int*>(smem + kWarps * k);
-
-  for (int e = threadIdx.x; e < m; e += blockDim.x) qs[e] = queries[static_cast<size_t>(q) * m + e];
-  for (int j = lane; j < k; j += 32) list[j] = kEmpty;
-  __syncthreads();
-
-  const int* row_ids = ids + static_cast<size_t>(q) * ctot;
-  unsigned long long worst = kEmpty;
-  for (int c = warp; c < ctot; c += kWarps) {
-    const int id = row_ids[c];
-    if (id < 0 || id >= n) continue;  // warp-uniform
-    const int d = rowwise_l1(dataset + static_cast<size_t>(id) * m, qs, m, lane, vec != 0);
-    const unsigned long long key = make_key(d, id);
-    if (key >= worst) continue;
-    worst = insert_key(list, k, key, lane, worst);
-  }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    int head[kWarps];
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) head[w] = 0;
-    const size_t out = static_cast<size_t>(q) * k;
-    unsigned long long prev = kEmpty;
-    int filled = 0;
-    while (filled < k) {
-      unsigned long long best = kEmpty;
-      int bw = -1;
-      for (int w = 0; w < kWarps; ++w) {
-        if (head[w] < k) {
-          const unsigned long long v = smem[w * k + head[w]];
-          if (v < best) { best = v; bw = w; }
-        }
-      }
-      if (bw < 0) break;  // every list is exhausted or holds only empties
-      ++head[bw];
-      if (best == prev) continue;
-      prev = best;
-      dout[out + filled] = key_dist(best);
-      iout[out + filled] = static_cast<int>(best & 0xffffffffu);
-      ++filled;
-    }
-    for (; filled < k; ++filled) {
-      dout[out + filled] = kBigDist;
-      iout[out + filled] = -1;
-    }
-  }
-}
-
-template <typename T>
-int launch_rowwise(const void* dataset, const void* queries, const void* ids, void* dout,
-                   void* iout, int q, int n, int m, int ctot, int k, int vec, void* stream) {
-  rowwise_kernel<T><<<q, kThreads, smem_bytes(m, k), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(dataset), static_cast<const int*>(queries),
-      static_cast<const int*>(ids), static_cast<int*>(dout), static_cast<int*>(iout),
-      n, m, ctot, k, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int fused_rerank_resident_i32(int m, int k, int vec) { return resident<int32_t>(m, k, vec); }
@@ -507,16 +409,4 @@ extern "C" int fused_rerank_i16(const void* dataset, const void* queries, const 
                                 int ctot, int k, int vec, int slices, void* stream) {
   return launch<int16_t>(dataset, queries, ids, work, dout, iout, q, n, m, ctot, k, vec, slices,
                          stream);
-}
-
-extern "C" int fused_rerank_rowwise_i32(const void* dataset, const void* queries, const void* ids,
-                                        void* dout, void* iout, int q, int n, int m, int ctot,
-                                        int k, int vec, void* stream) {
-  return launch_rowwise<int32_t>(dataset, queries, ids, dout, iout, q, n, m, ctot, k, vec, stream);
-}
-
-extern "C" int fused_rerank_rowwise_i16(const void* dataset, const void* queries, const void* ids,
-                                        void* dout, void* iout, int q, int n, int m, int ctot,
-                                        int k, int vec, void* stream) {
-  return launch_rowwise<int16_t>(dataset, queries, ids, dout, iout, q, n, m, ctot, k, vec, stream);
 }

@@ -50,10 +50,6 @@
 // loop, flushing every 8 full stages at worst.  float32 and bfloat16
 // inputs always take the float loop, with no uint32 sums.
 //
-// l1_pairwise_previous_kernel keeps the first design (64 x 64 tiles, 4 x 4
-// sums a thread from 8 scalar shared loads, integer arithmetic only) for
-// comparison only.
-//
 // Per-query rows: every candidate row is read once against one query row,
 // so bytes bound it.  One warp per candidate row: lanes stride over the m
 // coordinates (neighbouring lanes on neighbouring addresses), accumulate,
@@ -72,9 +68,6 @@ constexpr int kStage = 32;     // pairwise: coordinates staged per step
 constexpr int kPad = 4;        // words after each staged row (16-byte rows)
 constexpr int kThreads = 256;  // pairwise: 16 x 16 threads, 4 x 8 sums each
 constexpr uint64_t kExact = 1ull << 24;  // float32 holds integers up to here
-constexpr int kTile = 64;      // previous design: queries and points per block
-constexpr int kSlice = 32;     // previous design: coordinates staged per step
-constexpr int kSide = 16;      // previous design: 16 x 16 threads, 4 x 4 sums
 constexpr int kRowWarps = 8;   // l1_rows: warps per block
 constexpr int kRowsPerBlock = 32;
 
@@ -275,60 +268,6 @@ l1_pairwise_kernel(const T* __restrict__ queries, const T* __restrict__ points,
   }
 }
 
-// ---- pairwise, the first design (comparison only) ---------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kSide * kSide)
-l1_pairwise_previous_kernel(const T* __restrict__ queries, const T* __restrict__ points,
-                            typename Acc<T>::out* __restrict__ out, int nq, int n, int m) {
-  using A = typename Acc<T>::type;
-  __shared__ A sq[kSlice][kTile + 1];
-  __shared__ A sx[kSlice][kTile + 1];
-  const int tx = threadIdx.x % kSide;
-  const int ty = threadIdx.x / kSide;
-  const int q0 = blockIdx.y * kTile;
-  const int n0 = blockIdx.x * kTile;
-  A acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = A(0);
-
-  for (int k0 = 0; k0 < m; k0 += kSlice) {
-    for (int e = threadIdx.x; e < kTile * kSlice; e += kSide * kSide) {
-      const int r = e / kSlice, k = k0 + e % kSlice;
-      const int qr = q0 + r, xr = n0 + r;
-      sq[e % kSlice][r] = (qr < nq && k < m) ? widen(queries[static_cast<size_t>(qr) * m + k]) : A(0);
-      sx[e % kSlice][r] = (xr < n && k < m) ? widen(points[static_cast<size_t>(xr) * m + k]) : A(0);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kSlice; ++k) {
-      A qa[4], xb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = sq[k][ty + kSide * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) xb[b] = sx[k][tx + kSide * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] += absdiff(qa[a], xb[b]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qr = q0 + ty + kSide * a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int xr = n0 + tx + kSide * b;
-      if (qr < nq && xr < n) {
-        out[static_cast<size_t>(qr) * n + xr] = static_cast<typename Acc<T>::out>(acc[a][b]);
-      }
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kRowWarps * 32)
 l1_rows_kernel(const T* __restrict__ queries, const T* __restrict__ rows,
@@ -362,16 +301,6 @@ int launch_pairwise(const void* queries, const void* points, void* out, int nq, 
 }
 
 template <typename T>
-int launch_pairwise_previous(const void* queries, const void* points, void* out, int nq, int n,
-                             int m, void* stream) {
-  const dim3 grid((n + kTile - 1) / kTile, (nq + kTile - 1) / kTile);
-  l1_pairwise_previous_kernel<T><<<grid, kSide * kSide, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(queries), static_cast<const T*>(points),
-      static_cast<typename Acc<T>::out*>(out), nq, n, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_rows(const void* queries, const void* rows, void* out, int nq, int c, int m,
                 void* stream) {
   const int chunks = (c + kRowsPerBlock - 1) / kRowsPerBlock;
@@ -390,11 +319,6 @@ int launch_rows(const void* queries, const void* rows, void* out, int nq, int c,
   extern "C" int l1_pairwise_##SUFFIX(const void* queries, const void* points, void* out, \
                                       int nq, int n, int m, void* stream) {              \
     return launch_pairwise<T>(queries, points, out, nq, n, m, stream);                   \
-  }                                                                                      \
-  extern "C" int l1_pairwise_previous_##SUFFIX(const void* queries, const void* points,  \
-                                               void* out, int nq, int n, int m,          \
-                                               void* stream) {                           \
-    return launch_pairwise_previous<T>(queries, points, out, nq, n, m, stream);          \
   }                                                                                      \
   extern "C" int l1_rows_##SUFFIX(const void* queries, const void* rows, void* out,      \
                                   int nq, int c, int m, void* stream) {                  \

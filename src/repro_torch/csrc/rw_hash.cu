@@ -41,10 +41,6 @@
 // (a served batch of 64 queries), the dimensions are split over blockIdx.z
 // and the slices add into a zeroed output with integer atomics, which give
 // the same bits in any order.  The caller plans the split.
-//
-// rw_hash_scan keeps the first design (one launch; every block builds each
-// dimension's table in shared memory from the int8 steps, and loads its
-// 1024 rows' coordinates strided by a row) for comparison only.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -174,91 +170,6 @@ rw_hash_kernel(const int* __restrict__ points, const int* __restrict__ tab,
   }
 }
 
-// ---- the first design, kept as it was for comparison ------------------------
-namespace scan {
-
-constexpr int kWarps = kScanWarps;         // 512 threads
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 1024;                // rows per block
-constexpr int kPerThread = kRows / kWarps; // rows (accumulators) per thread
-
-__host__ __device__ inline int smem_bytes(int u2) {
-  return static_cast<int>(((u2 + 1) * kFns + kRows + kWarps * kFns) * sizeof(int))
-         + kFns * raw_stride(u2);
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-rw_hash_scan_kernel(const int8_t* __restrict__ pairs, const int* __restrict__ points,
-                    int* __restrict__ out, int n, int n_fns, int m, int u2,
-                    int dims_per_slice) {
-  extern __shared__ int smem[];
-  int* s_tab = smem;                        // (u2 + 1) x kFns prefix sums
-  int* s_off = s_tab + (u2 + 1) * kFns;     // kRows offsets into s_tab
-  int* s_part = s_off + kRows;              // kWarps x kFns segment sums
-  int8_t* s_raw = reinterpret_cast<int8_t*>(s_part + kWarps * kFns);  // kFns step rows
-  const int stride = raw_stride(u2);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = blockIdx.x * kRows;
-  const int f0 = blockIdx.y * kFns;
-  const int fw = min(kFns, n_fns - f0);
-  const int i_lo = blockIdx.z * dims_per_slice;
-  const int i_hi = min(m, i_lo + dims_per_slice);
-  const int seg = (u2 + kWarps - 1) / kWarps;
-  const int u_lo = min(u2, warp * seg);
-  const int u_hi = min(u2, u_lo + seg);
-  const int8_t* raw = s_raw + lane * stride;
-
-  int acc[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc[j] = 0;
-
-  for (int i = i_lo; i < i_hi; ++i) {
-    __syncthreads();                        // the previous dimension's reads are done
-    for (int e = threadIdx.x; e < kFns * u2; e += kThreads) {
-      const int fl = e / u2, u = e - fl * u2;
-      s_raw[fl * stride + u] =
-          fl < fw ? pairs[(static_cast<size_t>(f0 + fl) * m + i) * u2 + u] : 0;
-    }
-    for (int r = threadIdx.x; r < kRows; r += kThreads) {
-      const int row = row0 + r;
-      const int t = row < n ? (points[static_cast<size_t>(row) * m + i] >> 1) : 0;
-      s_off[r] = min(max(t, 0), u2) * kFns;
-    }
-    __syncthreads();
-    int sum = 0;
-    for (int u = u_lo; u < u_hi; ++u) sum += raw[u];
-    s_part[warp * kFns + lane] = sum;
-    __syncthreads();
-    int carry = 0;
-    for (int w = 0; w < warp; ++w) carry += s_part[w * kFns + lane];
-    if (warp == 0) s_tab[lane] = 0;
-    for (int u = u_lo; u < u_hi; ++u) {
-      carry += raw[u];
-      s_tab[(u + 1) * kFns + lane] = carry;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) acc[j] += s_tab[s_off[warp + j * kWarps] + lane];
-  }
-
-  if (lane >= fw) return;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int row = row0 + warp + j * kWarps;
-    if (row < n) {
-      int* o = out + static_cast<size_t>(row) * n_fns + f0 + lane;
-      if (gridDim.z == 1) {
-        *o = acc[j];
-      } else {
-        atomicAdd(o, acc[j]);
-      }
-    }
-  }
-}
-
-}  // namespace scan
-
 }  // namespace
 
 // Sets each kernel's dynamic shared memory limit to the current device's
@@ -275,9 +186,6 @@ extern "C" int rw_hash_setup() {
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
           != cudaSuccess ||
       (err = cudaFuncSetAttribute(rw_hash_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
-          != cudaSuccess ||
-      (err = cudaFuncSetAttribute(scan::rw_hash_scan_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
           != cudaSuccess) {
     return -static_cast<int>(err);
@@ -334,43 +242,5 @@ extern "C" int rw_hash(const void* pairs, const void* points, void* tab, void* o
   rw_hash_kernel<<<dim3(row_tiles * fn_tiles, 1, slices), kThreads, hash_smem(u2), s>>>(
       static_cast<const int*>(points), static_cast<const int*>(tab),
       static_cast<int*>(out), n, n_fns, m, u2, fp, fn_tiles, (m + slices - 1) / slices);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The first design: pairs (F, m, U2) int8, points (n, m) int32, out (n, F)
-// int32; all contiguous.  n, F, m > 0 and 0 < U2 with its block in the
-// device's shared memory.  Plans its own split, asking the device each call.
-extern "C" int rw_hash_scan(const void* pairs, const void* points, void* out,
-                            int n, int n_fns, int m, int u2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = scan::smem_bytes(u2);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan::rw_hash_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
-          != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, scan::rw_hash_scan_kernel, scan::kThreads, smem)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  // split the dimensions until the grid holds as many blocks as are resident
-  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int fn_tiles = (n_fns + kFns - 1) / kFns;
-  const long long row_tiles = (static_cast<long long>(n) + scan::kRows - 1) / scan::kRows;
-  const long long blocks = row_tiles * fn_tiles;
-  const long long want = blocks < resident ? (resident + blocks - 1) / blocks : 1;
-  int slices = static_cast<int>(want < m ? want : m);
-  const int dims_per_slice = (m + slices - 1) / slices;
-  slices = (m + dims_per_slice - 1) / dims_per_slice;
-  if (slices > 1) {
-    err = cudaMemsetAsync(out, 0, static_cast<size_t>(n) * n_fns * sizeof(int), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  scan::rw_hash_scan_kernel<<<dim3(static_cast<unsigned>(row_tiles), fn_tiles, slices),
-                              scan::kThreads, smem, s>>>(
-      static_cast<const int8_t*>(pairs), static_cast<const int*>(points),
-      static_cast<int*>(out), n, n_fns, m, u2, dims_per_slice);
   return static_cast<int>(cudaGetLastError());
 }

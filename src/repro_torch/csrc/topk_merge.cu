@@ -20,8 +20,7 @@
 //    lo > hi" of the network.  No shared memory and no barrier.
 //  * kp > 32 (up to MAX_K = 1024): one warp per row, the row in shared memory
 //    between stages (__syncwarp, no block barrier), lanes striding over the
-//    kp positions.  This is the first design, which topk_merge_smem_* runs
-//    for every k so the smoke can time it beside the register network.
+//    kp positions (the first design, which once ran every k).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -115,11 +114,11 @@ __global__ void topk_merge_smem_kernel(const D* __restrict__ da, const int* __re
 
 template <typename D>
 int launch(const void* da, const void* ia, const void* db, const void* ib,
-           void* dout, void* iout, int q, int k, D pad, bool smem_only, void* stream) {
+           void* dout, void* iout, int q, int k, D pad, void* stream) {
   int kp = 1;
   while (kp < k) kp <<= 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kp <= 32 && !smem_only) {
+  if (kp <= 32) {
     const long long threads = static_cast<long long>(q) * kp;
     topk_merge_reg_kernel<D><<<static_cast<unsigned>((threads + kRegThreads - 1) / kRegThreads),
                                kRegThreads, 0, st>>>(
@@ -141,23 +140,10 @@ int launch(const void* da, const void* ia, const void* db, const void* ib,
 
 extern "C" int topk_merge_i32(const void* da, const void* ia, const void* db, const void* ib,
                               void* dout, void* iout, int q, int k, void* stream) {
-  return launch<int>(da, ia, db, ib, dout, iout, q, k, 0x7FFFFFFF / 2, false, stream);
+  return launch<int>(da, ia, db, ib, dout, iout, q, k, 0x7FFFFFFF / 2, stream);
 }
 
 extern "C" int topk_merge_f32(const void* da, const void* ia, const void* db, const void* ib,
                               void* dout, void* iout, int q, int k, void* stream) {
-  return launch<float>(da, ia, db, ib, dout, iout, q, k, INFINITY, false, stream);
-}
-
-// The first design (shared-memory network for every k), for the smoke only.
-extern "C" int topk_merge_smem_i32(const void* da, const void* ia, const void* db,
-                                   const void* ib, void* dout, void* iout, int q, int k,
-                                   void* stream) {
-  return launch<int>(da, ia, db, ib, dout, iout, q, k, 0x7FFFFFFF / 2, true, stream);
-}
-
-extern "C" int topk_merge_smem_f32(const void* da, const void* ia, const void* db,
-                                   const void* ib, void* dout, void* iout, int q, int k,
-                                   void* stream) {
-  return launch<float>(da, ia, db, ib, dout, iout, q, k, INFINITY, true, stream);
+  return launch<float>(da, ia, db, ib, dout, iout, q, k, INFINITY, stream);
 }

@@ -10,8 +10,7 @@ inputs in float32; the accumulation type of the queries decides.
 The pairwise kernel runs each 32-coordinate stage of a block in one of two
 loops, chosen from the values the block staged: a float32 loop, exact on
 integers while every sum stays below 2^24, and an int32 loop for wider
-values (see ``csrc/l1_distance.cu``).  ``l1_distance_previous_cuda`` launches
-the first design, for comparison only.
+values (see ``csrc/l1_distance.cu``).
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ import torch
 from . import _build
 
 __all__ = ["l1_distance_plain", "l1_distance_rows_plain", "l1_distance_cuda",
-           "l1_distance_rows_cuda", "l1_distance_previous_cuda"]
+           "l1_distance_rows_cuda"]
 
 PLAIN_CHUNK_ELEMS = 1 << 26  # bound on one chunk's (Q, chunk, m) difference
 _MAX_GRID_Y = 65535          # the pairwise kernels' query tiles of 64
@@ -68,7 +67,7 @@ def l1_distance_rows_plain(queries: torch.Tensor, rows: torch.Tensor) -> torch.T
 # queries, points or rows, out, then (q, n, m) or (q, c, m), stream
 _build.declare("l1_distance", {
     f"l1_{kind}_{suffix}": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    for kind in ("pairwise", "pairwise_previous", "rows") for suffix in _ENTRY.values()})
+    for kind in ("pairwise", "rows") for suffix in _ENTRY.values()})
 
 
 def _fn(kind: str, dtype: torch.dtype):
@@ -109,21 +108,6 @@ def l1_distance_cuda(queries: torch.Tensor, points: torch.Tensor) -> torch.Tenso
         _build.launch("l1_distance", _fn("pairwise", queries.dtype), queries.get_device(),
                       queries.data_ptr(), points.data_ptr(), out.data_ptr(), *out.shape,
                       queries.shape[1])
-    return out
-
-
-def l1_distance_previous_cuda(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """The first design (64 x 64 tiles, integer arithmetic only), for
-    comparison only: ``kernels.ops`` never reaches it, and it counts no
-    launch."""
-    out, work = _pairwise_out(queries, points)
-    if work:
-        device = queries.get_device()
-        status = _fn("pairwise_previous", queries.dtype)(
-            queries.data_ptr(), points.data_ptr(), out.data_ptr(), *out.shape,
-            queries.shape[1], torch._C._cuda_getCurrentRawStream(device))
-        if status != 0:
-            raise RuntimeError(f"l1_pairwise_previous: CUDA launch failed with error {status}")
     return out
 
 

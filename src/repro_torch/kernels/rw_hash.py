@@ -24,8 +24,7 @@ import torch
 from . import _build
 
 __all__ = ["rw_hash_plain", "rw_hash_cuda", "rw_prefix_table_plain", "rw_prefix_table_cuda",
-           "plan_rw_hash", "padded_fns", "max_u2", "resident_blocks",
-           "rw_hash_previous_cuda"]
+           "plan_rw_hash", "padded_fns", "max_u2", "resident_blocks"]
 
 PLAIN_CHUNK_BYTES = 1 << 30  # bound on one row chunk's float32 code
 ROW_TILE = 512  # rows a hash block takes
@@ -98,7 +97,6 @@ def plan_rw_hash(n: int, f: int, m: int, resident: int, slices=None) -> int:
 _build.declare("rw_hash", {
     "rw_hash": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "rw_prefix_table": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "rw_hash_scan": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "rw_hash_setup": [],
     "rw_hash_resident": [ctypes.c_int]})
 _LIMITS = {}    # device -> the largest U2 the kernels take there
@@ -191,23 +189,4 @@ def rw_hash_cuda(pairs: torch.Tensor, points: torch.Tensor, slices=None) -> torc
     _build.launch("rw_hash", _build.entry("rw_hash", "rw_hash"), device, pairs.data_ptr(),
                   points.data_ptr(), tab.data_ptr(), out.data_ptr(), n, f, m, u2, n_slices)
     _build.LAUNCHES["rw_prefix_table"] += 1     # the same call launched the table kernel
-    return out
-
-
-def rw_hash_previous_cuda(pairs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """The first design (``rw_hash_scan``: one launch, each block scanning
-    each dimension's steps itself), for comparison only: ``kernels.ops``
-    never reaches it, and it counts no launch."""
-    _check_shapes(pairs, points)
-    device = _check_cuda(pairs, points)
-    f, m, u2 = pairs.shape
-    n = points.shape[0]
-    if n == 0 or f == 0 or m == 0 or u2 == 0:
-        return torch.zeros((n, f), dtype=torch.int32, device=points.device)
-    out = torch.empty((n, f), dtype=torch.int32, device=points.device)
-    status = _build.entry("rw_hash", "rw_hash_scan")(
-        pairs.data_ptr(), points.data_ptr(), out.data_ptr(), n, f, m, u2,
-        torch._C._cuda_getCurrentRawStream(device))
-    if status != 0:
-        raise RuntimeError(f"rw_hash_scan: CUDA launch failed with error {status}")
     return out

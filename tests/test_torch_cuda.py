@@ -197,17 +197,6 @@ def test_rw_hash_kernel_at_each_split(card, name, slices):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(RW_HASH_CASES))
-def test_rw_hash_previous_kernel_matches_plain(card, name):
-    """The first design, kept for comparison, still equals plain."""
-    pairs, pts = (_t(x).to(card) for x in RW_HASH_CASES[name])
-    want = trw.rw_hash_plain(pairs, pts)
-    got = trw.rw_hash_previous_cuda(pairs, pts)
-    torch.cuda.synchronize()
-    _eq(want.cpu(), got.cpu())
-
-
-@pytest.mark.cuda
 def test_rw_hash_kernel_at_the_u2_limit(card):
     """U2 up to the device's limit equals plain (a table over 48 KB of
     shared memory, scan segments of many steps); one step more raises."""
@@ -243,18 +232,6 @@ def test_l1_distance_kernel_matches_plain(card, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(L1_CASES))
-def test_l1_distance_previous_kernel_matches_plain(card, name):
-    queries, points, dtype = L1_CASES[name]
-    q, x = _typed(queries, dtype, card), _typed(points, dtype, card)
-    want = tl1.l1_distance_plain(q, x)
-    got = tl1.l1_distance_previous_cuda(q, x)
-    torch.cuda.synchronize()
-    assert got.dtype == want.dtype
-    _eq(want.cpu(), got.cpu())
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("wide", [False, True])
 def test_l1_distance_kernel_at_scale(card, wide):
     """64 x 300,000 x 128 in [0, 510]: every block runs the float loop; with
@@ -266,10 +243,9 @@ def test_l1_distance_kernel_at_scale(card, wide):
     if wide:
         x[123_457, 77] = 1 << 30
     want = tl1.l1_distance_plain(q, x)
-    for fn in (tl1.l1_distance_cuda, tl1.l1_distance_previous_cuda):
-        got = fn(q, x)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), fn.__name__
+    got = tl1.l1_distance_cuda(q, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -281,11 +257,9 @@ def test_l1_distance_kernel_non_integer_floats(card):
     q = _t(rng.uniform(-3, 3, (70, 64)).astype(np.float32)).to(card)
     x = _t(rng.uniform(-3, 3, (300, 64)).astype(np.float32)).to(card)
     want = tl1.l1_distance_plain(q, x)
-    for fn in (tl1.l1_distance_cuda, tl1.l1_distance_previous_cuda):
-        got = fn(q, x)
-        torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
-                                   err_msg=fn.__name__)
+    got = tl1.l1_distance_cuda(q, x)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
 
 
 @pytest.mark.cuda

@@ -162,12 +162,16 @@ def test_host_rung_helpers(setup):
 
 
 def test_unported_options_raise(setup):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
         tidx.IndexConfig(probe_impl="staged")
-    with pytest.raises(NotImplementedError):
-        tidx.IndexConfig(rerank_impl="scan")
-    with pytest.raises(NotImplementedError):
-        tidx.make_params(tidx.IndexConfig(family="cauchy"), 4)
+    with pytest.raises(ValueError, match="unknown probe_impl"):
+        tidx.IndexConfig(probe_impl="bogus")
+    # the 'scan' rerank and the projection families are ported
+    assert tidx.IndexConfig(rerank_impl="scan").rerank_impl == "scan"
+    for family in ("cauchy", "gaussian"):
+        assert tidx.make_params(tidx.IndexConfig(family=family), 4).proj.shape == (8, 10, 4)
+    with pytest.raises(ValueError, match="unknown family"):
+        tidx.make_params(tidx.IndexConfig(family="bogus"), 4)
     # the thermometer hashes are ported; an unknown impl is refused as in JAX
     data, _, _, tparams = setup
     pts = torch.from_numpy(data[:50])
@@ -176,7 +180,7 @@ def test_unported_options_raise(setup):
         _eq(th.raw_hash(tparams, pts), th.raw_hash(tparams, pts, impl=cfg.hash_impl))
     with pytest.raises(ValueError, match="unknown rw impl"):
         th.raw_hash(tparams, pts, impl="bogus")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs a projection"):
         th.raw_hash(dataclasses.replace(tparams, family="cauchy"), pts)
 
 
