@@ -50,6 +50,20 @@ read just after, and must launch the kernels named in ``PATHS``):
                  versions on the card (equal bit for bit), and the card's
                  Cauchy buckets against a float64 reference on the CPU with
                  TF32 off and on;
+  tuned          the recall-target engine: ``ServeConfig(target_recall=0.9,
+                 autotune_calib=32)`` on the same 1 M points and the serve
+                 phase's configuration as the base, tuned at start-up
+                 (ground truth through ``l1_distance``, each validation
+                 through ``query_index``) and seeded from the tuner's index,
+                 then the serve phase's traffic; outside the counted path:
+                 the tuner again under the kernels' plain versions (the same
+                 history, configuration and predicted recall), the served
+                 results' checks, one traced drain (``REPRO_TRACE=1``: the
+                 spans render and check, one ``engine_batch`` a batch, the
+                 median of each phase span), one batch through
+                 ``probe_impl='staged'`` equal to the fused probe, the
+                 concat fold of a fragmented index equal to the kernel fold,
+                 and one drain under ``REPRO_SANITIZE=1``;
   batch          the kernels against their plain versions at the main path's
                  shapes, and their times beside the least time the card
                  could take (bytes over 3.35 TB/s, or operations over 67 T/s,
@@ -68,9 +82,14 @@ read just after, and must launch the kernels named in ``PATHS``):
                  the issue floor it gives (``*issue_floor_ms``: that count
                  x updates / (SMs x 128 lanes x the SM clock's maximum, which
                  nvidia-smi reports as ``clocks.max.sm``)).  Every row also
-                 gives ``quality_launches``, its launches on the quality path.
+                 gives ``quality_launches`` and ``tuned_launches``, its
+                 launches on those paths.  The probe's library call is the
+                 staged probe at the same cap (``stage_bucket_lookup``'s two
+                 ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
+                 whose valid candidates must equal the gather's.
 
-Prints one ``{"quality": ...}`` line, one ``{"kernels": [...]}`` line, the
+Prints one ``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
+``{"kernels": [...]}`` line, the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the exit code is not 0.  Exits 2 with
 no result when no card is present or the port's sources are missing.
@@ -112,7 +131,9 @@ PATHS = {"ground_truth": ("l1_distance",),
                            "topk_merge"),
          "checks": ("l1_distance_rows",),
          "quality": (*PROBE, "fused_rerank", "topk_merge", "l1_distance",
-                     "l1_distance_rows")}
+                     "l1_distance_rows"),
+         "tuned": (*PROBE, "fused_rerank", "topk_merge", "l1_distance")}
+TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
 # the JAX package's full QualitySpec (benchmarks/quality_bench.py:42-47)
 QUALITY_SPEC = dict(k=10, table_sweep=(1, 2, 4, 8, 16, 32),
@@ -404,6 +425,166 @@ def quality_phase(ops, spec, data, queries, served_cfg, kernel_modules):
     return summary, launches
 
 
+def tuned_phase(ops, kernel_modules, serve, cfg, serve_cfg, data_c, queries, inserted,
+                q_c, check_served):
+    """The recall-target engine on the card (the ``tuned`` path), then, outside
+    the counted path, its checks.  Returns the summary that the
+    ``{"tuned": ...}`` line prints and the path's launch counts."""
+    from repro_torch.core.index import query_index
+    from repro_torch.core.segments import SegmentedIndex
+    from repro_torch.eval import autotune
+    from repro_torch.obs import render, trace
+    from repro_torch.serve.engine import AnnServingEngine
+
+    t_phase = time.perf_counter()
+    tuned_serve = dataclasses.replace(serve_cfg, target_recall=TUNED_TARGET,
+                                      autotune_calib=TUNED_CALIB)
+    real_tune, tune_s = autotune.tune_for_recall, []
+
+    def timed_tune(*args, **kw):                # the engine's own tuning run
+        t0 = time.perf_counter()
+        out = real_tune(*args, **kw)
+        torch.cuda.synchronize()
+        tune_s.append(time.perf_counter() - t0)
+        return out
+
+    autotune.tune_for_recall = timed_tune
+    try:
+        (eng, phases), launches = run_path(
+            "tuned", ops, lambda: serve(cfg, "tuned", tuned_serve))
+    finally:
+        autotune.tune_for_recall = real_tune
+    res = eng.autotune
+    check(res is not None and len(tune_s) == 1, "the engine tuned once at start-up")
+    check(eng.cfg == res.cfg, "the engine serves the tuned configuration")
+
+    # the tuner again, through the kernels' plain versions on the card
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    with plain_kernels(ops, *kernel_modules):
+        plain = real_tune(cfg, data_c, TUNED_TARGET, num_calib=TUNED_CALIB,
+                          device="cuda")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(dict(ops.LAUNCHES) == before, "the tuner's plain route launched no kernel")
+    check(plain.history == res.history and plain.cfg == res.cfg
+          and plain.predicted_recall == res.predicted_recall
+          and plain.validated_recall == res.validated_recall
+          and plain.d_calib == res.d_calib and plain.met_target == res.met_target,
+          "the tuner under the plain versions == under the kernels, field for field")
+    del plain
+
+    served, all_ms = {}, []
+    for name, setup_s, lat, d, i in phases:
+        r, hits = check_served(name, d, i, name.endswith("_delta"))
+        all_ms += lat
+        served[name] = {"setup_s": setup_s, "batches": len(lat),
+                        "p50_ms": float(np.percentile(lat, 50)),
+                        "p99_ms": float(np.percentile(lat, 99)),
+                        "queries_per_s": N_QUERIES / (sum(lat) / 1e3),
+                        "recall": r, "self_hits": hits}
+    summ = eng.summary()
+    check(summ["batches"] == len(all_ms) and summ["quality"]["num_tables"] == res.cfg.num_tables,
+          "the summary counts every served batch and reports the tuned tables")
+
+    # one batch through the staged probe and the concat fold of a fragmented
+    # index, on the compacted tuned index
+    seg = eng.index.segments[0]
+    check(eng.index.num_segments == 1 and eng.index.delta_fill == 0,
+          "the tuned index is compacted")
+    batch = q_c[:serve_cfg.batch_size].contiguous()
+    staged_cfg = dataclasses.replace(eng.cfg, probe_impl="staged")
+    sd, si = query_index(staged_cfg, seg.state, batch)
+    fd, fi = query_index(eng.cfg, seg.state, batch)
+    check(equal(sd, fd) and equal(si, fi),
+          "probe_impl='staged' == the fused probe on the tuned index, bit for bit")
+    frag = SegmentedIndex.from_checkpoint(eng.cfg, seg.state, seg.gids,
+                                          eng.index.next_gid,
+                                          delta_cap=2 * len(inserted) // 5)
+    frag.insert(inserted)                       # two sealed segments and a delta
+    check(frag.num_segments == 3 and frag.delta_fill > 0, "a fragmented index")
+    floor = serve_cfg.cand_bucket_min
+    for what, got, want in (
+            ("query", frag.query(batch, use_merge_kernel=False), frag.query(batch)),
+            ("query_compact", frag.query_compact(batch, floor, False)[:2],
+             frag.query_compact(batch, floor)[:2])):
+        check(equal(got[0], want[0]) and equal(got[1], want[1]),
+              f"the concat fold == the topk_merge fold ({what}), bit for bit")
+    concat = {"segments": frag.num_segments, "delta_rows": frag._delta_count,
+              "equal": True}
+    del frag
+
+    # one traced drain with a delta (all four phase spans), against the same
+    # drain untraced
+    eng.insert(inserted[:N_INSERT // 2])
+    eng.warmup()                                # the new structure, untraced
+    trace_dir = ROOT / "build" / "chip_smoke_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    os.environ["REPRO_TRACE_DIR"] = str(trace_dir)
+    os.environ["REPRO_TRACE"] = "1"
+    rec0 = eng.flight.recorded
+    try:
+        eng.submit(queries)
+        traced = eng.drain()
+    finally:
+        del os.environ["REPRO_TRACE"]
+    trace.flush()
+    traced_ms = batch_ms_since(eng, rec0)
+    eng.submit(queries)
+    untraced = eng.drain()
+    check(all(np.array_equal(a, b) for a, b in zip(traced, untraced)),
+          "tracing changes no served result")
+    spans = render.load_spans(str(trace_dir))
+    report = render.check_spans(spans)
+    check(report["ok"], f"the port's trace checks: {report['errors']}")
+    (trace_dir / "trace.json").write_text(json.dumps(render.to_chrome(spans)))
+    names = ("engine_batch", "phase_a", "phase_b_rerank", "delta_scan", "merge")
+    durs = {n: [r["dur"] / 1e3 for r in spans if r["name"] == n] for n in names}
+    check(len(durs["engine_batch"]) == len(traced_ms),
+          "one engine_batch span for each batch of the traced drain")
+    check(all(len(durs[n]) == len(traced_ms) for n in names[1:]),
+          "each traced batch has the four phase spans")
+    trace_summary = {"dir": str(trace_dir.relative_to(ROOT)), "records": len(spans),
+                     "batches": len(traced_ms),
+                     "median_ms": {n: float(np.median(v)) for n, v in durs.items()},
+                     "batch_p50_ms": float(np.percentile(traced_ms, 50))}
+
+    # one drain under the race sanitizer, through the constructor's seam
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        guarded = AnnServingEngine(eng.cfg, serve_cfg, index=eng.index)
+        check(hasattr(guarded, "__repro_race_token__"), "the sanitizer instruments the engine")
+        guarded.submit(queries)
+        clean = guarded.drain()
+    finally:
+        del os.environ["REPRO_SANITIZE"]
+    check(all(np.array_equal(a, b) for a, b in zip(clean, untraced)),
+          "the sanitized drain is clean and serves the same results")
+    del guarded
+
+    lat_q = {q: summ[f"{q}_batch_ms"] for q in ("p50", "p99", "p999")}
+    summary = {
+        "target_recall": TUNED_TARGET, "autotune_calib": TUNED_CALIB,
+        "base": {"num_tables": cfg.num_tables, "num_probes": cfg.num_probes,
+                 "candidate_cap": cfg.candidate_cap, "width": cfg.width},
+        "tuned": {"num_tables": res.cfg.num_tables, "num_probes": res.cfg.num_probes,
+                  "candidate_cap": res.cfg.candidate_cap},
+        "predicted_recall": res.predicted_recall,
+        "validated_recall": res.validated_recall, "met_target": res.met_target,
+        "rounds": res.rounds, "history": list(res.history), "d_calib": list(res.d_calib),
+        "tune_seconds": tune_s[0], "plain_tune_seconds": plain_s, "plain_equal": True,
+        "quality": summ["quality"], "served": served,
+        "histogram_ms": lat_q,
+        "exact_ms": {"p50": float(np.percentile(all_ms, 50)),
+                     "p99": float(np.percentile(all_ms, 99))},
+        "warmup_ms": summ["warmup_ms"], "cand_buckets": summ["cand_buckets"],
+        "flight": summ["flight"], "trace": trace_summary,
+        "staged_equal": True, "concat": concat, "sanitized_clean": True,
+        "seconds": time.perf_counter() - t_phase, "launches": launches}
+    del eng
+    return summary, launches
+
+
 def nvidia_smi_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
@@ -478,6 +659,14 @@ def check_results(ops, plain, phase, d, i, queries, points, deleted, inserted_ro
     r = recall_fn(i.cpu().numpy(), gt_ids)
     check(r >= 0.5, f"{phase}: recall@10 {r:.4f} >= 0.5")
     return r, hits
+
+
+def batch_ms_since(engine, recorded_before) -> list:
+    """The exact host-clock time of each batch the engine served since its
+    flight recorder had ``recorded_before`` records (its ring keeps 256)."""
+    n = engine.flight.recorded - recorded_before
+    check(0 < n <= engine.flight.capacity, f"{n} batches fit the flight recorder's ring")
+    return [ms for _, ms, _ in engine.flight.entries()[-n:]]
 
 
 def log_profile(tag, engine, batch) -> None:
@@ -684,11 +873,11 @@ def main() -> int:
     # -- serve and serve_rw_hash: the same traffic through two engines --------
     serve_cfg = ServeConfig(batch_size=64, delta_cap=2048)
 
-    def serve(run_cfg, tag):
+    def serve(run_cfg, tag, run_serve_cfg=serve_cfg):
         """build, insert, delete, drain, compact, drain; returns the engine
         and its phases (name, set-up s, batch ms, dists, gids)."""
         t0 = time.perf_counter()
-        eng = AnnServingEngine(run_cfg, serve_cfg, data, device="cuda")
+        eng = AnnServingEngine(run_cfg, run_serve_cfg, data, device="cuda")
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         gids_new = eng.insert(inserted)
@@ -702,10 +891,10 @@ def main() -> int:
                 t0 = time.perf_counter()
                 eng.compact()
                 setup_s = time.perf_counter() - t0
-            lat0 = len(eng._lat_ms)
+            rec0 = eng.flight.recorded
             eng.submit(queries)
             d, i = eng.drain()
-            out.append((name, setup_s, eng._lat_ms[lat0:], d, i))
+            out.append((name, setup_s, batch_ms_since(eng, rec0), d, i))
         return eng, out
 
     (engine, phases), launches = run_path("serve", ops, lambda: serve(cfg, "serve"))
@@ -792,6 +981,31 @@ def main() -> int:
         f"tables needed {json.dumps(quality['table_claim']['tables_needed'])}")
     log(json.dumps({"quality": quality}))
 
+    # -- tuned: the recall-target engine, the serve phase's traffic ------------
+    self_rows = torch.from_numpy(inserted_rows).to(card)
+
+    def check_served(name, d, i, exact_delta):
+        return check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c, points,
+                             deleted_c, self_rows, gt_ids, pipe.BIG_DIST, recall,
+                             exact_delta)
+
+    tuned, t_launches = tuned_phase(ops, (kfp, kfr, ktm, kl1, krw), serve, cfg, serve_cfg,
+                                    data_c, queries, inserted, q_c, check_served)
+    log(f"phase tuned: {tuned['seconds']:.1f} s (tuning {tuned['tune_seconds']:.1f} s, "
+        f"plain re-run {tuned['plain_tune_seconds']:.1f} s), tuned "
+        f"{json.dumps(tuned['tuned'])}, predicted {tuned['predicted_recall']:.4f}, "
+        f"validated {tuned['validated_recall']:.4f}, met {tuned['met_target']}, "
+        f"rounds {tuned['rounds']}")
+    for name, row in tuned["served"].items():
+        log(f"phase {name}: set-up {row['setup_s']:.2f} s, batches {row['batches']}, "
+            f"p50 {row['p50_ms']:.3f} ms, p99 {row['p99_ms']:.3f} ms, "
+            f"{row['queries_per_s']:.1f} queries/s, recall@10 {row['recall']:.4f}, "
+            f"self-hits {row['self_hits']}/{inserted_rows.size}")
+    log(f"tuned histogram p50/p99/p999 {json.dumps(tuned['histogram_ms'])} against exact "
+        f"{json.dumps(tuned['exact_ms'])}; traced phase medians (ms) "
+        f"{json.dumps(tuned['trace']['median_ms'])}")
+    log(json.dumps({"tuned": tuned}))
+
     # -- one served batch: kernels against plain, and their times -------------
     idx = engine.index
     idx.insert(inserted[:N_INSERT // 2])     # a delta again, for the fold
@@ -823,6 +1037,21 @@ def main() -> int:
     one_got = probe_k()
     check(all(equal(a, b) for a, b in zip(one_got, want)),
           "fused_probe one-pass kernels == plain on the served batch")
+    # the library yardstick: the staged probe at the same cap, two
+    # torch.searchsorted calls a table and a gather of the (Q, L*P*C) slab
+    staged_cfg = dataclasses.replace(cfg, candidate_cap=cap, probe_impl="staged")
+    n_rows = st.dataset.shape[0]
+    look = lambda: pipe.stage_bucket_lookup(st.sorted_keys, pk)
+    s_lo, s_hi = look()
+    check(equal(s_lo.reshape(lo.shape), lo) and equal((s_hi - s_lo).reshape(occ.shape), occ),
+          "the staged lookup's extents == the extents kernel's on the served batch")
+    sgat = lambda: pipe.stage_candidate_gather(staged_cfg, st.sorted_ids, s_lo, s_hi, n_rows)
+    staged_lib = lambda: pipe.stage_candidate_gather(staged_cfg, st.sorted_ids, *look(), n_rows)
+    slab = sgat()
+    front = torch.sort((slab == n_rows).to(torch.int8), dim=1, stable=True).indices
+    check(equal(torch.gather(slab, 1, front)[:, :cb], got[0]),
+          "the staged slab's valid candidates == the gather's, in order")
+    del slab, front
     gat_slices = kfr.plan_slices(pk.shape[0], cb, kfp.gather_resident_blocks(
         torch.cuda.current_device(), lo.shape[1]))
     ids = pipe.stage_tombstone(got[0], seg.gids, tomb, st.dataset.shape[0])
@@ -900,7 +1129,7 @@ def main() -> int:
 
     rows = []
     for name, kfn, pfn, lib, nbytes, nops, errs, src, repl in [
-        ("fused_probe", probe_k, probe_p, None, probe_bytes, probe_ops,
+        ("fused_probe", probe_k, probe_p, staged_lib, probe_bytes, probe_ops,
          [(one_got[0], want[0]), (one_got[1], want[1])], "fused_probe.cu",
          "src/repro/kernels/fused_probe.py:158"),
         ("fused_rerank", rr_k, rr_p, None, rr_bytes, rr_ops,
@@ -918,13 +1147,13 @@ def main() -> int:
     # the probe's row holds the one-pass route (the extents, then the
     # gather) and, apart, its two launches: the served route runs the
     # extents in phase A and the gather alone in phase B
-    for key, kfn, pfn, nbytes, nops, errs in [
-            ("extents", ext_k, ext_p, ext_bytes, probe_ops,
+    for key, kfn, pfn, lib, nbytes, nops, errs in [
+            ("extents", ext_k, ext_p, look, ext_bytes, probe_ops,
              list(zip(ext_got, ext_want))),
-            ("gather", gat_k, gat_p, gat_bytes, q_rows * lp,
+            ("gather", gat_k, gat_p, sgat, gat_bytes, q_rows * lp,
              [(got[0], want[0]), (got[1], want[1])])]:
         rows[0][key] = {"launches": launches[f"fused_probe_{key}"],
-                        **timed(kfn, pfn, None, nbytes, nops, errs)}
+                        **timed(kfn, pfn, lib, nbytes, nops, errs)}
     rows[0]["gather"]["slices"] = gat_slices
     rows[1]["pair_bound_ms"] = bound(rr_pair_bytes, rr_pair_ops)[0]
     rows[1]["slices"] = rr_slices
@@ -1071,13 +1300,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/l1_distance.py:103",
         "launches": check_launches["l1_distance_rows"], "equal_to_plain": True,
         **l1r[torch.int32], "shape": list(rd.shape), "int16": l1r[torch.int16]})
-    for row in rows:
-        row["quality_launches"] = (sum(q_launches[k] for k in PROBE)
-                                   if row["name"] == "fused_probe" else q_launches[row["name"]])
-    for key in ("extents", "gather"):
-        rows[0][key]["quality_launches"] = q_launches[f"fused_probe_{key}"]
-    next(r for r in rows if r["name"] == "rw_hash")["table"]["quality_launches"] = \
-        q_launches["rw_prefix_table"]
+    for path, counts in (("quality", q_launches), ("tuned", t_launches)):
+        for row in rows:
+            row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
+                                       if row["name"] == "fused_probe" else counts[row["name"]])
+        for key in ("extents", "gather"):
+            rows[0][key][f"{path}_launches"] = counts[f"fused_probe_{key}"]
+        next(r for r in rows if r["name"] == "rw_hash")["table"][f"{path}_launches"] = \
+            counts["rw_prefix_table"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi_line())

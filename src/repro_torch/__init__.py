@@ -4,8 +4,9 @@ The port of the JAX package ``repro``; it imports ``torch`` and numpy and
 nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
 
   core/     hashing (RW, Cauchy and Gaussian families), multi-probe
-            template, index build, staged query pipeline, segmented
-            mutable index, baselines (brute force, SRS, scheme configs)
+            template and success model, index build, staged query
+            pipeline (fused or staged probe), segmented mutable index,
+            baselines (brute force, SRS, scheme configs)
   kernels/  the six kernels: fused_probe (as two launches, extents and
             gather), fused_rerank and topk_merge of the serving path,
             rw_hash of ``hash_impl='pallas'`` (as two launches, the
@@ -13,10 +14,16 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             l1_distance and l1_distance_rows ops; a CUDA source under
             ``csrc/`` and a plain-torch version of the same function each;
             ``ops`` dispatches by the tensors' device
-  serve/    the batched serving engine
+  serve/    the batched serving engine (with a recall target, tuned at
+            start-up)
   eval/     the quality protocol (``QualityRun``: recall sweeps over every
-            scheme, tables needed, cross-layer oracles)
-  data/     seeded synthetic datasets (numpy, same bits as ``repro``)
+            scheme, tables needed, cross-layer oracles) and the recall
+            autotuner (``tune_for_recall``)
+  obs/      metrics registry, latency histogram, flight recorder and
+            ``REPRO_TRACE`` spans (``python -m repro_torch.obs render``)
+  analysis/ the ``REPRO_SANITIZE`` race sanitizer
+  data/     seeded synthetic datasets and the even-integer normalizer
+            (numpy, same bits as ``repro``)
   launch/   ``python -m repro_torch.launch.serve``
 
 Entry points run on the card unless the caller asks for the CPU

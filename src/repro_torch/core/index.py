@@ -11,7 +11,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -20,7 +20,7 @@ from . import hashes as hashes_lib
 from . import multiprobe as mp_lib
 from . import pipeline as pipe
 
-__all__ = ["IndexConfig", "IndexState", "make_template", "make_params",
+__all__ = ["IndexConfig", "IndexState", "make_template", "make_params", "ParamsFn",
            "build_index", "probe_index", "finish_index", "query_index_compact",
            "query_index", "OCC_HIST_BINS"]
 
@@ -39,16 +39,13 @@ class IndexConfig:
     hash_impl: str = "gather"    # 'gather' | 'thermo' | 'pallas' (the rw_hash kernel)
     rerank_chunk: int = 512      # candidates per rerank scan step
     rerank_impl: str = "fused"   # 'fused' (kernel, sort-free dedup) | 'scan'
-    probe_impl: str = "fused"    # only 'fused' is ported
+    probe_impl: str = "fused"    # 'fused' (extents + gather kernels,
+                                 # compactable slab) | 'staged' (plain pair)
     k: int = 50                  # neighbors returned
     dataset_dtype: str = "int32" # 'int16' halves rerank-gather bytes
 
     def __post_init__(self):
-        if self.probe_impl == "staged":
-            raise NotImplementedError(
-                "probe_impl 'staged' is not ported yet (ROADMAP Queue 1 item 1); "
-                "use 'fused'")
-        if self.probe_impl != "fused":
+        if self.probe_impl not in ("fused", "staged"):
             raise ValueError(f"unknown probe_impl: {self.probe_impl!r}")
 
     @property
@@ -102,6 +99,10 @@ def make_params(cfg: IndexConfig, dim: int, seed: int = 0,
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return params.to(device)
+
+
+# a parameter source: each configuration's hash parameters for a dimension
+ParamsFn = Callable[[IndexConfig, int], hashes_lib.LshParams]
 
 
 def build_index(cfg: IndexConfig, dataset: torch.Tensor, row_offset: int = 0,

@@ -5,16 +5,23 @@ Q queries, L tables, M hashes, P probes per table, C candidate cap:
 
   stage_hash          : queries (Q, m)              -> bucket, x_neg (Q, L, M)
   stage_probe_keys    : bucket, x_neg               -> probe_keys (Q, L, P) int64
+  stage_bucket_lookup : sorted_keys, probe_keys     -> lo, hi (Q, L, P)
+  stage_candidate_gather : sorted_ids, lo, hi       -> ids (Q, L*P*C), sentinel n
   stage_probe_extents : sorted_keys, probe_keys     -> lo, occ (Q, L*P), counts (Q,)
+  stage_probe_counts  : sorted_keys, probe_keys     -> counts (Q,)
   stage_fused_probe   : sorted keys/ids, probe_keys -> ids (Q, Cb), counts (Q,)
   stage_dedup         : ids                         -> ids, duplicates -> sentinel
   stage_tombstone     : ids, gids, tombstones       -> ids, deleted -> sentinel
   stage_rerank        : dataset, queries, ids       -> (dists, ids) (Q, k) asc
   stage_merge_pair    : two (Q, k) lists            -> one (Q, k) list
+  stage_merge_concat  : (Q, R*k) stacked lists      -> (Q, k)
 
 plus the host-side rung helpers of the two-phase compacted query.  The
-rerank is 'fused' (the kernel, which drops duplicate ids itself) or 'scan'
-(``l1_distance_chunked``, which takes ``stage_dedup``'s output).
+probe is 'fused' (the extents and gather kernels, a compactable slab) or
+'staged' (``stage_bucket_lookup`` + ``stage_candidate_gather`` in plain
+torch, at the fixed L*P*C width).  The rerank is 'fused' (the kernel, which
+drops duplicate ids itself) or 'scan' (``l1_distance_chunked``, which takes
+``stage_dedup``'s output).
 """
 from __future__ import annotations
 
@@ -29,10 +36,11 @@ from . import hashes as hashes_lib
 from . import multiprobe as mp_lib
 
 __all__ = [
-    "BIG_DIST", "stage_hash", "stage_probe_keys", "stage_probe_extents",
+    "BIG_DIST", "stage_hash", "stage_probe_keys", "stage_bucket_lookup",
+    "stage_candidate_gather", "stage_probe_extents", "stage_probe_counts",
     "stage_fused_probe", "stage_dedup", "stage_tombstone", "probe_candidates",
     "rerank_handles_duplicates", "stage_rerank", "l1_distance_chunked",
-    "stage_merge_pair", "max_bucket_occupancy", "oracle_candidate_cap",
+    "stage_merge_pair", "stage_merge_concat", "max_bucket_occupancy", "oracle_candidate_cap",
     "occupancy_quantile", "candidate_ladder", "candidate_bucket", "rung_ladder",
     "pick_rung",
 ]
@@ -58,11 +66,47 @@ def stage_probe_keys(cfg, params: hashes_lib.LshParams, template: torch.Tensor,
     return probe_keys.permute(0, 2, 1).contiguous()                 # (Q, L, P)
 
 
+def stage_bucket_lookup(sorted_keys, probe_keys):
+    """Two searches per table: (lo, hi) (Q, L, P) int32 bucket extents.
+
+    ``torch.searchsorted`` batches over matching leading dims, so the table
+    axis moves to the front: (L, n) keys against (L, Q*P) probe keys.
+    """
+    q, l, p = probe_keys.shape
+    pk = probe_keys.permute(1, 0, 2).reshape(l, q * p).contiguous()
+
+    def per_query(x):                                           # -> (Q, L, P)
+        return x.reshape(l, q, p).permute(1, 0, 2).to(torch.int32)
+
+    return (per_query(torch.searchsorted(sorted_keys, pk)),
+            per_query(torch.searchsorted(sorted_keys, pk, right=True)))
+
+
+def stage_candidate_gather(cfg, sorted_ids, lo, hi, n: int):
+    """Up to ``candidate_cap`` row ids per probed bucket: (Q, L*P*C) int32,
+    sentinel n in empty slots, in (table, probe, offset) order."""
+    q = lo.shape[0]
+    l, p, c = cfg.num_tables, cfg.probes_per_table, cfg.candidate_cap
+    if n == 0:
+        # every slot is invalid, and the sentinel for n = 0 is 0 itself
+        return torch.zeros((q, l * p * c), dtype=torch.int32, device=lo.device)
+    slots = lo[..., None] + torch.arange(c, dtype=torch.int32, device=lo.device)
+    valid = slots < torch.minimum(hi, lo + c)[..., None]        # (Q, L, P, C)
+    table = torch.arange(l, device=lo.device)[None, :, None, None]
+    ids = sorted_ids[table, slots.clamp(0, n - 1).to(torch.int64)]
+    return torch.where(valid, ids, n).to(torch.int32).reshape(q, l * p * c)
+
+
 def stage_probe_extents(cfg, sorted_keys, probe_keys, occ_from=None):
     """Phase A: raw extents (lo, occ) and per-query counts under
     ``cfg.candidate_cap`` — the extents kernel on the card."""
     return kops.probe_extents(sorted_keys, probe_keys, cfg.candidate_cap,
                               occ_from=occ_from)
+
+
+def stage_probe_counts(cfg, sorted_keys, probe_keys, occ_from=None):
+    """Per-query valid-candidate count: ``sum_{l,p} min(hi - lo, cap)``."""
+    return stage_probe_extents(cfg, sorted_keys, probe_keys, occ_from)[2]
 
 
 def stage_fused_probe(cfg, sorted_keys, sorted_ids, probe_keys, n: int,
@@ -217,16 +261,24 @@ def probe_candidates(cfg, params, template, sorted_keys, sorted_ids, n: int,
                      queries, cbucket: Optional[int] = None,
                      c_cap: Optional[int] = None, occ_from=None,
                      dedup: Optional[bool] = None):
-    """hash -> probe keys -> fused lookup+gather [-> dedup]; candidate ids,
-    sentinel n.  ``dedup`` defaults to what the configured rerank needs."""
-    if cfg.probe_impl != "fused":
-        raise NotImplementedError(
-            f"probe_impl {cfg.probe_impl!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 1); use 'fused'")
+    """hash -> probe keys -> lookup+gather [-> dedup]; candidate ids,
+    sentinel n.  The lookup+gather runs per ``cfg.probe_impl``: 'fused' at
+    slab width ``cbucket`` (default the worst case L*P*C) and per-bucket cap
+    ``c_cap``, 'staged' at the fixed L*P*C width (neither option allowed).
+    ``dedup`` defaults to what the configured rerank needs."""
     bucket, x_neg = stage_hash(cfg, params, queries)
     probe_keys = stage_probe_keys(cfg, params, template, bucket, x_neg)
-    ids, _ = stage_fused_probe(cfg, sorted_keys, sorted_ids, probe_keys, n,
-                               cbucket, c_cap=c_cap, occ_from=occ_from)
+    impl = getattr(cfg, "probe_impl", "fused")
+    if impl == "fused":
+        ids, _ = stage_fused_probe(cfg, sorted_keys, sorted_ids, probe_keys, n,
+                                   cbucket, c_cap=c_cap, occ_from=occ_from)
+    elif impl == "staged":
+        if cbucket is not None or c_cap is not None:
+            raise ValueError("slab compaction requires probe_impl='fused'")
+        lo, hi = stage_bucket_lookup(sorted_keys, probe_keys)
+        ids = stage_candidate_gather(cfg, sorted_ids, lo, hi, n)
+    else:
+        raise ValueError(f"unknown probe_impl: {impl!r}")
     if dedup is None:
         dedup = not rerank_handles_duplicates(cfg)
     return stage_dedup(ids, n) if dedup else ids
@@ -299,7 +351,24 @@ def stage_rerank(cfg, dataset, queries, ids, impl: Optional[str] = None):
     return kops.fused_rerank(dataset, queries, ids, cfg.k, chunk=cfg.rerank_chunk)
 
 
-def stage_merge_pair(da, ia, db, ib):
-    """Merge two ascending (Q, k) top-k lists into one (bitonic topk_merge).
-    Invalid entries must carry dist >= BIG_DIST."""
-    return kops.topk_merge(da, ia, db, ib)
+def stage_merge_pair(da, ia, db, ib, use_kernel: bool = True):
+    """Merge two ascending (Q, k) top-k lists into one: the bitonic
+    ``topk_merge`` kernel, or with ``use_kernel=False`` the concat sort.
+    Both order by (dist, id).  Invalid entries must carry dist >= BIG_DIST."""
+    if use_kernel:
+        return kops.topk_merge(da, ia, db, ib)
+    return stage_merge_concat(torch.cat([da, db], dim=-1),
+                              torch.cat([ia, ib], dim=-1), da.shape[-1])
+
+
+def stage_merge_concat(ds, is_, k: int):
+    """Merge R stacked top-k lists at once: (Q, R*k) -> (Q, k) ascending,
+    lexicographic on signed (dist, id), as ``lax.sort(num_keys=2)``.
+
+    One int64 key per entry, ``dist * 2^32 + (id + 2^31)``, orders exactly
+    as the pair does for every int32 dist and id (-1 pads included).
+    """
+    key = ds.to(torch.int64) * (1 << 32) + (is_.to(torch.int64) + (1 << 31))
+    key = torch.sort(key, dim=-1).values[:, :k]
+    return ((key >> 32).to(torch.int32),
+            ((key & 0xFFFFFFFF) - (1 << 31)).to(torch.int32))

@@ -43,7 +43,15 @@ def _rw_pmf_tuple(d: int) -> tuple:
     if d < 0:
         raise ValueError("d must be >= 0")
     # Pr[Y_d = l] = C(d, (d+l)/2) / 2^d
-    return tuple(comb(d, k) / (2.0**d) for k in range(d + 1))
+    if d < 1024:
+        return tuple(comb(d, k) / (2.0**d) for k in range(d + 1))
+    # 2.0**d overflows from d = 1024 (the JAX package raises OverflowError
+    # there): the row of binomials as exact integers, each divided by the
+    # integer 2^d, which Python rounds correctly
+    row, denom = [1], 1 << d
+    for k in range(d):
+        row.append(row[-1] * (d - k) // (k + 1))
+    return tuple(c / denom for c in row)
 
 
 def rw_pmf(d: int) -> np.ndarray:

@@ -5,8 +5,14 @@ LSM-style: immutable sorted segments (each an ``IndexState`` plus a gid
 vector), a fixed-capacity delta buffer of fresh inserts scanned exactly by
 the rerank stage, a tombstone set applied at the candidate stage, and
 ``compact()`` folding everything back into one segment.  Per-source top-k
-lists are folded with the bitonic ``topk_merge`` kernel.  Every segment
-shares one ``LshParams`` (guarded by ``hashes.params_fingerprint``).
+lists are folded with the bitonic ``topk_merge`` kernel (or, with
+``use_merge_kernel=False``, the concat sort).  Every segment shares one
+``LshParams`` (guarded by ``hashes.params_fingerprint``).
+
+With ``REPRO_TRACE=1`` the compacted query records the spans ``phase_a``,
+``phase_b_rerank``, ``delta_scan`` and ``merge`` and synchronizes the card
+at the end of each, so that a span's time is the device's time for that
+phase; with tracing off no span object exists and nothing synchronizes.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 from . import hashes as hashes_lib
 from . import pipeline as pipe
@@ -364,21 +371,28 @@ class SegmentedIndex:
                                         self._delta_count, tomb, queries))
 
     @staticmethod
-    def _fold(results):
+    def _fold(results, use_kernel: bool = True):
         d, i = results[0]
         for dn, in_ in results[1:]:
-            d, i = pipe.stage_merge_pair(d, i, dn, in_)
+            d, i = pipe.stage_merge_pair(d, i, dn, in_, use_kernel=use_kernel)
         return d, i
 
-    def query(self, queries) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Probe every segment at the worst-case slab + scan the delta; fold.
+    def _sync(self) -> None:
+        """Wait for the card (a traced span's end); nothing on the CPU."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def query(self, queries, use_merge_kernel: bool = True,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Probe every segment at the worst-case slab + scan the delta; fold
+        (``topk_merge``, or the concat sort with ``use_merge_kernel=False``).
         Returns (dists (Q, k) int32 ascending, gids (Q, k) int32, -1 pad)."""
         queries = self._as_queries(queries)
         tomb = self._tombstone_array()
         results = [_query_segment(self.cfg, seg.state, seg.gids, tomb, queries)
                    for seg in self.segments]
         self._query_delta_if_any(results, tomb, queries)
-        return self._fold(results)
+        return self._fold(results, use_merge_kernel)
 
     def _ensure_caps(self, seg: Segment) -> None:
         """Derive the segment's two-level caps (lazy; once per seal):
@@ -444,29 +458,40 @@ class SegmentedIndex:
         return tuple(ladders)
 
     def query_compact(self, queries, floor: int = 64,
+                      use_merge_kernel: bool = True,
                       overflow: str = "escalate", stats=None):
         """``query`` with the compacted probe front-end: per segment, phase
         A, one host read of ``counts.max()`` to pick the rung, phase B at
         that rung.  Returns (dists, gids, used) with ``used`` the
         (segment_size, cbucket, c_cap or None) triples of this call.
         ``stats``, when a dict, accumulates ``overflow_hits`` and
-        ``truncated_candidates``."""
+        ``truncated_candidates``.  Traced (``REPRO_TRACE=1``), each phase
+        is a span that ends with the card synchronized."""
         queries = self._as_queries(queries)
         tomb = self._tombstone_array()
         results, used = [], []
+        traced = obs_trace.enabled()
         for seg in self.segments:
             if seg.size == 0:
                 results.append(_query_segment(
                     self.cfg, seg.state, seg.gids, tomb, queries))
                 continue
             self._ensure_caps(seg)
-            probe_keys, lo, occ, counts = probe_index(self.cfg, seg.state, queries)
-            cb, c_cap, over = pipe.pick_rung(
-                int(counts.max()), seg.ctot_cap, floor, seg.ctot_norm,
-                seg.c_norm, overflow)
-            results.append(_finish_segment(
-                self.cfg, cb, c_cap, seg.state, seg.gids, tomb, probe_keys,
-                lo, occ, queries))
+            with obs_trace.span("phase_a", segment=int(seg.size)):
+                probe_keys, lo, occ, counts = probe_index(self.cfg, seg.state,
+                                                          queries)
+                # the host read of the count synchronizes the card
+                cb, c_cap, over = pipe.pick_rung(
+                    int(counts.max()), seg.ctot_cap, floor, seg.ctot_norm,
+                    seg.c_norm, overflow)
+            with obs_trace.span("phase_b_rerank", segment=int(seg.size),
+                                cbucket=int(cb),
+                                c_cap=None if c_cap is None else int(c_cap)):
+                results.append(_finish_segment(
+                    self.cfg, cb, c_cap, seg.state, seg.gids, tomb, probe_keys,
+                    lo, occ, queries))
+                if traced:
+                    self._sync()
             used.append((seg.size, cb, c_cap))
             if stats is not None and over:
                 stats["overflow_hits"] = stats.get("overflow_hits", 0) + 1
@@ -474,8 +499,15 @@ class SegmentedIndex:
                     stats["truncated_candidates"] = (
                         stats.get("truncated_candidates", 0)
                         + _truncated_total(occ, counts, c_cap, cb))
-        self._query_delta_if_any(results, tomb, queries)
-        d, i = self._fold(results)
+        if self._delta_count or not results:
+            with obs_trace.span("delta_scan", fill=int(self._delta_count)):
+                self._query_delta_if_any(results, tomb, queries)
+                if traced:
+                    self._sync()
+        with obs_trace.span("merge", parts=len(results)):
+            d, i = self._fold(results, use_merge_kernel)
+            if traced:
+                self._sync()
         return d, i, tuple(used)
 
     def warm_compact(self, queries, floor: int = 64, overflow: str = "escalate"):

@@ -1,1 +1,1 @@
-"""Synthetic datasets (numpy, same bits as ``repro.data``)."""
+"""Synthetic datasets and normalization (numpy, same bits as ``repro.data``)."""

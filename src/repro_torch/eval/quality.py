@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +31,8 @@ from repro_torch import resolve_device
 from repro_torch.core import baselines as bl
 from repro_torch.core import hashes as hashes_lib
 from repro_torch.core import pipeline as pipe
-from repro_torch.core.index import (IndexConfig, build_index, make_params,
-                                    probe_index, query_index,
+from repro_torch.core.index import (IndexConfig, ParamsFn, build_index,
+                                    make_params, probe_index, query_index,
                                     query_index_compact)
 from repro_torch.core.segments import SegmentedIndex
 
@@ -73,9 +73,6 @@ def tables_needed(records: Sequence[dict], scheme: str,
     hits = [r["num_tables"] for r in records
             if r["scheme"] == scheme and r["recall"] >= target]
     return min(hits) if hits else None
-
-
-ParamsFn = Callable[[IndexConfig, int], hashes_lib.LshParams]
 
 
 class QualityRun:

@@ -4,6 +4,10 @@ requests and print a JSON summary (the counterpart of
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 4000 --dim 32 --queries 48 --batch 16 --probes 60
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 4000 --dim 32 --queries 48 --batch 16 --probes 60 --target-recall 0.9
+
+``--target-recall`` autotunes (tables, probes, cap) for that recall@k at
+start-up; the summary's ``quality`` block reports the tuned configuration.
 """
 from __future__ import annotations
 
@@ -30,12 +34,11 @@ def main(argv=None):
     ap.add_argument("--probes", type=int, default=200)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--target-recall", type=float, default=None,
-                    help="recall autotuning is not ported yet; must be unset")
+                    help="autotune (tables, probes, cap) for this recall@k "
+                         "instead of serving --tables/--probes as given")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card ('cuda')")
     args = ap.parse_args(argv)
-    if args.target_recall is not None:
-        ap.error("--target-recall: the recall autotuner is not ported yet")
     device = resolve_device(args.device)
 
     spec = ds.DatasetSpec("serve", n=args.n, dim=args.dim, universe=128,
@@ -46,8 +49,9 @@ def main(argv=None):
     cfg = IndexConfig(num_tables=args.tables, num_hashes=12, width=args.width,
                       num_probes=args.probes, candidate_cap=128,
                       universe=spec.universe, k=args.k, rerank_chunk=1024)
-    engine = AnnServingEngine(cfg, ServeConfig(batch_size=args.batch), data,
-                              device=device)
+    engine = AnnServingEngine(
+        cfg, ServeConfig(batch_size=args.batch, target_recall=args.target_recall),
+        data, device=device)
     engine.submit(queries)
     _, i = engine.drain()
 

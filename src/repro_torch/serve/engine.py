@@ -6,23 +6,32 @@ batches and compacts on its watermarks; every batch runs the compacted
 two-phase query (``SegmentedIndex.query_compact``).  Batch latency is taken
 after ``torch.cuda.synchronize()`` on the card.
 
-Not ported yet: the JAX compile cache (``persistent_cache``, ``cache_dir``;
-the port compiles its kernels once per build directory instead), the
-recall autotuner (``target_recall``, ``autotune_calib``), the race sanitizer
-and the flight recorder.
+Given ``ServeConfig(target_recall=...)`` the engine tunes (L, T, cap) at
+start-up through the success model (``eval.autotune.tune_for_recall``) and
+seeds its index from the tuner's validated state.  Metrics live in a typed
+registry (``obs.MetricsRegistry``, which doubles as ``stats``), batch
+latency in its log2 histogram, recent batches in a flight recorder; with
+``REPRO_TRACE=1`` each batch is an ``engine_batch`` span over the index's
+phase spans, and with ``REPRO_SANITIZE=1`` the entry points carry race
+tokens (``analysis.racecheck``).  The JAX package's persistent compile cache
+(``persistent_cache``, ``cache_dir``) has no counterpart: the port builds
+its kernels once per build directory.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from collections import Counter
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.index import IndexConfig
+from repro_torch import resolve_device
+from repro_torch.analysis import racecheck
+from repro_torch.core.index import IndexConfig, IndexState, ParamsFn
 from repro_torch.core.segments import SegmentedIndex
+from repro_torch.obs import FlightRecorder, MetricsRegistry
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["ServeConfig", "AnnServingEngine", "shape_buckets", "bucket_for",
            "validate_queries"]
@@ -47,6 +56,9 @@ class ServeConfig:
     compact_watermark: float = 0.5  # delta fill fraction that triggers compaction
     max_segments: int = 4           # segment count that triggers compaction
     tombstone_watermark: float = 0.25  # dead/live fraction that triggers compaction
+    target_recall: Optional[float] = None  # quality target: autotune (L, T,
+                                   # candidate_cap) at start-up
+    autotune_calib: int = 32       # calibration queries for the autotuner
 
 
 def shape_buckets(serve_cfg: ServeConfig) -> List[int]:
@@ -89,35 +101,73 @@ class AnnServingEngine:
 
     def __init__(self, cfg: IndexConfig, serve_cfg: ServeConfig,
                  dataset=None, seed: int = 0,
-                 index: Optional[SegmentedIndex] = None, device=None):
-        """``dataset`` seeds a fresh index (params from ``seed``); ``index``
-        adopts an existing one, which keeps its device."""
+                 index: Optional[SegmentedIndex] = None, device=None,
+                 params_fn: Optional[ParamsFn] = None):
+        """``dataset`` seeds a fresh index, with hash parameters from
+        ``params_fn(cfg, dim)`` or else drawn from ``seed``; ``index`` adopts
+        an existing one, which keeps its device (and clears any
+        ``target_recall``: an adopted index is served as it is)."""
         if (dataset is None) == (index is None):
             raise ValueError("pass exactly one of dataset= or index=")
+        if index is not None:
+            serve_cfg = dataclasses.replace(serve_cfg, target_recall=None)
         self.serve_cfg = serve_cfg
+        self.autotune = None
+        if serve_cfg.target_recall is not None and dataset.shape[0] > 0:
+            # derive (L, T, cap) from the success model and a calibration
+            # split; an empty dataset has nothing to calibrate against and
+            # is served as configured
+            from repro_torch.eval.autotune import tune_for_recall
+            self.autotune = tune_for_recall(
+                cfg, dataset, serve_cfg.target_recall, seed=seed,
+                num_calib=serve_cfg.autotune_calib, params_fn=params_fn,
+                device=resolve_device(device))
+            cfg = self.autotune.cfg
         self.cfg = cfg
+        caps = dict(cap_quantile=serve_cfg.cand_cap_quantile,
+                    cap_sample=serve_cfg.cand_cap_sample)
         if index is not None:
             self.index = index
             index.cap_quantile = serve_cfg.cand_cap_quantile
             index.cap_sample = serve_cfg.cand_cap_sample
+        elif self.autotune is not None:
+            # the tuner built and validated exactly this index: seed the
+            # segment from it instead of hashing and sorting again
+            n = int(dataset.shape[0])
+            self.index = SegmentedIndex.from_checkpoint(
+                cfg, self.autotune.state, np.arange(n, dtype=np.int32), n,
+                delta_cap=serve_cfg.delta_cap, **caps)
         else:
+            params = None if params_fn is None else params_fn(
+                cfg, int(dataset.shape[1]))
             self.index = SegmentedIndex.from_dataset(
-                cfg, dataset, delta_cap=serve_cfg.delta_cap,
-                cap_quantile=serve_cfg.cand_cap_quantile,
-                cap_sample=serve_cfg.cand_cap_sample, device=device, seed=seed)
+                cfg, dataset, delta_cap=serve_cfg.delta_cap, params=params,
+                device=device, seed=seed, **caps)
         self.device = self.index.device
         self._dim = self.index.dim
         self._pending: List[np.ndarray] = []
-        self.stats = {k: 0 for k in ("batches", "queries", "hedges", "inserts",
-                                     "deletes", "bucket_cold_hits",
-                                     "overflow_hits", "truncated_candidates")}
-        self.stats.update(compact_ms=0.0, warmup_ms=0.0, total_ms=0.0,
-                          cand_buckets=Counter())
-        self._lat_ms: List[float] = []
+        # the typed registry doubles as the dict-style ``stats``; batch
+        # latency goes to its log2 histogram (bounded memory)
+        self.metrics = MetricsRegistry("engine")
+        self.stats = self.metrics
+        for k in ("batches", "queries", "hedges", "inserts", "deletes",
+                  "bucket_cold_hits", "overflow_hits", "truncated_candidates"):
+            self.stats[k] = 0
+        for k in ("compact_ms", "warmup_ms", "total_ms"):
+            self.stats[k] = 0.0
+        self.metrics.family("cand_buckets")
+        self._lat = self.metrics.histogram("batch_ms")
+        # bounded ring of recent batches, slow ones kept as exemplars
+        self.flight = FlightRecorder(slow_ms=serve_cfg.hedge_ms)
         # (bucket, index-structure signature[, rung]) keys already run
         self._warm: set = set()
         if serve_cfg.warm_buckets:
             self.warmup()
+        # opt-in race sanitizer, after warm-up so boot-time calls stay bare
+        racecheck.maybe_instrument(
+            self, f"engine@{id(self):x}",
+            queries=("run_padded", "query_batch", "drain"),
+            mutations=("insert", "delete", "compact"))
 
     # -- shape buckets -----------------------------------------------------
 
@@ -156,6 +206,26 @@ class AnnServingEngine:
             self._warm.add((b, sig))
         self._sync()
         self.stats["warmup_ms"] += (time.perf_counter() - t0) * 1e3
+
+    @property
+    def state(self) -> IndexState:
+        """The compacted index's ``IndexState``; refuses a partial view while
+        delta inserts, tombstones or extra segments are pending (use
+        ``checkpoint_payload`` or ``compact()`` first)."""
+        idx = self.index
+        if not idx.segments:
+            raise RuntimeError("index is empty; nothing to checkpoint")
+        if idx.num_segments != 1 or idx.delta_fill > 0 or idx.num_tombstones:
+            raise RuntimeError(
+                "index has uncompacted mutations; call compact() first or "
+                "checkpoint via checkpoint_payload()")
+        return idx.segments[0].state
+
+    def checkpoint_payload(self):
+        """(IndexState, gids, next_gid) capturing every acknowledged
+        mutation; compacts as needed.  Restore with
+        ``SegmentedIndex.from_checkpoint``."""
+        return self.index.checkpoint_payload()
 
     # -- mutation endpoints ------------------------------------------------
 
@@ -212,28 +282,38 @@ class AnnServingEngine:
         if key not in self._warm:
             self.stats["bucket_cold_hits"] += 1
             self._warm.add(key)
+        used = ()
+        obs_trace.capture_begin()
         t0 = time.perf_counter()
-        queries = torch.from_numpy(batch).to(self.device)
-        if self.serve_cfg.compact_probe:
-            d, i, used = self.index.query_compact(
-                queries, floor=self.serve_cfg.cand_bucket_min,
-                overflow=self.serve_cfg.cand_overflow, stats=self.stats)
-            for seg_key in used:
-                self.stats["cand_buckets"][seg_key[1]] += 1
-                ck = key + seg_key
-                if ck not in self._warm:
-                    self.stats["bucket_cold_hits"] += 1
-                    self._warm.add(ck)
-        else:
-            d, i = self.index.query(queries)
-        self._sync()
+        with obs_trace.span("engine_batch", bucket=int(batch.shape[0]),
+                            n_real=int(n_real)):
+            queries = torch.from_numpy(batch).to(self.device)
+            if self.serve_cfg.compact_probe:
+                d, i, used = self.index.query_compact(
+                    queries, floor=self.serve_cfg.cand_bucket_min,
+                    overflow=self.serve_cfg.cand_overflow, stats=self.stats)
+                for seg_key in used:
+                    self.stats["cand_buckets"][seg_key[1]] += 1
+                    ck = key + seg_key
+                    if ck not in self._warm:
+                        self.stats["bucket_cold_hits"] += 1
+                        self._warm.add(ck)
+            else:
+                d, i = self.index.query(queries)
+            self._sync()
         ms = (time.perf_counter() - t0) * 1e3
         if ms > self.serve_cfg.hedge_ms:
             self.stats["hedges"] += 1
         self.stats["batches"] += 1
         self.stats["queries"] += n_real
         self.stats["total_ms"] += ms
-        self._lat_ms.append(ms)
+        self._lat.record_ms(ms)
+        entry = {"bucket": int(batch.shape[0]), "n_real": int(n_real),
+                 "rungs": [list(u) for u in used]}
+        if ms > self.flight.slow_ms:
+            # slow path only: stamp the exemplar with a result preview
+            entry["preview_d"] = d[:1].cpu().tolist()
+        self.flight.record(ms, entry, spans=obs_trace.capture_end())
         return d.cpu().numpy(), i.cpu().numpy()
 
     def run_padded(self, batch: np.ndarray, n_real: int):
@@ -278,14 +358,24 @@ class AnnServingEngine:
         return np.concatenate(out_d), np.concatenate(out_i)
 
     def summary(self) -> dict:
+        """The JAX engine's summary keys, except that the port adds
+        ``device`` and has no ``compile_cache`` (no JAX compile cache).  The
+        batch-latency quantiles are the histogram's upper bounds (each
+        bucket at most 12.5% wide), not exact per-batch times."""
         total_s = self.stats["total_ms"] / 1e3
-        lat = np.asarray(self._lat_ms, np.float64)
-
-        def pct(p):
-            return float(np.percentile(lat, p)) if lat.size else 0.0
-
+        quality = None
+        if self.autotune is not None:
+            quality = {
+                "target_recall": self.autotune.target_recall,
+                "validated_recall": round(self.autotune.validated_recall, 4),
+                "met_target": self.autotune.met_target,
+                "num_tables": self.cfg.num_tables,
+                "num_probes": self.cfg.num_probes,
+                "candidate_cap": self.cfg.candidate_cap,
+            }
         return {
             "device": str(self.device),
+            "quality": quality,
             "queries": self.stats["queries"],
             "batches": self.stats["batches"],
             "hedges": self.stats["hedges"],
@@ -307,10 +397,11 @@ class AnnServingEngine:
                 "segments": self.index.skew_summary(),
             },
             "warmup_ms": self.stats["warmup_ms"],
-            "mean_batch_ms": float(lat.mean()) if lat.size else 0.0,
-            "p50_batch_ms": pct(50),
-            "p99_batch_ms": pct(99),
-            "p999_batch_ms": pct(99.9),
+            "mean_batch_ms": self._lat.mean_ms,
+            "p50_batch_ms": self._lat.quantile_ms(0.50),
+            "p99_batch_ms": self._lat.quantile_ms(0.99),
+            "p999_batch_ms": self._lat.quantile_ms(0.999),
+            "flight": self.flight.summary(),
             "queries_per_s": (self.stats["queries"] / total_s
                               if total_s > 0 else 0.0),
         }

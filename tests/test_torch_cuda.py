@@ -281,3 +281,31 @@ def test_l1_distance_rows_kernel_matches_plain(card, name):
     torch.cuda.synchronize()
     assert got.dtype == want.dtype
     _eq(want.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+def test_staged_probe_and_concat_fold_on_the_card(card):
+    """``probe_impl='staged'`` (plain searches and gather, then the rerank
+    kernel) equals the fused probe's kernels, and the concat fold of a
+    fragmented index equals the ``topk_merge`` fold, bit for bit."""
+    import dataclasses
+    from repro_torch.core import index as tidx
+    from repro_torch.core.segments import SegmentedIndex
+    from repro_torch.data import ann_synthetic as ds
+    spec = ds.DatasetSpec("staged", n=2000, dim=16, universe=64, num_clusters=8)
+    data = ds.make_dataset(spec)
+    q = _t(ds.make_queries(spec, data, 12)).to(card)
+    cfg = IndexConfig(num_tables=3, num_hashes=8, width=24, num_probes=20,
+                      candidate_cap=16, universe=64, k=8, rerank_chunk=128)
+    state = tidx.build_index(cfg, _t(data).to(card))
+    staged = tidx.query_index(dataclasses.replace(cfg, probe_impl="staged"), state, q)
+    fused = tidx.query_index(cfg, state, q)
+    for a, b in zip(staged, fused):
+        _eq(a.cpu(), b.cpu())
+    frag = SegmentedIndex.from_dataset(cfg, data[:900], delta_cap=200, device=card)
+    frag.insert(data[900:1500])
+    assert frag.num_segments >= 3 and frag.delta_fill > 0
+    for got, want in ((frag.query(q, use_merge_kernel=False), frag.query(q)),
+                      (frag.query_compact(q, 64, False)[:2], frag.query_compact(q, 64)[:2])):
+        _eq(got[0].cpu(), want[0].cpu())
+        _eq(got[1].cpu(), want[1].cpu())
