@@ -20,8 +20,16 @@ read just after, and must launch the kernels named in ``PATHS``):
                  int32 sums; l1_distance's two loops, a block mixing them and
                  float sums flushed; rw_hash's table kernel and its hash
                  kernel at the planned split and at 1, 2, 3, 7 and m
-                 slices), bit for bit; an index on the card refuses the
-                 rerank cases whose distances reach BIG_DIST;
+                 slices, and both at a U2 above the one-pass limit and at
+                 8,192, which take several shared-memory windows), bit for
+                 bit; an index on the card refuses the rerank cases whose
+                 distances reach BIG_DIST;
+  walk_range     one served batch with an out-of-range query (negative, odd
+                 and above-universe coordinates) over a segment and a delta
+                 holding an out-of-range insert, then after a compaction
+                 that hashes it, on the card at the serve configuration over
+                 the first 50,000 points: no device assert, and the (d, i)
+                 of the same engine on the CPU, bit for bit;
   ground_truth   exact L1 k-NN of the queries through ``ops.l1_distance``,
                  each chunk of distances held against the plain version;
   serve          the main path: build the engine on the card, insert 512
@@ -64,6 +72,20 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ``probe_impl='staged'`` equal to the fused probe, the
                  concat fold of a fragmented index equal to the kernel fold,
                  and one drain under ``REPRO_SANITIZE=1``;
+  cluster        the in-process cluster (``repro_torch.cluster``): S 2 x R 2
+                 replicas on the one card over the same 1 M points (a 500 K
+                 row shard each), snapshots and WALs under a temporary
+                 directory, the serve traffic through the router (insert,
+                 delete, drain, compact, drain), then kill replica (0, 0),
+                 delete the inserted gids, recover (0, 0) from its snapshot,
+                 WAL and peer, and kill its peer; drain again.  Every drain
+                 through ``check_results``; the recovered replica answers a
+                 batch as its peer did before the peer died, bit for bit;
+  cluster_oracle ``QualityRun.check_cluster`` (flat == cluster before and after
+                 a kill and recovery, at the oracle's non-truncating cap) at
+                 128 dims over the first 250,000 points (halved until the
+                 flat query's slab at the raised cap fits 4 GiB; the
+                 ground truth and the sizing run before the counted path);
   batch          the kernels against their plain versions at the main path's
                  shapes, and their times beside the least time the card
                  could take (bytes over 3.35 TB/s, or operations over 67 T/s,
@@ -82,14 +104,15 @@ read just after, and must launch the kernels named in ``PATHS``):
                  the issue floor it gives (``*issue_floor_ms``: that count
                  x updates / (SMs x 128 lanes x the SM clock's maximum, which
                  nvidia-smi reports as ``clocks.max.sm``)).  Every row also
-                 gives ``quality_launches`` and ``tuned_launches``, its
+                 gives ``quality_launches``, ``tuned_launches``,
+                 ``cluster_launches`` and ``cluster_oracle_launches``, its
                  launches on those paths.  The probe's library call is the
                  staged probe at the same cap (``stage_bucket_lookup``'s two
                  ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
                  whose valid candidates must equal the gather's.
 
 Prints one ``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
-``{"kernels": [...]}`` line, the
+``{"cluster": ...}`` line, one ``{"kernels": [...]}`` line, the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the exit code is not 0.  Exits 2 with
 no result when no card is present or the port's sources are missing.
@@ -105,6 +128,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,7 +156,9 @@ PATHS = {"ground_truth": ("l1_distance",),
          "checks": ("l1_distance_rows",),
          "quality": (*PROBE, "fused_rerank", "topk_merge", "l1_distance",
                      "l1_distance_rows"),
-         "tuned": (*PROBE, "fused_rerank", "topk_merge", "l1_distance")}
+         "tuned": (*PROBE, "fused_rerank", "topk_merge", "l1_distance"),
+         "cluster": (*PROBE, "fused_rerank", "topk_merge"),
+         "cluster_oracle": (*PROBE, "fused_rerank", "topk_merge")}
 TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
 # the JAX package's full QualitySpec (benchmarks/quality_bench.py:42-47)
@@ -141,6 +167,11 @@ QUALITY_SPEC = dict(k=10, table_sweep=(1, 2, 4, 8, 16, 32),
                     candidate_cap=64, num_hashes_rw=12, num_hashes_cp=8,
                     rerank_chunk=1024, srs_t=1024, target_recall=0.9)
 CAUCHY_ROWS = 65_536        # rows of the card's Cauchy buckets held against float64
+WALK_RANGE_ROWS = 50_000    # the out-of-range batch's index, on the card and the CPU
+CLUSTER_SHARDS, CLUSTER_REPLICAS = 2, 2
+# the cluster oracle: rows, queries, and the bound on the flat query's slab
+# at the raised cap (ids, the gather's and the rerank's copies)
+ORACLE_ROWS, ORACLE_QUERIES, ORACLE_SLAB_BYTES = 250_000, 64, 4 << 30
 
 
 def log(msg: str) -> None:
@@ -585,11 +616,212 @@ def tuned_phase(ops, kernel_modules, serve, cfg, serve_cfg, data_c, queries, ins
     return summary, launches
 
 
+def walk_range_phase(cfg, data, inserted, queries) -> dict:
+    """One served batch with an out-of-range query over a segment and a
+    delta holding an out-of-range insert, then again after a compaction, on
+    the card and on the CPU (the same seeded parameters): equal bit for bit.
+    Returns what the log prints."""
+    from repro_torch.serve.engine import AnnServingEngine, ServeConfig
+    u = cfg.universe
+    bad = queries[:64].copy()
+    # -2 (U2+2) fills, -2 (U2+1) wraps to row 0, -2 and -1 wrap to row U2,
+    # odd values, U, U + 1 and 2U fill
+    pattern = np.asarray([-(u + 4), -(u + 2), -2, -1, 1, u - 1, u, u + 1, u + 2, 2 * u])
+    bad[1] = np.resize(pattern, bad.shape[1])
+    ins = inserted[:64].copy()
+    ins[3] = np.resize(pattern[::-1], ins.shape[1])
+    bad[2] = ins[3]
+    out = []
+    for device in ("cuda", "cpu"):
+        eng = AnnServingEngine(cfg, ServeConfig(batch_size=64, delta_cap=2048,
+                                                warm_buckets=False),
+                               data[:WALK_RANGE_ROWS], device=device)
+        eng.insert(ins)
+        eng.delete([5, 7])
+        got = [eng.query_batch(bad)]
+        eng.compact()
+        got.append(eng.query_batch(bad))
+        out.append(got)
+        del eng
+    torch.cuda.synchronize()
+    for (cd, ci), (hd, hi), when in zip(*out, ("delta", "compacted")):
+        check(np.array_equal(cd, hd) and np.array_equal(ci, hi),
+              f"walk_range: the card's (d, i) == the CPU's, {when}")
+    check(out[0][0][1][2, 0] == WALK_RANGE_ROWS + 3 and out[0][0][0][2, 0] == 0,
+          "walk_range: the out-of-range insert is found in the delta")
+    return {"rows": WALK_RANGE_ROWS, "bad_query_rank0": [int(out[0][0][0][1, 0]),
+                                                          int(out[0][0][1][1, 0])]}
+
+
+def cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, check_drain):
+    """The in-process cluster on the card (the ``cluster`` path), then its
+    recovery checks.  ``check_drain(name, d, i, stage)`` checks a drain's
+    results.  Returns the summary of the ``{"cluster": ...}`` line and the
+    path's launch counts."""
+    from repro_torch.cluster import ClusterConfig, ClusterRouter
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as root:
+        def traffic():
+            t0 = time.perf_counter()
+            # no result cache: each drain repeats the same queries, and every
+            # one of them is to reach the replicas
+            router = ClusterRouter(cfg, serve_cfg,
+                                   ClusterConfig(num_shards=CLUSTER_SHARDS,
+                                                 num_replicas=CLUSTER_REPLICAS,
+                                                 cache_capacity=0),
+                                   data, root, device="cuda")
+            torch.cuda.synchronize()
+            timing = {"startup_s": time.perf_counter() - t0, "snapshot_s": []}
+            for group in router.replicas:       # time every later snapshot
+                for rep in group:
+                    def timed_snapshot(orig=rep.snapshot):
+                        t1 = time.perf_counter()
+                        step = orig()
+                        timing["snapshot_s"].append(time.perf_counter() - t1)
+                        return step
+                    rep.snapshot = timed_snapshot
+            gids = router.insert(inserted)
+            check(list(gids[:2]) == [N_POINTS, N_POINTS + 1],
+                  "cluster: insert assigns fresh gids")
+            check(router.delete(deleted) == len(deleted),
+                  "cluster: delete tombstones every gid")
+            drains = {}
+
+            def drain(name):
+                live = [rep for group in router.replicas for rep in group if rep.alive]
+                rec0 = router.flight.recorded
+                eng0 = [rep.engine.flight.recorded for rep in live]
+                router.submit(queries)
+                d, i = router.drain()
+                n = router.flight.recorded - rec0
+                check(0 < n <= router.flight.capacity, f"cluster: {n} dispatches recorded")
+                # each replica engine's own batch times in this drain
+                engine_ms = {f"{rep.shard_id}.{rep.replica_id}": float(np.percentile(
+                    [ms for _, ms, _ in rep.engine.flight.entries()[-m:]], 50))
+                    for rep, e0 in zip(live, eng0)
+                    if 0 < (m := rep.engine.flight.recorded - e0)}
+                drains[name] = (d, i, [ms for _, ms, _ in router.flight.entries()[-n:]],
+                                engine_ms)
+
+            drain("cluster_delta")
+            t0 = time.perf_counter()
+            router.compact()
+            timing["compact_s"] = time.perf_counter() - t0
+            drain("cluster_compacted")
+            # one replica alone on this thread, the same batches: its batch
+            # time without the other shard's host work beside it (outside
+            # the router, so not counted)
+            def alone():
+                rep, times = router.replicas[0][0], []
+                for lo in range(0, queries.shape[0], serve_cfg.batch_size):
+                    t0 = time.perf_counter()
+                    rep.query(queries[lo:lo + serve_cfg.batch_size], serve_cfg.batch_size)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                return float(np.percentile(times, 50))
+            timing["one_replica_alone_p50_ms"] = uncounted(ops, router, alone)
+            router.kill_replica(0, 0)
+            check(router.delete(gids) == len(gids), "cluster: the inserted gids deleted")
+            t0 = time.perf_counter()
+            info = router.recover_replica(0, 0)
+            torch.cuda.synchronize()
+            timing["recovery_s"] = time.perf_counter() - t0
+            # the recovered replica answers as its peer did, bit for bit
+            # (replica queries outside the router, not counted)
+            batch = queries[:serve_cfg.batch_size]
+            ask = lambda r: tuple(t.cpu() for t in router.replicas[0][r].query(
+                batch, batch.shape[0]))
+            pd, pi = uncounted(ops, router, lambda: ask(1))
+            router.kill_replica(0, 1)
+            rd, ri = uncounted(ops, router, lambda: ask(0))
+            check(torch.equal(pd, rd) and torch.equal(pi, ri),
+                  "cluster: the recovered replica answers as its peer did, bit for bit")
+            drain("cluster_recovered")
+            router._quiesce()     # late hedge losers launch on the path too
+            return router, drains, timing, info
+
+        (router, drains, timing, info), launches = run_path("cluster", ops, traffic)
+        summary = router.summary()
+        router.close()
+    check(summary["recoveries"] >= 1, "cluster: the router recovered a replica")
+    check(info["replayed"] + info["caught_up"] >= 1,
+          "cluster: the recovery replayed or caught up a record")
+    out = {"shards": CLUSTER_SHARDS, "replicas": CLUSTER_REPLICAS,
+           "rows_per_shard": N_POINTS // CLUSTER_SHARDS, "recovery": info,
+           "startup_s": timing["startup_s"], "compact_s": timing["compact_s"],
+           "recovery_s": timing["recovery_s"], "snapshot_s": timing["snapshot_s"],
+           "one_replica_alone_p50_ms": timing["one_replica_alone_p50_ms"],
+           "router": {k: summary[k] for k in (
+               "queries", "batches", "served", "hedged_batches", "hedge_wins",
+               "failovers", "cache_hits", "cache_misses", "recoveries",
+               "replicas_marked_dead", "dispatch_failures")},
+           "launches": launches, "drains": {}}
+    for name, (d, i, lat, engine_ms) in drains.items():
+        r, hits = check_drain(name, d, i, name)
+        lat = np.asarray(lat)
+        out["drains"][name] = {"batches": int(lat.size), "p50_ms": float(np.percentile(lat, 50)),
+                               "p99_ms": float(np.percentile(lat, 99)),
+                               "first_ms": float(lat[0]), "engine_p50_ms": engine_ms,
+                               "queries_per_s": queries.shape[0] / (lat.sum() / 1e3),
+                               "recall": r, "self_hits": hits}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def cluster_oracle_phase(ops, spec, data):
+    """``QualityRun.check_cluster`` on the card (the ``cluster_oracle``
+    path) at 128 dims over the first ``ORACLE_ROWS`` points, halved until
+    the flat query's slab at the oracle's raised cap fits
+    ``ORACLE_SLAB_BYTES``."""
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.core.index import build_index
+    from repro_torch.data import ann_synthetic as ds
+    from repro_torch.eval import QualityRun, QualitySpec
+
+    t0 = time.perf_counter()
+    n = ORACLE_ROWS
+    while True:                 # size the cut outside the counted path
+        rows = data[:n]
+        run = QualityRun(rows, ds.make_queries(spec, rows, ORACLE_QUERIES, seed=31),
+                         spec.universe, QualitySpec(k=K, candidate_cap=64, num_hashes_rw=12),
+                         device="cuda")
+        cfg = run.scheme_config("mp-rw-lsh", 8, 50)
+        state = build_index(cfg, run.data, params=run.params(cfg))
+        cap = pipe.oracle_candidate_cap(cfg, state.sorted_keys, state.occ_from)
+        del state
+        slab = 3 * 4 * ORACLE_QUERIES * cfg.num_tables * cfg.probes_per_table * cap
+        log(f"cluster_oracle: {n} rows x {spec.dim}, raised cap {cap}, flat slab "
+            f"{slab / 2 ** 30:.2f} GiB (bound {ORACLE_SLAB_BYTES / 2 ** 30:.0f} GiB)")
+        if slab <= ORACLE_SLAB_BYTES:
+            break
+        n //= 2
+    got, launches = run_path("cluster_oracle", ops, lambda: run.check_cluster(cfg))
+    check(got["cluster_matches_flat"], "cluster_oracle: cluster == flat, bit for bit")
+    check(got["cluster_recovery_matches_flat"],
+          "cluster_oracle: after kill and recovery, cluster == flat, bit for bit")
+    return {"rows": n, "cut": f"n {n} of {N_POINTS} (the flat oracle's slab at the raised "
+            f"cap), dims {spec.dim} kept", "config": dataclasses.asdict(cfg), **got,
+            "seconds": time.perf_counter() - t0}, launches
+
+
 def nvidia_smi_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def uncounted(ops, router, fn):
+    """Run ``fn`` (a check or a timing outside the router) in the middle of
+    a counted path, with the router's in-flight work waited out first, and
+    take its launches back out of the counts."""
+    router._quiesce()
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    ops.LAUNCHES.update(before)
+    return out
 
 
 def run_path(name: str, ops, fn):
@@ -821,6 +1053,21 @@ def main() -> int:
             check(equal(krw.rw_hash_cuda(*args, slices=slices), want),
                   f"rw_hash kernel at {slices} slices == plain on {name}")
             n_cases += 1
+    # rw_hash beyond one shared-memory window: U2 above the one-pass limit
+    # and 8,192, on in-range, odd, negative and above-universe coordinates
+    span = krw.max_u2()
+    rng = np.random.default_rng(21)
+    for u2 in (span + 1, 8192):
+        pairs = torch.from_numpy(
+            (2 * rng.integers(0, 2, (37, 18, u2, 2)) - 1).sum(-1).astype(np.int8)).to(card)
+        pts = torch.from_numpy(rng.integers(-40, 2 * u2 + 40, (600, 18)).astype(np.int32)).to(card)
+        check(equal(krw.rw_prefix_table_cuda(pairs),
+                    krw.rw_prefix_table_plain(pairs, krw.padded_fns(37))),
+              f"rw_hash table kernel == plain at U2 {u2} (one-pass limit {span})")
+        check(equal(ops.rw_hash(pairs, pts), krw.rw_hash_plain(pairs, pts)),
+              f"rw_hash kernel == plain at U2 {u2} (one-pass limit {span})")
+        n_cases += 2
+    del pairs, pts
     for cases, kfns, pfn in (
             (L1_CASES, (ops.l1_distance,), kl1.l1_distance_plain),
             (L1_ROWS_CASES, (ops.l1_distance_rows,), kl1.l1_distance_rows_plain)):
@@ -1005,6 +1252,47 @@ def main() -> int:
         f"{json.dumps(tuned['exact_ms'])}; traced phase medians (ms) "
         f"{json.dumps(tuned['trace']['median_ms'])}")
     log(json.dumps({"tuned": tuned}))
+
+    # -- walk_range: an out-of-range query and insert, card against CPU ------
+    t0 = time.perf_counter()
+    walk_range = walk_range_phase(cfg, data, inserted, queries)
+    log(f"phase walk_range: {time.perf_counter() - t0:.1f} s; a batch with an "
+        f"out-of-range query over {WALK_RANGE_ROWS} points (cut from {N_POINTS}), "
+        f"before and after compacting an out-of-range insert: the card's (d, i) == "
+        f"the CPU's; the bad query's rank-0 distances {walk_range['bad_query_rank0']}")
+
+    # -- cluster: S x R replicas on the card, the serve traffic, kill/recover --
+    dead_final = dead.clone()
+    dead_final[N_POINTS:] = True                # the inserted gids, deleted at the end
+    gt_final = exact_knn(ops, kl1.l1_distance_plain, points, q_c, K, dead=dead_final)[1]
+    deleted_final = torch.cat([deleted_c, torch.arange(
+        N_POINTS, N_POINTS + N_INSERT, dtype=deleted_c.dtype, device=card)])
+
+    def check_drain(name, d, i, stage):
+        final = stage == "cluster_recovered"
+        return check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c, points,
+                             deleted_final if final else deleted_c, self_rows,
+                             (gt_final if final else gt_i).cpu().numpy(), pipe.BIG_DIST,
+                             recall, exact_delta=stage == "cluster_delta")
+
+    cluster, c_launches = cluster_phase(ops, cfg, serve_cfg, data, queries, inserted,
+                                        deleted, check_drain)
+    for name, row in cluster["drains"].items():
+        log(f"phase {name}: batches {row['batches']}, p50 {row['p50_ms']:.3f} ms, "
+            f"p99 {row['p99_ms']:.3f} ms, first {row['first_ms']:.3f} ms, replica engines' "
+            f"p50 {json.dumps(row['engine_p50_ms'])}, {row['queries_per_s']:.1f} queries/s, "
+            f"recall@10 {row['recall']:.4f}, self-hits {row['self_hits']}/{inserted_rows.size}")
+    log(f"phase cluster: {cluster['seconds']:.1f} s; one replica alone p50 "
+        f"{cluster['one_replica_alone_p50_ms']:.3f} ms; start-up {cluster['startup_s']:.2f} s, "
+        f"compact {cluster['compact_s']:.2f} s, recovery {cluster['recovery_s']:.2f} s "
+        f"({json.dumps(cluster['recovery'])}), snapshots (s) "
+        f"{json.dumps([round(x, 3) for x in cluster['snapshot_s']])}, router "
+        f"{json.dumps(cluster['router'])}")
+    oracle, o_launches = cluster_oracle_phase(ops, spec, data)
+    log(f"phase cluster_oracle: {oracle['seconds']:.1f} s, {oracle['cut']}, matches "
+        f"{oracle['cluster_matches_flat']}, after recovery "
+        f"{oracle['cluster_recovery_matches_flat']}, oracle cap {oracle['cluster_oracle_cap']}")
+    log(json.dumps({"cluster": {**cluster, "oracle": oracle, "walk_range": walk_range}}))
 
     # -- one served batch: kernels against plain, and their times -------------
     idx = engine.index
@@ -1214,6 +1502,29 @@ def main() -> int:
         "table": {"launches": rw_launches["rw_prefix_table"], "shape": list(tab_want.shape),
                   **tab_row}})
     del rw_out, rw_plain, tab_got, tab_want
+    # the windowed passes (U2 above the one-pass limit; no dataset spec
+    # reaches it): 96 functions x 128 dimensions at U2 8,192, a served batch
+    # and 65,536 rows of the points, plain on the batch and 1,024 rows
+    wide_u2 = 8192
+    gen_w = np.random.default_rng(23)
+    wpairs = torch.from_numpy((2 * gen_w.integers(0, 2, (n_fns, DIM, wide_u2, 2), dtype=np.int8)
+                               - 1).sum(-1, dtype=np.int8)).to(card)
+    w_span, w_win = krw.plan_rw_windows(wide_u2, krw.max_u2())
+    windowed = {"u2": wide_u2, "span": w_span, "windows": w_win}
+    for rows_w in (batch.shape[0], 65_536):
+        wpts = data_c[:rows_w] * (wide_u2 // (UNIVERSE // 2))   # spread over [0, 2 U2]
+        wk = lambda: krw.rw_hash_cuda(wpairs, wpts)
+        plain_rows = min(rows_w, 1024)
+        wp = lambda: krw.rw_hash_plain(wpairs, wpts[:plain_rows])
+        w_out, w_plain = wk(), wp()
+        check(equal(w_out[:plain_rows], w_plain),
+              f"rw_hash kernel == plain at U2 {wide_u2} on {plain_rows} of {rows_w} rows")
+        windowed[f"rows_{rows_w}"] = {
+            "plain_rows": plain_rows,
+            **timed(wk, wp, None, rows_w * DIM * 4 + wpairs.numel() + rows_w * n_fns * 4,
+                    rows_w * n_fns * DIM, [(w_out[:plain_rows], w_plain)])}
+    rows[-1]["windowed"] = windowed
+    del wpairs, wpts, w_out, w_plain
 
     # l1_distance at the ground truth's shape: one batch against every point;
     # then the same shape with every coordinate
@@ -1300,7 +1611,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/l1_distance.py:103",
         "launches": check_launches["l1_distance_rows"], "equal_to_plain": True,
         **l1r[torch.int32], "shape": list(rd.shape), "int16": l1r[torch.int16]})
-    for path, counts in (("quality", q_launches), ("tuned", t_launches)):
+    for path, counts in (("quality", q_launches), ("tuned", t_launches),
+                         ("cluster", c_launches), ("cluster_oracle", o_launches)):
         for row in rows:
             row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
                                        if row["name"] == "fused_probe" else counts[row["name"]])

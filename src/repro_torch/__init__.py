@@ -16,6 +16,10 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             ``ops`` dispatches by the tensors' device
   serve/    the batched serving engine (with a recall target, tuned at
             start-up)
+  cluster/  the in-process cluster: S shards x R replicas behind a router,
+            each replica an engine with a write-ahead log and snapshots,
+            hedged re-issue, kill and recovery
+  ckpt/     the checkpoint manager (the JAX package's on-disk layout)
   eval/     the quality protocol (``QualityRun``: recall sweeps over every
             scheme, tables needed, cross-layer oracles) and the recall
             autotuner (``tune_for_recall``)

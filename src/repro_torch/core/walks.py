@@ -28,6 +28,8 @@ class WalkTable:
 
     pairs: torch.Tensor
     prefix: torch.Tensor
+    _gather: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def num_fns(self) -> int:
@@ -36,6 +38,17 @@ class WalkTable:
     @property
     def u2(self) -> int:
         return self.prefix.shape[2] - 1
+
+    def gather_table(self) -> torch.Tensor:
+        """``eval_prefix``'s table, built on first use: (m, U2+2, F) int32,
+        the prefix with dimensions first and a fill row of INT32_MIN."""
+        if self._gather is None:
+            table = self.prefix.permute(1, 2, 0)
+            fill = torch.full((table.shape[0], 1, table.shape[2]),
+                              torch.iinfo(torch.int32).min, dtype=torch.int32,
+                              device=table.device)
+            self._gather = torch.cat([table, fill], dim=1)
+        return self._gather
 
     def to(self, device) -> "WalkTable":
         return WalkTable(self.pairs.to(device), self.prefix.to(device))
@@ -67,14 +80,23 @@ def prefix_from_pairs(pairs: torch.Tensor) -> torch.Tensor:
 def eval_prefix(walks: WalkTable, points: torch.Tensor) -> torch.Tensor:
     """Gather-based raw hash: f[k](s) = sum_i prefix[k, i, s_i // 2].
 
-    points : (n, m) int32, nonnegative even, <= U.
+    points : (n, m) int32; meant to be nonnegative, even and <= U, but every
+             int32 answers as the JAX package's ``jnp.take`` does.
     returns: (n, F) int32.
 
     One row gather and add per dimension into an (n, F) accumulator; the
-    (F, n, m) gathered tensor never exists.
+    (F, n, m) gathered tensor never exists.  An index t = s >> 1 reads row
+    t for t in [0, U2], row t + U2 + 1 for t in [-(U2+1), -1], and
+    INT32_MIN (``jnp.take``'s fill) otherwise; the int32 sum wraps.  The
+    fill is one extra row of ``walks.gather_table()``, and each index is
+    mapped onto [0, U2+1] before the gather, so nothing out of range reaches
+    ``index_select``.
     """
+    rows = walks.u2 + 1
     t = (points.to(torch.int32) >> 1).to(torch.int64)               # (n, m)
-    table = walks.prefix.permute(1, 2, 0).contiguous()              # (m, U2+1, F)
+    t = torch.where(t < 0, t + rows, t)
+    t = torch.where((t >= 0) & (t < rows), t, rows)                 # fill row
+    table = walks.gather_table()                                    # (m, U2+2, F)
     acc = torch.zeros((points.shape[0], walks.num_fns), dtype=torch.int32,
                       device=points.device)
     for i in range(points.shape[1]):

@@ -41,6 +41,20 @@
 // (a served batch of 64 queries), the dimensions are split over blockIdx.z
 // and the slices add into a zeroed output with integer atomics, which give
 // the same bits in any order.  The caller plans the split.
+//
+// Any U2: both launches take a `span`, the most steps (table kernel) and
+// span + 1 table rows (hash kernel) that one pass holds in shared memory;
+// the caller plans it as min(U2, the limit rw_hash_setup returns), and the
+// number of hash windows n_win = ceil((U2 + 1) / (span + 1)) with it.  The
+// table kernel scans the steps in chunks of span, carrying each function's
+// running sum from one chunk to the next.  The hash kernel copies each
+// dimension's slice in n_win windows of span + 1 rows,
+// [w (span + 1), (w + 1)(span + 1)), and adds a row's entry only in the
+// window that holds its offset; each offset lies in exactly one window, and
+// integer adds give the same bits in any order.  With n_win == 1 there is
+// one chunk and one window, and the launch takes the one-window
+// instantiation, which adds without the window test: on an H100 the test
+// costs 2.8-4.0% of the hash's device time at U2 255 and 1 M rows (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,39 +76,49 @@ __host__ __device__ inline int table_smem(int u2) {
 
 __global__ void __launch_bounds__(kScanThreads)
 rw_table_kernel(const int8_t* __restrict__ pairs, int* __restrict__ tab,
-                int n_fns, int m, int u2, int fp) {
+                int n_fns, int m, int u2, int fp, int span) {
   extern __shared__ int smem[];
   int* s_part = smem;                       // kScanWarps x kFns segment sums
   int8_t* s_raw = reinterpret_cast<int8_t*>(s_part + kScanWarps * kFns);  // kFns step rows
-  const int stride = raw_stride(u2);
+  const int stride = raw_stride(span);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int i = blockIdx.x;
   const int f0 = blockIdx.y * kFns;
   const int fw = min(kFns, n_fns - f0);
-  // the step rows, consecutive threads on consecutive steps of a row; the
-  // padding functions' rows are zero
-  for (int e = threadIdx.x; e < kFns * u2; e += kScanThreads) {
-    const int fl = e / u2, u = e - fl * u2;
-    s_raw[fl * stride + u] =
-        fl < fw ? pairs[(static_cast<size_t>(f0 + fl) * m + i) * u2 + u] : 0;
-  }
-  __syncthreads();
-  const int seg = (u2 + kScanWarps - 1) / kScanWarps;
-  const int u_lo = min(u2, warp * seg);
-  const int u_hi = min(u2, u_lo + seg);
-  const int8_t* raw = s_raw + lane * stride;
-  int sum = 0;
-  for (int u = u_lo; u < u_hi; ++u) sum += raw[u];
-  s_part[warp * kFns + lane] = sum;
-  __syncthreads();
-  int carry = 0;
-  for (int w = 0; w < warp; ++w) carry += s_part[w * kFns + lane];
   int* dst = tab + static_cast<size_t>(i) * (u2 + 1) * fp + f0;
   if (warp == 0) dst[lane] = 0;
-  for (int u = u_lo; u < u_hi; ++u) {
-    carry += raw[u];
-    dst[(u + 1) * fp + lane] = carry;       // one 128-byte row a warp
+  int base = 0;                             // this lane's sum over the chunks before
+  for (int v0 = 0; v0 < u2; v0 += span) {
+    const int len = min(span, u2 - v0);
+    // the chunk's step rows, consecutive threads on consecutive steps of a
+    // row; the padding functions' rows are zero
+    for (int e = threadIdx.x; e < kFns * len; e += kScanThreads) {
+      const int fl = e / len, u = e - fl * len;
+      s_raw[fl * stride + u] =
+          fl < fw ? pairs[(static_cast<size_t>(f0 + fl) * m + i) * u2 + v0 + u] : 0;
+    }
+    __syncthreads();
+    const int seg = (len + kScanWarps - 1) / kScanWarps;
+    const int u_lo = min(len, warp * seg);
+    const int u_hi = min(len, u_lo + seg);
+    const int8_t* raw = s_raw + lane * stride;
+    int sum = 0;
+    for (int u = u_lo; u < u_hi; ++u) sum += raw[u];
+    s_part[warp * kFns + lane] = sum;
+    __syncthreads();
+    int carry = base, total = 0;
+    for (int w = 0; w < kScanWarps; ++w) {
+      const int part = s_part[w * kFns + lane];
+      if (w < warp) carry += part;
+      total += part;
+    }
+    for (int u = u_lo; u < u_hi; ++u) {
+      carry += raw[u];
+      dst[(v0 + u + 1) * fp + lane] = carry;  // one 128-byte row a warp
+    }
+    base += total;
+    __syncthreads();                        // the chunk's buffers are free again
   }
 }
 
@@ -109,13 +133,14 @@ __host__ __device__ inline int hash_smem(int u2) {
   return static_cast<int>(((u2 + 1) * kFns + kRows * kDims) * sizeof(int));
 }
 
+template <bool kWindowed>
 __global__ void __launch_bounds__(kThreads, 2)
 rw_hash_kernel(const int* __restrict__ points, const int* __restrict__ tab,
                int* __restrict__ out, int n, int n_fns, int m, int u2, int fp,
-               int fn_tiles, int dims_per_slice) {
+               int fn_tiles, int dims_per_slice, int span, int n_win) {
   extern __shared__ int4 smem4[];
-  int* s_tab = reinterpret_cast<int*>(smem4);   // (u2 + 1) x kFns table slice
-  int* s_off = s_tab + (u2 + 1) * kFns;         // kRows x kDims offsets into s_tab
+  int* s_tab = reinterpret_cast<int*>(smem4);   // a window of (span + 1) x kFns table rows
+  int* s_off = s_tab + (span + 1) * kFns;       // kRows x kDims offsets into the slice
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tile = blockIdx.x / fn_tiles;
@@ -124,7 +149,7 @@ rw_hash_kernel(const int* __restrict__ points, const int* __restrict__ tab,
   const int rows = min(kRows, n - row0);
   const int i_lo = blockIdx.z * dims_per_slice;
   const int i_hi = min(m, i_lo + dims_per_slice);
-  const int vecs = (u2 + 1) * (kFns / 4);       // 16-byte words of a slice
+  const int win = span + 1;                     // table rows a window
   const int fp4 = fp / 4;
 
   int acc[kPerThread];
@@ -141,17 +166,25 @@ rw_hash_kernel(const int* __restrict__ points, const int* __restrict__ tab,
     for (int d = 0; d < dims; ++d) {
       const int4* src = reinterpret_cast<const int4*>(
           tab + static_cast<size_t>(c + d) * (u2 + 1) * fp + f0);
-      for (int e = threadIdx.x; e < vecs; e += kThreads) {
-        const int u = e / (kFns / 4), q = e % (kFns / 4);
-        smem4[e] = src[u * fp4 + q];
-      }
-      __syncthreads();
+      for (int w = 0; w < (kWindowed ? n_win : 1); ++w) {
+        const int u0 = w * win;
+        const int vecs = min(win, u2 + 1 - u0) * (kFns / 4);  // 16-byte words of the window
+        for (int e = threadIdx.x; e < vecs; e += kThreads) {
+          const int u = e / (kFns / 4), q = e % (kFns / 4);
+          smem4[e] = src[(u0 + u) * fp4 + q];
+        }
+        __syncthreads();
+        // the offset relative to the window, unsigned: below 0 wraps high
+        const unsigned lo = static_cast<unsigned>(u0 * kFns);
+        const unsigned extent = static_cast<unsigned>(vecs * 4);
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int r = warp + j * kWarps;
-        if (r < rows) acc[j] += s_tab[s_off[r * kDims + d] + lane];
+        for (int j = 0; j < kPerThread; ++j) {
+          const int r = warp + j * kWarps;
+          const unsigned o = static_cast<unsigned>(s_off[r * kDims + d]) - lo;
+          if (r < rows && (!kWindowed || o < extent)) acc[j] += s_tab[o + lane];
+        }
+        __syncthreads();                        // the window and offsets are free again
       }
-      __syncthreads();                          // the slice and offsets are free again
     }
   }
 
@@ -174,8 +207,8 @@ rw_hash_kernel(const int* __restrict__ points, const int* __restrict__ tab,
 
 // Sets each kernel's dynamic shared memory limit to the current device's
 // opt-in maximum (once a device: a launch then asks no attribute) and
-// returns the largest U2 both launches of rw_hash take there, or minus a
-// CUDA error.
+// returns the largest span (steps of a table chunk, span + 1 rows of a hash
+// window) both launches hold in one pass there, or minus a CUDA error.
 extern "C" int rw_hash_setup() {
   int dev = 0, limit = 0;
   cudaError_t err;
@@ -185,51 +218,58 @@ extern "C" int rw_hash_setup() {
       (err = cudaFuncSetAttribute(rw_table_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
           != cudaSuccess ||
-      (err = cudaFuncSetAttribute(rw_hash_kernel,
+      (err = cudaFuncSetAttribute(rw_hash_kernel<false>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
+          != cudaSuccess ||
+      (err = cudaFuncSetAttribute(rw_hash_kernel<true>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, limit))
           != cudaSuccess) {
     return -static_cast<int>(err);
   }
-  int u2 = 0;
-  while (hash_smem(u2 + 1) <= limit && table_smem(u2 + 1) <= limit) ++u2;
-  return u2;
+  int span = 0;
+  while (hash_smem(span + 1) <= limit && table_smem(span + 1) <= limit) ++span;
+  return span;
 }
 
-// Blocks of rw_hash_kernel the current device keeps resident at once for
-// this U2 (SMs x blocks an SM), or minus a CUDA error.  After rw_hash_setup.
-extern "C" int rw_hash_resident(int u2) {
+// Blocks of rw_hash_kernel the current device keeps resident at once at
+// this span (SMs x blocks an SM), or minus a CUDA error.  After
+// rw_hash_setup.  Both instantiations take the same shared memory.
+extern "C" int rw_hash_resident(int span) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
           != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, rw_hash_kernel, kThreads, hash_smem(u2))) != cudaSuccess) {
+           &per_sm, rw_hash_kernel<false>, kThreads, hash_smem(span))) != cudaSuccess) {
     return -static_cast<int>(err);
   }
   return sms * per_sm;
 }
 
 // pairs (F, m, U2) int8 -> tab (m, U2 + 1, Fp) int32, Fp = F rounded up to a
-// multiple of 32; both contiguous.  F, m > 0, 0 < U2 <= rw_hash_setup().
+// multiple of 32; both contiguous.  F, m > 0, U2 >= 0 and
+// 0 < span <= max(1, min(U2, rw_hash_setup())).
 extern "C" int rw_prefix_table(const void* pairs, void* tab, int n_fns, int m, int u2,
-                               void* stream) {
+                               int span, void* stream) {
   const int fp = (n_fns + kFns - 1) / kFns * kFns;
-  rw_table_kernel<<<dim3(m, fp / kFns), kScanThreads, table_smem(u2),
+  rw_table_kernel<<<dim3(m, fp / kFns), kScanThreads, table_smem(span),
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(pairs), static_cast<int*>(tab), n_fns, m, u2, fp);
+      static_cast<const int8_t*>(pairs), static_cast<int*>(tab), n_fns, m, u2, fp, span);
   return static_cast<int>(cudaGetLastError());
 }
 
 // pairs (F, m, U2) int8, points (n, m) int32, tab (m, U2 + 1, Fp) int32
-// workspace, out (n, F) int32; all contiguous.  n, F, m > 0,
-// 0 < U2 <= rw_hash_setup(), and 1 <= slices <= m with no slice empty
-// (slices == ceil(m / ceil(m / slices))).  Launches the table kernel, the
-// memset of a split output and the hash kernel.
+// workspace, out (n, F) int32; all contiguous.  n, F, m, U2 > 0,
+// 0 < span <= min(U2, rw_hash_setup()), n_win = ceil((U2 + 1) / (span + 1)),
+// and 1 <= slices <= m with no slice empty (slices == ceil(m / ceil(m /
+// slices))).  Launches the table kernel, the memset of a split output and
+// the hash kernel.
 extern "C" int rw_hash(const void* pairs, const void* points, void* tab, void* out,
-                       int n, int n_fns, int m, int u2, int slices, void* stream) {
+                       int n, int n_fns, int m, int u2, int span, int n_win,
+                       int slices, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = rw_prefix_table(pairs, tab, n_fns, m, u2, stream);
+  int err = rw_prefix_table(pairs, tab, n_fns, m, u2, span, stream);
   if (err != 0) return err;
   if (slices > 1) {
     err = static_cast<int>(
@@ -238,9 +278,11 @@ extern "C" int rw_hash(const void* pairs, const void* points, void* tab, void* o
   }
   const int fp = (n_fns + kFns - 1) / kFns * kFns;
   const int fn_tiles = fp / kFns;
-  const unsigned row_tiles = static_cast<unsigned>((n + kRows - 1) / kRows);
-  rw_hash_kernel<<<dim3(row_tiles * fn_tiles, 1, slices), kThreads, hash_smem(u2), s>>>(
+  const dim3 grid(static_cast<unsigned>((n + kRows - 1) / kRows) * fn_tiles, 1, slices);
+  const int per_slice = (m + slices - 1) / slices;
+  auto kernel = n_win == 1 ? &rw_hash_kernel<false> : &rw_hash_kernel<true>;
+  kernel<<<grid, kThreads, hash_smem(span), s>>>(
       static_cast<const int*>(points), static_cast<const int*>(tab),
-      static_cast<int*>(out), n, n_fns, m, u2, fp, fn_tiles, (m + slices - 1) / slices);
+      static_cast<int*>(out), n, n_fns, m, u2, fp, fn_tiles, per_slice, span, n_win);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,12 +15,13 @@ truth (``brute_force_l1``); every scheme is scored against it:
 Parameters come from a parameter source, ``params_fn(cfg, dim)``, by default
 the port's own seeded draw (``core.index.make_params``), so that a caller can
 hand in parameters made elsewhere (the JAX package's, for parity).  The
-distributed and cluster oracles wait for ``launch/dist_index.py`` and
-``cluster/`` (ROADMAP Queue 1 items 6 and 7).
+cluster oracle runs the in-process ``cluster.ClusterRouter``; the
+distributed one waits for ``launch/dist_index.py`` (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
 import dataclasses
+import tempfile
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -42,8 +43,8 @@ __all__ = ["SCHEMES", "QualitySpec", "QualityRun", "tables_needed"]
 SCHEMES = ("mp-rw-lsh", "rw-lsh", "cp-lsh", "mp-cp-lsh", "srs")
 _MULTIPROBE = {"mp-rw-lsh": True, "rw-lsh": False,
                "cp-lsh": False, "mp-cp-lsh": True}
-_NOT_PORTED = ("needs launch/dist_index.py and cluster/, which are not ported "
-               "yet (ROADMAP Queue 1 items 6 and 7)")
+_NOT_PORTED = ("needs launch/dist_index.py, which is not ported yet (ROADMAP "
+               "Queue 1 item 3)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,12 +370,61 @@ class QualityRun:
     def check_cluster(self, cfg: IndexConfig, num_shards: int = 2,
                       num_replicas: int = 2, root_dir: Optional[str] = None,
                       transport: str = "inproc") -> dict:
-        raise NotImplementedError(f"check_cluster {_NOT_PORTED}")
+        """Cluster-path oracle: the sharded, replicated ``ClusterRouter``
+        equals the flat ``query_index`` bit for bit, before and after a
+        replica kill and its recovery by WAL replay (the recovered replica
+        then serves: its peer is killed).
+
+        Bit-identity needs a non-truncating candidate gather (each shard
+        takes its own ``candidate_cap`` a probed bucket), so the cap is
+        raised to the built index's largest bucket
+        (``pipeline.oracle_candidate_cap``).  Only ``transport='inproc'``
+        is ported; the replicas live on this run's device.
+        """
+        from repro_torch.cluster import ClusterConfig, ClusterRouter
+        from repro_torch.serve.engine import ServeConfig
+
+        state = self._build(cfg)
+        cfg = dataclasses.replace(cfg, candidate_cap=pipe.oracle_candidate_cap(
+            cfg, state.sorted_keys, state.occ_from))
+        fd, fi = map(_np, query_index(cfg, state, self.queries))
+        del state
+        queries = self.queries.cpu().numpy()
+        with tempfile.TemporaryDirectory(dir=root_dir) as root:
+            router = ClusterRouter(
+                cfg, ServeConfig(batch_size=32),
+                ClusterConfig(num_shards=num_shards, num_replicas=num_replicas,
+                              hedge_ms=60000.0,  # oracle: never hedge
+                              wal_fsync=False, transport=transport),
+                self.data, root, params_fn=self._params_fn, device=self.device)
+            cd, ci = router.query(queries)
+            matches = bool(np.array_equal(cd, fd) and np.array_equal(ci, fi))
+            # WAL some mutations through, kill a replica, recover it, then
+            # make it serve (peer killed): still equal to flat on the
+            # original points (the inserted probes are deleted again)
+            gids = router.insert(queries[:4])
+            router.kill_replica(0, 0)
+            router.delete(gids)
+            router.recover_replica(0, 0)
+            router.kill_replica(0, min(1, num_replicas - 1))
+            rd, ri = router.query(queries)
+            recovered = bool(np.array_equal(rd, fd) and np.array_equal(ri, fi))
+            summary = router.summary()
+            router.close()
+        return {
+            "cluster_matches_flat": matches,
+            "cluster_recovery_matches_flat": recovered,
+            "cluster_shards": num_shards,
+            "cluster_replicas": num_replicas,
+            "cluster_recoveries": summary["recoveries"],
+            "cluster_oracle_cap": cfg.candidate_cap,
+            "cluster_transport": transport,
+        }
 
     def check_cross_layer(self, cfg: IndexConfig, cluster: bool = False) -> dict:
         """The segmented and compacted oracles for one config (one flat
-        query shared); ``cluster=True`` adds the distributed and cluster
-        oracles, which are not ported yet."""
+        query shared); ``cluster=True`` adds the distributed oracle, which is
+        not ported yet, then the cluster oracle."""
         flat = self.query_flat(cfg)
         out = self.check_segmented(cfg, flat=flat)
         out.update(self.check_compact(cfg, flat=flat))

@@ -12,7 +12,8 @@ is imported; ``library`` binds them once, when it loads the library, and
 ``entry`` hands out the bound function.  Each C entry point takes the
 stream last, launches on it and returns ``cudaGetLastError()``; ``launch``
 appends the device's current stream, raises when the status is not 0 and
-counts the launch in ``LAUNCHES``.
+counts the launch in ``LAUNCHES`` (through ``count``, under the module's lock,
+since the cluster router launches from several threads at once).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "declare",
+__all__ = ["LAUNCHES", "reset_launches", "count", "build_all", "library", "declare",
            "entry", "launch", "CSRC", "BUILD_ROOT"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -48,8 +49,17 @@ _LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count(kernel: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``kernel`` to ``LAUNCHES``, under the module's
+    lock: the cluster router's pool threads count at once, and ``+=`` on a
+    dict entry is a read, an add and a write."""
+    with _LOCK:
+        LAUNCHES[kernel] += n
 
 
 def _nvcc() -> str:
@@ -162,4 +172,4 @@ def launch(kernel: str, fn, device: int, *args) -> None:
             status = fn(*args, stream)
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {status}")
-    LAUNCHES[kernel] += 1
+    count(kernel)

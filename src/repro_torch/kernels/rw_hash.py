@@ -13,7 +13,9 @@ the float32 thermometer product.  On the card one call launches two
 kernels: the table kernel writes the prefix sums of the steps once, as an
 (m, U2+1, Fp) int32 workspace (``rw_prefix_table_plain`` is its plain
 version), and the hash kernel adds them up at ``clamp(points >> 1, 0, U2)``
-in tiles of 512 rows x 32 functions, which is the same sum.
+in tiles of 512 rows x 32 functions, which is the same sum.  Any U2 is
+taken: where a dimension's table slice outgrows shared memory, both kernels
+pass over it in windows (``plan_rw_windows``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from . import _build
 
 __all__ = ["rw_hash_plain", "rw_hash_cuda", "rw_prefix_table_plain", "rw_prefix_table_cuda",
-           "plan_rw_hash", "padded_fns", "max_u2", "resident_blocks"]
+           "plan_rw_hash", "plan_rw_windows", "padded_fns", "max_u2", "resident_blocks"]
 
 PLAIN_CHUNK_BYTES = 1 << 30  # bound on one row chunk's float32 code
 ROW_TILE = 512  # rows a hash block takes
@@ -93,19 +95,32 @@ def plan_rw_hash(n: int, f: int, m: int, resident: int, slices=None) -> int:
     return -(-m // -(-m // slices))
 
 
-# pairs, points, tab, out, n, F, m, U2, slices, stream
+def plan_rw_windows(u2: int, limit: int):
+    """``(span, n_win)``: the passes both kernels make over one dimension's
+    table slice, given the ``limit`` one pass holds (``max_u2()`` on the
+    card); the launch takes both.  span = min(U2, limit): the table kernel
+    scans the U2 steps in chunks of span steps, and the hash kernel copies
+    the U2 + 1 table rows in n_win windows, window w holding rows
+    [w (span + 1), min((w + 1)(span + 1), U2 + 1)).  U2 <= limit gives one
+    chunk and one window."""
+    span = max(1, min(int(u2), int(limit)))
+    return span, -(-(int(u2) + 1) // (span + 1))
+
+
+# pairs, points, tab, out, n, F, m, U2, span, n_win, slices, stream
 _build.declare("rw_hash", {
-    "rw_hash": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "rw_prefix_table": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "rw_hash": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "rw_prefix_table": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "rw_hash_setup": [],
     "rw_hash_resident": [ctypes.c_int]})
-_LIMITS = {}    # device -> the largest U2 the kernels take there
-_RESIDENT = {}  # (device, U2) -> hash blocks resident at once
+_LIMITS = {}    # device -> the largest span one pass takes there
+_RESIDENT = {}  # (device, span) -> hash blocks resident at once
 
 
 def _limit(device: int) -> int:
-    """The U2 limit of CUDA device ``device``; the first call on a device
-    also sets the kernels' shared-memory attribute there."""
+    """The largest span of CUDA device ``device`` (``plan_rw_windows``); the
+    first call on a device also sets the kernels' shared-memory attribute
+    there."""
     got = _LIMITS.get(device)
     if got is None:
         with torch.cuda.device(device):
@@ -117,28 +132,28 @@ def _limit(device: int) -> int:
 
 
 def max_u2() -> int:
-    """The largest U2 the kernels take on the current CUDA device: a hash
-    block holds the (U2+1) x 32 table slice and 512 x 16 offsets in shared
-    memory."""
+    """The largest U2 the kernels take in one pass on the current CUDA
+    device: a hash block holds the (U2+1) x 32 table slice and 512 x 16
+    offsets in shared memory.  A larger U2 takes several windows."""
     return _limit(torch.cuda.current_device())
 
 
 def resident_blocks(device: int, u2: int) -> int:
-    """Hash blocks CUDA device ``device`` keeps resident at once at this U2:
-    SMs x blocks an SM, read from the device once."""
-    got = _RESIDENT.get((device, u2))
+    """Hash blocks CUDA device ``device`` keeps resident at once at this U2
+    (its window's span): SMs x blocks an SM, read from the device once."""
+    span = plan_rw_windows(u2, _limit(device))[0]
+    got = _RESIDENT.get((device, span))
     if got is None:
-        _limit(device)
         with torch.cuda.device(device):
-            got = _build.entry("rw_hash", "rw_hash_resident")(u2)
+            got = _build.entry("rw_hash", "rw_hash_resident")(span)
         if got <= 0:
             raise RuntimeError(f"rw_hash: occupancy query failed with error {-got}")
-        _RESIDENT[(device, u2)] = got
+        _RESIDENT[(device, span)] = got
     return got
 
 
 def _check_cuda(pairs: torch.Tensor, points=None) -> int:
-    """The inputs' CUDA device, U2 checked against its limit."""
+    """The inputs' CUDA device, their types and layout checked."""
     if pairs.dtype != torch.int8 or (points is not None and points.dtype != torch.int32):
         raise TypeError(f"rw_hash: pairs int8 and points int32 expected, got "
                         f"{pairs.dtype} and {None if points is None else points.dtype}")
@@ -147,10 +162,6 @@ def _check_cuda(pairs: torch.Tensor, points=None) -> int:
         raise ValueError("rw_hash: pairs and points must lie on one CUDA device")
     if not (pairs.is_contiguous() and (points is None or points.is_contiguous())):
         raise ValueError("rw_hash: pairs and points must be contiguous")
-    u2 = pairs.shape[2]
-    limit = _limit(device)
-    if u2 > limit:
-        raise ValueError(f"rw_hash kernel takes U2 <= {limit} here, got {u2}")
     return device
 
 
@@ -163,8 +174,9 @@ def rw_prefix_table_cuda(pairs: torch.Tensor) -> torch.Tensor:
     f, m, u2 = pairs.shape
     tab = torch.empty((m, u2 + 1, padded_fns(f)), dtype=torch.int32, device=pairs.device)
     if tab.numel():
+        span = plan_rw_windows(u2, _limit(device))[0]
         _build.launch("rw_prefix_table", _build.entry("rw_hash", "rw_prefix_table"), device,
-                      pairs.data_ptr(), tab.data_ptr(), f, m, u2)
+                      pairs.data_ptr(), tab.data_ptr(), f, m, u2, span)
     return tab
 
 
@@ -172,9 +184,10 @@ def rw_hash_cuda(pairs: torch.Tensor, points: torch.Tensor, slices=None) -> torc
     """Launch the table kernel and the hash kernel on CUDA tensors, in one
     call; raises on what they cannot take.
 
-    pairs must be contiguous int8 and points contiguous int32, on one card,
-    and U2 at most ``max_u2()``.  ``slices`` fixes the split of the
-    dimensions (the tests use it); by default ``plan_rw_hash`` picks it.
+    pairs must be contiguous int8 and points contiguous int32, on one card;
+    any U2 (above ``max_u2()`` in several windows).  ``slices`` fixes the
+    split of the dimensions (the tests use it); by default ``plan_rw_hash``
+    picks it.
     """
     _check_shapes(pairs, points)
     device = _check_cuda(pairs, points)
@@ -182,11 +195,13 @@ def rw_hash_cuda(pairs: torch.Tensor, points: torch.Tensor, slices=None) -> torc
     n = points.shape[0]
     if n == 0 or f == 0 or m == 0 or u2 == 0:
         return torch.zeros((n, f), dtype=torch.int32, device=points.device)
+    span, n_win = plan_rw_windows(u2, _limit(device))
     n_slices = plan_rw_hash(n, f, m, resident_blocks(device, u2) if slices is None else 0,
                             slices)
     tab = torch.empty((m, u2 + 1, padded_fns(f)), dtype=torch.int32, device=points.device)
     out = torch.empty((n, f), dtype=torch.int32, device=points.device)
     _build.launch("rw_hash", _build.entry("rw_hash", "rw_hash"), device, pairs.data_ptr(),
-                  points.data_ptr(), tab.data_ptr(), out.data_ptr(), n, f, m, u2, n_slices)
-    _build.LAUNCHES["rw_prefix_table"] += 1     # the same call launched the table kernel
+                  points.data_ptr(), tab.data_ptr(), out.data_ptr(), n, f, m, u2, span,
+                  n_win, n_slices)
+    _build.count("rw_prefix_table")             # the same call launched the table kernel
     return out

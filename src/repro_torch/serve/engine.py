@@ -274,8 +274,9 @@ class AnnServingEngine:
         return batch
 
     def _run_batch(self, batch: np.ndarray, n_real: int
-                   ) -> Tuple[np.ndarray, np.ndarray]:
-        """Run one padded batch; returns PADDED (B, k) host results."""
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run one padded batch; returns PADDED (B, k) results on the
+        engine's device."""
         self.index.admit_queries(batch[:n_real])
         sig = self._index_signature()
         key = (batch.shape[0], sig)
@@ -314,10 +315,12 @@ class AnnServingEngine:
             # slow path only: stamp the exemplar with a result preview
             entry["preview_d"] = d[:1].cpu().tolist()
         self.flight.record(ms, entry, spans=obs_trace.capture_end())
-        return d.cpu().numpy(), i.cpu().numpy()
+        return d, i
 
-    def run_padded(self, batch: np.ndarray, n_real: int):
-        """Serve one pre-padded batch; returns padded results."""
+    def run_padded(self, batch: np.ndarray, n_real: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Serve one pre-padded batch; returns padded results on the
+        engine's device (the cluster router folds shards there)."""
         if self.serve_cfg.warm_buckets:
             self.warmup()
         return self._run_batch(np.asarray(batch, np.int32), n_real)
@@ -335,8 +338,8 @@ class AnnServingEngine:
         for lo in range(0, q.shape[0], self.serve_cfg.batch_size):
             chunk = q[lo: lo + self.serve_cfg.batch_size]
             d, i = self._run_batch(self._pad(chunk), chunk.shape[0])
-            out_d.append(d[:chunk.shape[0]])
-            out_i.append(i[:chunk.shape[0]])
+            out_d.append(d[:chunk.shape[0]].cpu().numpy())
+            out_i.append(i[:chunk.shape[0]].cpu().numpy())
         return np.concatenate(out_d), np.concatenate(out_i)
 
     def drain(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -349,8 +352,8 @@ class AnnServingEngine:
             take = self._pending[:self.serve_cfg.batch_size]
             self._pending = self._pending[len(take):]
             d, i = self._run_batch(self._pad(np.stack(take)), len(take))
-            out_d.append(d[:len(take)])
-            out_i.append(i[:len(take)])
+            out_d.append(d[:len(take)].cpu().numpy())
+            out_i.append(i[:len(take)].cpu().numpy())
         self._maybe_compact()
         if not out_d:
             return (np.zeros((0, self.cfg.k), np.int32),

@@ -11,6 +11,8 @@ RW_HASH_CASES: name -> (pairs (F, m, U2) int8, points (n, m) int32)
 L1_CASES     : name -> (queries (Q, m), points (N, m)), one dtype
 L1_ROWS_CASES: name -> (queries (Q, m), rows (Q, C, m)), one dtype
 L1_INT_CASES : the integer-only pairwise cases of L1_CASES
+walk_range_case(): the gather hash's out-of-range inputs (coordinates,
+               a dataset, inserts and queries with one point beyond [0, U])
 
 The L1 cases hold integer values, which float32 and bfloat16 sum exactly
 in any order, so every kernel equals its plain version bit for bit.
@@ -201,6 +203,32 @@ MERGE_CASES = _merge_cases()
 
 def _walk_pairs(rng, f, m, u2):
     return (2 * rng.integers(0, 2, (f, m, u2, 2)) - 1).sum(-1).astype(np.int8)
+
+
+WALK_RANGE_U = 30
+# negatives that wrap (-2(U2+1) reads row 0), the first that does not
+# (-2(U2+2)), odd values, U, U + 1 and values that fill with INT32_MIN
+WALK_RANGE_COORDS = (-2 * (WALK_RANGE_U // 2 + 2), -2 * (WALK_RANGE_U // 2 + 1),
+                     -2 * (WALK_RANGE_U // 2 + 1) - 1, -2, -1, 0, 1, 3, 17,
+                     WALK_RANGE_U - 1, WALK_RANGE_U, WALK_RANGE_U + 1,
+                     2 * WALK_RANGE_U, 40)
+
+
+def walk_range_case():
+    """(coords (64, 8), data (256, 8), inserts (40, 8), queries (6, 8)),
+    int32, at U 30: ``coords`` draws from ``WALK_RANGE_COORDS``; the data
+    is even and in [0, U]; insert 3 and query 1 hold coordinates outside
+    it; queries 0 and 2 equal inserts 0 and 3."""
+    rng = np.random.default_rng(21)
+    u = WALK_RANGE_U
+    coords = rng.choice(np.asarray(WALK_RANGE_COORDS), (64, 8)).astype(np.int32)
+    data = (rng.integers(0, u // 2 + 1, (256, 8)) * 2).astype(np.int32)
+    inserts = (rng.integers(0, u // 2 + 1, (40, 8)) * 2).astype(np.int32)
+    inserts[3] = [12, -2, 0, 40, 2 * u, u + 1, -7, 3]
+    queries = (rng.integers(0, u // 2 + 1, (6, 8)) * 2).astype(np.int32)
+    queries[1] = [40, -2, 12, 2 * u, -1, u + 1, 0, 9]
+    queries[0], queries[2] = inserts[0], inserts[3]
+    return coords, data, inserts, queries
 
 
 def _rw_hash_cases():

@@ -198,21 +198,74 @@ def test_rw_hash_kernel_at_each_split(card, name, slices):
 
 @pytest.mark.cuda
 def test_rw_hash_kernel_at_the_u2_limit(card):
-    """U2 up to the device's limit equals plain (a table over 48 KB of
-    shared memory, scan segments of many steps); one step more raises."""
+    """U2 up to the device's one-window limit equals plain (a table over
+    48 KB of shared memory, scan segments of many steps), and so does one
+    step more, which takes a second window."""
     rng = np.random.default_rng(5)
     limit = trw.max_u2()
     assert limit >= 1000
-    for u2 in (1000, limit):
+    for u2 in (1000, limit, limit + 1):
         pairs = torch.from_numpy(
             (2 * rng.integers(0, 2, (33, 3, u2, 2)) - 1).sum(-1).astype(np.int8)).to(card)
         pts = torch.from_numpy(
             rng.integers(-9, 2 * u2 + 9, (50, 3)).astype(np.int32)).to(card)
         _eq(trw.rw_hash_plain(pairs, pts).cpu(), trw.rw_hash_cuda(pairs, pts).cpu(),
             f"U2={u2}")
-    over = torch.zeros((1, 1, limit + 1), dtype=torch.int8, device=card)
-    with pytest.raises(ValueError):
-        trw.rw_hash_cuda(over, torch.zeros((1, 1), dtype=torch.int32, device=card))
+    assert trw.plan_rw_windows(limit, limit) == (limit, 1)
+    assert trw.plan_rw_windows(limit + 1, limit) == (limit, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [None, 1, 5])
+@pytest.mark.parametrize("beyond", [1, 8192])
+def test_rw_hash_kernels_beyond_one_window(card, beyond, slices):
+    """U2 of the limit + 1 and 8,192 (several windows): the table kernel and
+    the hash kernel equal plain bit for bit, on in-range, odd, negative,
+    above-universe and int32-extreme coordinates, at rows over two row
+    tiles and dimensions over two 16-dimension chunks."""
+    u2 = trw.max_u2() + 1 if beyond == 1 else beyond
+    rng = np.random.default_rng(u2)
+    pairs = torch.from_numpy(
+        (2 * rng.integers(0, 2, (37, 18, u2, 2)) - 1).sum(-1).astype(np.int8)).to(card)
+    pts = rng.integers(-40, 2 * u2 + 40, (600, 18)).astype(np.int32)
+    pts[:50] = (rng.integers(0, u2 + 1, (50, 18)) * 2)
+    pts[50] = np.iinfo(np.int32).min
+    pts[51] = np.iinfo(np.int32).max
+    pts = torch.from_numpy(pts).to(card)
+    _eq(trw.rw_prefix_table_plain(pairs, trw.padded_fns(37)).cpu(),
+        trw.rw_prefix_table_cuda(pairs).cpu(), "table")
+    _eq(trw.rw_hash_plain(pairs, pts).cpu(), trw.rw_hash_cuda(pairs, pts, slices=slices).cpu(),
+        "hash")
+
+
+@pytest.mark.cuda
+def test_walk_range_on_the_card(card):
+    """The gather hash and a served batch with an out-of-range query and an
+    out-of-range insert, on the card: no device assert, and the CPU's bits
+    (which equal the JAX package's, tests/test_torch_walks_range.py)."""
+    from repro_torch.core import walks as tw
+    from repro_torch.core.index import make_params
+    from repro_torch.core.segments import SegmentedIndex
+    from test_torch_cases import WALK_RANGE_U, walk_range_case
+    coords, data, inserts, queries = walk_range_case()
+    cfg = IndexConfig(num_tables=3, num_hashes=6, width=8, num_probes=12, candidate_cap=16,
+                      universe=WALK_RANGE_U, k=5, rerank_chunk=64)
+    params = make_params(cfg, data.shape[1], seed=4)
+    _eq(tw.eval_prefix(params.walks, _t(coords)),
+        tw.eval_prefix(params.walks.to(card), _t(coords).to(card)).cpu())
+    out = []
+    for dev in ("cpu", card):
+        idx = SegmentedIndex.from_dataset(cfg, data, delta_cap=64, params=params, device=dev)
+        idx.insert(inserts)
+        idx.delete([5, 257])
+        got = [idx.query_compact(_t(queries).to(dev))[:2]]
+        idx.compact()
+        got.append(idx.query_compact(_t(queries).to(dev))[:2])
+        torch.cuda.synchronize()
+        out.append([(d.cpu(), i.cpu()) for d, i in got])
+    for (cd, ci), (gd, gi) in zip(*out):
+        _eq(cd, gd)
+        _eq(ci, gi)
 
 
 def _typed(arr, dtype, card):
@@ -309,3 +362,55 @@ def test_staged_probe_and_concat_fold_on_the_card(card):
                       (frag.query_compact(q, 64, False)[:2], frag.query_compact(q, 64)[:2])):
         _eq(got[0].cpu(), want[0].cpu())
         _eq(got[1].cpu(), want[1].cpu())
+
+
+@pytest.mark.cuda
+def test_cluster_router_on_the_card(card, tmp_path):
+    """The in-process router with its replicas on the card, the kernels
+    launched from its pool's threads, equals the same router on the CPU bit
+    for bit: fresh, after mutations, and after a kill and recovery."""
+    from repro_torch.cluster import ClusterConfig, ClusterRouter
+    from repro_torch.data import ann_synthetic as ds
+    from repro_torch.kernels import _build
+    spec = ds.DatasetSpec("cluster-card", n=900, dim=16, universe=64, num_clusters=8)
+    data = ds.make_dataset(spec)
+    queries = ds.make_queries(spec, data, 24)
+    cfg = IndexConfig(num_tables=4, num_hashes=8, width=24, num_probes=20,
+                      candidate_cap=256, universe=64, k=8, rerank_chunk=128)
+    serve = ServeConfig(batch_size=16, delta_cap=128)
+    routers = [ClusterRouter(cfg, serve, ClusterConfig(wal_fsync=False, cache_capacity=0),
+                             data, str(tmp_path / dev), device=dev) for dev in ("cpu", "cuda")]
+    _build.reset_launches()
+
+    def same():
+        (hd, hi), (cd, ci) = (r.query(queries) for r in routers)
+        _eq(hd, cd)
+        _eq(hi, ci)
+
+    same()
+    for r in routers:
+        g = r.insert((queries[:6] + 2).astype(np.int32))
+        r.delete([0, 3, int(g[1])])
+    same()
+    for r in routers:
+        r.kill_replica(0, 0)
+        r.delete([int(g[2])])
+        r.recover_replica(0, 0)
+        r.kill_replica(0, 1)
+    same()
+    assert _build.LAUNCHES["topk_merge"] > 0 and _build.LAUNCHES["fused_rerank"] > 0
+    for r in routers:
+        r.close()
+
+
+@pytest.mark.cuda
+def test_checkpoint_restore_defaults_to_the_card(card, tmp_path):
+    """``CheckpointManager.restore`` with no ``device`` puts every leaf on
+    the card, as the JAX package's restore puts it on the accelerator."""
+    from repro_torch.ckpt import CheckpointManager
+    tree = {"w": torch.arange(6, dtype=torch.float32), "m": {"n": torch.tensor(3)}}
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(1, tree)
+    step, back = mgr.restore_latest(tree)
+    assert step == 1 and back["w"].device.type == "cuda" and back["m"]["n"].is_cuda
+    assert torch.equal(back["w"].cpu(), tree["w"])

@@ -159,3 +159,46 @@ def test_topk_merge_float_dists():
     got = ttm.topk_merge_plain(*(_t(x) for x in (da, ia, db, ib)))
     _eq(pallas[0], got[0])
     _eq(pallas[1], got[1])
+
+
+def test_launch_counts_from_many_threads():
+    """``_build.count`` loses no launch when threads count at once, as the
+    cluster router's pool threads do; ``reset_launches`` zeroes every count."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    threads, per = 8, 20_000
+    start = threading.Barrier(threads)
+
+    def work():
+        start.wait()
+        for _ in range(per):
+            _build.count("topk_merge")
+            _build.count("fused_rerank", 2)
+
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)                     # switch threads as often as it can
+    try:
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(old)
+    assert _build.LAUNCHES["topk_merge"] == threads * per
+    assert _build.LAUNCHES["fused_rerank"] == 2 * threads * per
+    # the count is taken under the build lock (in CPython the GIL alone
+    # happens to keep ``+=`` whole; the lock does not rest on that)
+    with _build._LOCK:
+        late = threading.Thread(target=_build.count, args=("topk_merge",))
+        late.start()
+        late.join(0.2)
+        assert late.is_alive() and _build.LAUNCHES["topk_merge"] == threads * per
+    late.join(timeout=60)
+    assert not late.is_alive() and _build.LAUNCHES["topk_merge"] == threads * per + 1
+    _build.reset_launches()
+    assert not any(_build.LAUNCHES.values())

@@ -215,3 +215,60 @@ def test_plan_rw_hash(n, f, m, resident, slices, want):
     width = -(-m // got)
     dims = [range(s * width, min(m, (s + 1) * width)) for s in range(got)]
     assert all(len(d) for d in dims) and sum(len(d) for d in dims) == m
+
+
+H100_SPAN = 1559   # what rw_hash_setup returns on an H100 (227 KB of shared memory a block)
+
+
+def _windows(u2, span, n_win):
+    """The hash kernel's windows: window w holds the table rows
+    [w (span + 1), min((w + 1)(span + 1), U2 + 1))."""
+    return [(w * (span + 1), min((w + 1) * (span + 1), u2 + 1)) for w in range(n_win)]
+
+
+@pytest.mark.parametrize("limit", [H100_SPAN, 7])
+@pytest.mark.parametrize("u2", [1, H100_SPAN - 1, H100_SPAN, H100_SPAN + 1, 4096, 20_000])
+def test_plan_rw_windows(u2, limit):
+    """The planned windows, as the hash kernel lays them out from (span,
+    n_win), cover the table rows [0, U2] in order, disjoint, none empty,
+    each at most span + 1 rows; U2 up to the limit takes one window; the
+    table kernel's chunks of span steps cover [0, U2)."""
+    span, n_win = trw.plan_rw_windows(u2, limit)
+    assert span == min(u2, limit)
+    wins = _windows(u2, span, n_win)
+    assert wins[0][0] == 0 and wins[-1][1] == u2 + 1
+    assert all(a[1] == b[0] for a, b in zip(wins, wins[1:]))
+    assert all(0 < u1 - u0 <= span + 1 for u0, u1 in wins)
+    assert (len(wins) == 1) == (u2 <= limit)
+    chunks = [(v0, min(v0 + span, u2)) for v0 in range(0, u2, span)]
+    assert chunks[0][0] == 0 and chunks[-1][1] == u2
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+
+
+@pytest.mark.parametrize("limit", [1, 3, 31])
+@pytest.mark.parametrize("name", ["out_of_range", "int32_extremes", "m17"])
+def test_windowed_passes_sum_to_the_hash(name, limit):
+    """The kernels' windowed arithmetic on the CPU: the table scanned in
+    chunks of span steps with a running sum carried over, and each
+    dimension's rows added window by window where the offset falls in the
+    window, equal ``rw_hash_plain`` on every int32 coordinate."""
+    pairs, pts = (torch.from_numpy(x) for x in RW_HASH_CASES[name])
+    f, m, u2 = pairs.shape
+    span, n_win = trw.plan_rw_windows(u2, limit)
+    wins = _windows(u2, span, n_win)
+    tab = torch.zeros((m, u2 + 1, f), dtype=torch.int32)
+    base = torch.zeros((m, f), dtype=torch.int32)
+    for v0 in range(0, u2, span):
+        chunk = pairs[:, :, v0:v0 + span].permute(1, 2, 0).to(torch.int32)
+        tab[:, v0 + 1:v0 + 1 + chunk.shape[1]] = base[:, None] + torch.cumsum(
+            chunk, dim=1, dtype=torch.int32)
+        base += chunk.sum(dim=1, dtype=torch.int32)
+    off = (pts >> 1).clamp(0, u2).long()
+    acc = torch.zeros((pts.shape[0], f), dtype=torch.int32)
+    for i in range(m):
+        for u0, u1 in wins:
+            inside = (off[:, i] >= u0) & (off[:, i] < u1)
+            rows = tab[i, u0:u1][(off[:, i] - u0).clamp(0, u1 - u0 - 1)]
+            acc += torch.where(inside[:, None], rows, 0)
+    _eq(rw_hash_plain(pairs, pts), acc)
+    _eq(trw.rw_prefix_table_plain(pairs, f), tab)
