@@ -81,11 +81,24 @@ read just after, and must launch the kernels named in ``PATHS``):
                  WAL and peer, and kill its peer; drain again.  Every drain
                  through ``check_results``; the recovered replica answers a
                  batch as its peer did before the peer died, bit for bit;
+  cluster_process the same cluster over worker processes
+                 (``transport='process'``): one worker a replica, each with
+                 its own CUDA context on the one card, WAL fsync on, the same
+                 traffic, then a real SIGKILL of worker (0, 0) and a drain
+                 that fails over with no dropped query, the inserted gids
+                 deleted while it is down, its respawn and recovery, the kill
+                 of its peer and a last drain; the same checks, and each
+                 worker's engine on the card (its telemetry).  The path's
+                 launches are the workers' (each reads its own counts, taken
+                 just before it is killed or closed) plus this process's
+                 (the router's fold);
   cluster_oracle ``QualityRun.check_cluster`` (flat == cluster before and after
                  a kill and recovery, at the oracle's non-truncating cap) at
                  128 dims over the first 250,000 points (halved until the
                  flat query's slab at the raised cap fits 4 GiB; the
-                 ground truth and the sizing run before the counted path);
+                 ground truth and the sizing run before the counted path),
+                 in-process, then over worker processes on the card with
+                 ``transport='process'`` and ``'tcp'`` (each its own path);
   batch          the kernels against their plain versions at the main path's
                  shapes, and their times beside the least time the card
                  could take (bytes over 3.35 TB/s, or operations over 67 T/s,
@@ -105,8 +118,11 @@ read just after, and must launch the kernels named in ``PATHS``):
                  x updates / (SMs x 128 lanes x the SM clock's maximum, which
                  nvidia-smi reports as ``clocks.max.sm``)).  Every row also
                  gives ``quality_launches``, ``tuned_launches``,
-                 ``cluster_launches`` and ``cluster_oracle_launches``, its
-                 launches on those paths.  The probe's library call is the
+                 ``cluster_launches``, ``cluster_process_launches``,
+                 ``cluster_oracle_launches``,
+                 ``cluster_oracle_process_launches`` and
+                 ``cluster_oracle_tcp_launches``, its launches on those
+                 paths.  The probe's library call is the
                  staged probe at the same cap (``stage_bucket_lookup``'s two
                  ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
                  whose valid candidates must equal the gather's.
@@ -158,7 +174,11 @@ PATHS = {"ground_truth": ("l1_distance",),
                      "l1_distance_rows"),
          "tuned": (*PROBE, "fused_rerank", "topk_merge", "l1_distance"),
          "cluster": (*PROBE, "fused_rerank", "topk_merge"),
-         "cluster_oracle": (*PROBE, "fused_rerank", "topk_merge")}
+         "cluster_oracle": (*PROBE, "fused_rerank", "topk_merge"),
+         # over worker processes: the workers' launches plus the parent's
+         "cluster_process": (*PROBE, "fused_rerank", "topk_merge"),
+         "cluster_oracle_process": (*PROBE, "fused_rerank", "topk_merge"),
+         "cluster_oracle_tcp": (*PROBE, "fused_rerank", "topk_merge")}
 TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
 # the JAX package's full QualitySpec (benchmarks/quality_bench.py:42-47)
@@ -768,6 +788,196 @@ def cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, check_d
     return out, launches
 
 
+@contextlib.contextmanager
+def worker_launches():
+    """Sum the kernel launches of every worker process that a
+    ``RemoteReplica`` kills or closes meanwhile, read from its telemetry
+    just before (a worker counts its own launches; they die with it)."""
+    from repro_torch.cluster import ReplicaKilled, remote
+    got = {k: 0 for k in PATHS["cluster"]}
+    kill, close = remote.RemoteReplica.kill, remote.RemoteReplica.close
+
+    def take(rep):
+        try:
+            for k, n in rep.telemetry()["launches"].items():
+                got[k] = got.get(k, 0) + n
+        except ReplicaKilled:
+            pass                # already dead: its counts were taken then
+
+    def killed(rep):
+        take(rep)
+        kill(rep)
+
+    def closed(rep):
+        take(rep)
+        close(rep)
+
+    remote.RemoteReplica.kill, remote.RemoteReplica.close = killed, closed
+    try:
+        yield got, take
+    finally:
+        remote.RemoteReplica.kill, remote.RemoteReplica.close = kill, close
+
+
+def worker_log_tails(router) -> str:
+    return "\n".join(f"--- worker s{rep.shard_id}r{rep.replica_id} log ---\n"
+                     f"{rep.handle.tail_log()}"
+                     for group in router.replicas for rep in group)
+
+
+def cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
+                          check_drain):
+    """The cluster over worker processes on the card (the
+    ``cluster_process`` path): one worker a replica, each with its own
+    CUDA context, the traffic of the ``cluster`` phase, then a real SIGKILL
+    of worker (0, 0), failover, deletes while it is down, its respawn and
+    recovery, and the kill of its peer.  The path's launches are the
+    parent's (the fold's ``topk_merge``) plus every worker's."""
+    from repro_torch.cluster import ClusterConfig, ClusterRouter, ReplicaKilled
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_process_") as root, \
+            worker_launches() as (w_launches, take):
+        def traffic():
+            t0 = time.perf_counter()
+            router = ClusterRouter(cfg, serve_cfg,
+                                   ClusterConfig(num_shards=CLUSTER_SHARDS,
+                                                 num_replicas=CLUSTER_REPLICAS,
+                                                 transport="process", cache_capacity=0),
+                                   data, root, device="cuda")
+            try:
+                out = drive(router, time.perf_counter() - t0)
+                return router.summary(), *out
+            except BaseException:
+                log(worker_log_tails(router))
+                raise
+            finally:
+                router.close()          # takes the live workers' counts
+
+        def engine_batches(router):
+            """{worker: (batches recorded, their times)} of every reachable
+            worker, from its telemetry."""
+            out = {}
+            for group in router.replicas:
+                for rep in group:
+                    try:
+                        t = rep.telemetry()
+                    except ReplicaKilled:
+                        continue
+                    out[f"{rep.shard_id}.{rep.replica_id}"] = (
+                        t["flight"]["recorded"], t["engine_batch_ms"], t["device"])
+            return out
+
+        def drive(router, startup_s):
+            boots = {f"{rep.shard_id}.{rep.replica_id}": rep.boot_s
+                     for group in router.replicas for rep in group}
+            devices = {k: v[2] for k, v in engine_batches(router).items()}
+            check(set(devices.values()) == {"cuda"}, f"cluster_process: every worker "
+                  f"runs its engine on the card ({devices})")
+            timing = {"startup_s": startup_s, "boot_s": boots}
+            gids = router.insert(inserted)
+            check(list(gids[:2]) == [N_POINTS, N_POINTS + 1],
+                  "cluster_process: insert assigns fresh gids")
+            check(router.delete(deleted) == len(deleted),
+                  "cluster_process: delete tombstones every gid")
+            drains = {}
+
+            def drain(name, stage):
+                before = engine_batches(router)
+                rec0 = router.flight.recorded
+                fail0 = router.stats["dispatch_failures"]
+                router.submit(queries)
+                d, i = router.drain()
+                if router.stats["dispatch_failures"] != fail0:
+                    log(worker_log_tails(router))
+                check(router.stats["dispatch_failures"] == fail0,
+                      f"{name}: every batch served (no dropped query)")
+                n = router.flight.recorded - rec0
+                check(0 < n <= router.flight.capacity, f"{name}: {n} dispatches recorded")
+                engine_ms = {}
+                for w, (rec, ms, _) in engine_batches(router).items():
+                    m = rec - before.get(w, (rec, None))[0]
+                    if 0 < m <= len(ms):
+                        engine_ms[w] = float(np.percentile(ms[-m:], 50))
+                drains[name] = (d, i, [ms for _, ms, _ in router.flight.entries()[-n:]],
+                                engine_ms, stage)
+
+            drain("cluster_process_delta", "cluster_delta")
+            t0 = time.perf_counter()
+            router.compact()
+            timing["compact_s"] = time.perf_counter() - t0
+            drain("cluster_process_compacted", "cluster_compacted")
+            # a real, unannounced process death: the drain fails over
+            victim = router.replicas[0][0]
+            take(victim)
+            victim.handle.sigkill()
+            router._rr[0] = 0                  # the dead worker is preferred next
+            failovers0 = router.stats["failovers"]
+            drain("cluster_process_failover", "cluster_compacted")
+            check(router.stats["failovers"] > failovers0,
+                  "cluster_process: the SIGKILL'd worker's batches failed over")
+            check(router.delete(np.asarray(gids)) == len(gids),
+                  "cluster_process: the inserted gids deleted")
+            check(not victim.alive, "cluster_process: the dead worker marked down")
+            t0 = time.perf_counter()
+            info = router.recover_replica(0, 0)
+            timing["recovery_s"] = time.perf_counter() - t0
+            timing["recovered_boot_s"] = victim.boot_s
+            # the recovered worker answers as its peer did, bit for bit
+            # (replica queries outside the router; their launches taken back)
+            batch = queries[:serve_cfg.batch_size]
+            pair = router.replicas[0]
+            before = [rep.telemetry()["launches"] for rep in pair]
+            pd, pi = pair[1].query(batch, batch.shape[0])
+            after1 = pair[1].telemetry()["launches"]
+            router.kill_replica(0, 1)          # takes (0, 1)'s counts
+            rd, ri = pair[0].query(batch, batch.shape[0])
+            after0 = pair[0].telemetry()["launches"]
+            for k in w_launches:
+                w_launches[k] -= (after1[k] - before[1][k]) + (after0[k] - before[0][k])
+            check(np.array_equal(pd, rd) and np.array_equal(pi, ri),
+                  "cluster_process: the recovered worker answers as its peer did, "
+                  "bit for bit")
+            drain("cluster_process_recovered", "cluster_recovered")
+            router._quiesce()
+            timing["snapshot_s"] = []
+            for group in router.replicas:
+                for rep in group:
+                    if rep.alive:
+                        t0 = time.perf_counter()
+                        rep.snapshot()
+                        timing["snapshot_s"].append(time.perf_counter() - t0)
+            return drains, timing, info
+
+        (summary, drains, timing, info), launches = run_path(
+            "cluster_process", ops, traffic, more=w_launches)
+        parent = {k: launches[k] - w_launches.get(k, 0) for k in launches}
+    for k in (*PROBE, "fused_rerank", "topk_merge"):
+        check(w_launches.get(k, 0) > 0, f"cluster_process: the workers launched {k}")
+    check(parent["topk_merge"] > 0, "cluster_process: the router's fold launched topk_merge")
+    check(summary["recoveries"] >= 1, "cluster_process: the router recovered a worker")
+    check(info["replayed"] + info["caught_up"] >= 1,
+          "cluster_process: the recovery replayed or caught up a record")
+    out = {"transport": "process", "shards": CLUSTER_SHARDS, "replicas": CLUSTER_REPLICAS,
+           "rows_per_shard": N_POINTS // CLUSTER_SHARDS, "recovery": info, **timing,
+           "router": {k: summary[k] for k in (
+               "queries", "batches", "served", "hedged_batches", "hedge_wins",
+               "failovers", "cache_hits", "cache_misses", "recoveries",
+               "replicas_marked_dead", "dispatch_failures")},
+           "wire": summary["wire"], "launches": launches,
+           "launches_parent": parent, "launches_workers": dict(w_launches), "drains": {}}
+    for name, (d, i, lat, engine_ms, stage) in drains.items():
+        r, hits = check_drain(name, d, i, stage)
+        lat = np.asarray(lat)
+        out["drains"][name] = {"batches": int(lat.size), "p50_ms": float(np.percentile(lat, 50)),
+                               "p99_ms": float(np.percentile(lat, 99)),
+                               "first_ms": float(lat[0]), "engine_p50_ms": engine_ms,
+                               "queries_per_s": queries.shape[0] / (lat.sum() / 1e3),
+                               "recall": r, "self_hits": hits}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def cluster_oracle_phase(ops, spec, data):
     """``QualityRun.check_cluster`` on the card (the ``cluster_oracle``
     path) at 128 dims over the first ``ORACLE_ROWS`` points, halved until
@@ -795,13 +1005,32 @@ def cluster_oracle_phase(ops, spec, data):
         if slab <= ORACLE_SLAB_BYTES:
             break
         n //= 2
+    t1 = time.perf_counter()
     got, launches = run_path("cluster_oracle", ops, lambda: run.check_cluster(cfg))
     check(got["cluster_matches_flat"], "cluster_oracle: cluster == flat, bit for bit")
     check(got["cluster_recovery_matches_flat"],
           "cluster_oracle: after kill and recovery, cluster == flat, bit for bit")
-    return {"rows": n, "cut": f"n {n} of {N_POINTS} (the flat oracle's slab at the raised "
-            f"cap), dims {spec.dim} kept", "config": dataclasses.asdict(cfg), **got,
-            "seconds": time.perf_counter() - t0}, launches
+    out = {"rows": n, "cut": f"n {n} of {N_POINTS} (the flat oracle's slab at the raised "
+           f"cap), dims {spec.dim} kept", "config": dataclasses.asdict(cfg), **got,
+           "inproc_seconds": time.perf_counter() - t1}
+    all_launches = {"cluster_oracle": launches}
+    # the same oracle over worker processes on the card, each transport
+    for transport in ("process", "tcp"):
+        name = f"cluster_oracle_{transport}"
+        t1 = time.perf_counter()
+        with worker_launches() as (w_launches, _):
+            got, all_launches[name] = run_path(
+                name, ops, lambda: run.check_cluster(cfg, transport=transport),
+                more=w_launches)
+        check(got["cluster_matches_flat"] and got["cluster_recovery_matches_flat"],
+              f"{name}: cluster == flat, bit for bit, before and after a SIGKILL and "
+              "recovery")
+        for k in (*PROBE, "fused_rerank"):
+            check(w_launches.get(k, 0) > 0, f"{name}: the workers launched {k}")
+        out[transport] = {**got, "seconds": time.perf_counter() - t1,
+                          "launches_workers": dict(w_launches)}
+    out["seconds"] = time.perf_counter() - t0
+    return out, all_launches
 
 
 def nvidia_smi_line(fields: str = "name,power.limit") -> str:
@@ -824,15 +1053,22 @@ def uncounted(ops, router, fn):
     return out
 
 
-def run_path(name: str, ops, fn):
+def run_path(name: str, ops, fn, more=None):
     """Drive one path with the launch counters zeroed just before it; return
     fn's result and the counts read just after, having checked that the
-    path launched each kernel ``PATHS`` names for it."""
+    path launched each kernel ``PATHS`` names for it.  ``more`` holds the
+    launches the path made in worker processes (``worker_launches``),
+    added to this process's."""
     torch.cuda.synchronize()
     ops.reset_launches()
     out = fn()
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    if more is not None:
+        log(f"{name} path launches in this process: {json.dumps(launches)}, "
+            f"in its workers: {json.dumps(more)}")
+        for k, n in more.items():
+            launches[k] += n
     log(f"{name} path launches: {json.dumps(launches)}")
     for kernel in PATHS[name]:
         check(launches[kernel] > 0, f"kernel {kernel} launched on the {name} path")
@@ -1288,11 +1524,36 @@ def main() -> int:
         f"({json.dumps(cluster['recovery'])}), snapshots (s) "
         f"{json.dumps([round(x, 3) for x in cluster['snapshot_s']])}, router "
         f"{json.dumps(cluster['router'])}")
+    # -- cluster_process: the same traffic over one worker process a replica --
+    process, p_launches = cluster_process_phase(ops, cfg, serve_cfg, data, queries,
+                                                inserted, deleted, check_drain)
+    for name, row in process["drains"].items():
+        log(f"phase {name}: batches {row['batches']}, p50 {row['p50_ms']:.3f} ms, "
+            f"p99 {row['p99_ms']:.3f} ms, first {row['first_ms']:.3f} ms, worker engines' "
+            f"p50 {json.dumps(row['engine_p50_ms'])}, {row['queries_per_s']:.1f} queries/s, "
+            f"recall@10 {row['recall']:.4f}, self-hits {row['self_hits']}/{inserted_rows.size}")
+    log(f"phase cluster_process: {process['seconds']:.1f} s; start-up "
+        f"{process['startup_s']:.2f} s (worker boots, s: {json.dumps(process['boot_s'])}), "
+        f"compact {process['compact_s']:.2f} s, recovery {process['recovery_s']:.2f} s "
+        f"(respawned boot {process['recovered_boot_s']:.2f} s, "
+        f"{json.dumps(process['recovery'])}), snapshots (s) "
+        f"{json.dumps([round(x, 3) for x in process['snapshot_s']])}, router "
+        f"{json.dumps(process['router'])}, wire {json.dumps(process['wire'])}")
+    for a, b in (("cluster_compacted", "cluster_process_compacted"),
+                 ("cluster_recovered", "cluster_process_recovered")):
+        log(f"dispatch p50/p99 (ms) in this run: inproc {a} "
+            f"{cluster['drains'][a]['p50_ms']:.3f}/{cluster['drains'][a]['p99_ms']:.3f}, "
+            f"process {b} {process['drains'][b]['p50_ms']:.3f}/"
+            f"{process['drains'][b]['p99_ms']:.3f}")
     oracle, o_launches = cluster_oracle_phase(ops, spec, data)
     log(f"phase cluster_oracle: {oracle['seconds']:.1f} s, {oracle['cut']}, matches "
         f"{oracle['cluster_matches_flat']}, after recovery "
-        f"{oracle['cluster_recovery_matches_flat']}, oracle cap {oracle['cluster_oracle_cap']}")
-    log(json.dumps({"cluster": {**cluster, "oracle": oracle, "walk_range": walk_range}}))
+        f"{oracle['cluster_recovery_matches_flat']}, oracle cap {oracle['cluster_oracle_cap']}; "
+        + ", ".join(f"{t}: matches {oracle[t]['cluster_matches_flat']}, after recovery "
+                    f"{oracle[t]['cluster_recovery_matches_flat']} in "
+                    f"{oracle[t]['seconds']:.1f} s" for t in ("process", "tcp")))
+    log(json.dumps({"cluster": {**cluster, "process": process, "oracle": oracle,
+                                "walk_range": walk_range}}))
 
     # -- one served batch: kernels against plain, and their times -------------
     idx = engine.index
@@ -1612,7 +1873,8 @@ def main() -> int:
         "launches": check_launches["l1_distance_rows"], "equal_to_plain": True,
         **l1r[torch.int32], "shape": list(rd.shape), "int16": l1r[torch.int16]})
     for path, counts in (("quality", q_launches), ("tuned", t_launches),
-                         ("cluster", c_launches), ("cluster_oracle", o_launches)):
+                         ("cluster", c_launches), ("cluster_process", p_launches),
+                         *o_launches.items()):
         for row in rows:
             row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
                                        if row["name"] == "fused_probe" else counts[row["name"]])

@@ -16,9 +16,11 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             ``ops`` dispatches by the tensors' device
   serve/    the batched serving engine (with a recall target, tuned at
             start-up)
-  cluster/  the in-process cluster: S shards x R replicas behind a router,
-            each replica an engine with a write-ahead log and snapshots,
-            hedged re-issue, kill and recovery
+  cluster/  the cluster: S shards x R replicas behind a router, each
+            replica an engine with a write-ahead log and snapshots, hedged
+            re-issue, kill and recovery; in this process or one worker
+            process a replica over the JAX package's RPC wire protocol
+            (unix sockets with shared-memory slabs, or tcp)
   ckpt/     the checkpoint manager (the JAX package's on-disk layout)
   eval/     the quality protocol (``QualityRun``: recall sweeps over every
             scheme, tables needed, cross-layer oracles) and the recall
@@ -28,7 +30,8 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
   analysis/ the ``REPRO_SANITIZE`` race sanitizer
   data/     seeded synthetic datasets and the even-integer normalizer
             (numpy, same bits as ``repro``)
-  launch/   ``python -m repro_torch.launch.serve``
+  launch/   ``python -m repro_torch.launch.serve`` and
+            ``python -m repro_torch.launch.cluster_serve``
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); with no card they raise.

@@ -1,5 +1,5 @@
 """Sharded, replicated, admission-controlled cluster router, torch
-counterpart of ``repro.cluster.router`` (DESIGN.md §7), in-process.
+counterpart of ``repro.cluster.router`` (DESIGN.md §7, §10).
 
 ``ClusterRouter`` turns S*R single-shard :class:`ShardReplica` engines into
 one logical index with the flat ``query_index`` contract:
@@ -12,9 +12,9 @@ one logical index with the flat ``query_index`` contract:
     index over the same rows;
   * **query fan-out** — a batch is padded once to the engines' shared shape
     bucket, sent to every shard (one replica each) from a thread pool, and
-    the per-shard top-k lists are folded on the replicas' device with the
-    ``topk_merge`` kernel (``pipeline.stage_merge_pair``), then copied to
-    the host once.  With a non-truncating ``candidate_cap`` the result
+    the per-shard top-k lists are folded on the router's ``device`` with
+    the ``topk_merge`` kernel (``pipeline.stage_merge_pair``), then copied
+    to the host once.  With a non-truncating ``candidate_cap`` the result
     equals the flat single-engine path bit for bit;
   * **replication + hedging** — R replicas per shard.  The preferred
     replica rotates per batch; a failure fails over to a peer, a miss of
@@ -29,11 +29,23 @@ one logical index with the flat ``query_index`` contract:
   * **result cache** — per-query LRU stamped with the per-shard WAL seqs,
     so any acknowledged mutation invalidates it.
 
-Only ``transport='inproc'`` is ported: every replica is a ``ShardReplica``
-in this process, on ``device`` (None = the card), and kernels launch from
-the pool's threads.  Hash parameters come from ``params_fn(cfg, dim)`` or
-else from ``seed``, as ``AnnServingEngine`` takes them, the same for every
-replica.
+Transports (``ClusterConfig.transport``):
+
+  * ``'inproc'`` — every replica is a ``ShardReplica`` in this process, on
+    ``device`` (None = the card), and kernels launch from the pool's
+    threads, which share one interpreter lock;
+  * ``'process'`` — one worker subprocess a replica
+    (``repro_torch.cluster.worker``, a ``RemoteReplica`` here), each with
+    its own interpreter and CUDA context on ``device``, over AF_UNIX
+    sockets; a fan-out batch of at least ``shm_threshold_bytes`` is
+    padded once into a shared-memory slab slot that every shard reads;
+  * ``'tcp'`` — the same workers on loopback ``host:port`` endpoints, or
+    attached at ``worker_hosts``; no slabs.
+
+A remote replica answers with host arrays; the router moves each shard's
+answer to ``device`` once and folds there.  Hash parameters come from
+``params_fn(cfg, dim)`` or else from ``seed``, as ``AnnServingEngine`` takes
+them, the same for every replica (for workers, drawn once here and shipped).
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.index import IndexConfig, ParamsFn
 from repro_torch.obs import FlightRecorder, MetricsRegistry
@@ -77,8 +90,21 @@ class ClusterConfig:
     keep_snapshots: int = 2
     wal_fsync: bool = True         # tests may relax for speed
     transport: str = "inproc"      # 'inproc' = ShardReplica objects in this
-                                   # process; 'process' and 'tcp' (worker
-                                   # subprocesses) are not ported yet
+                                   # process; 'process' = one worker
+                                   # subprocess per replica over AF_UNIX +
+                                   # the shm fast path (DESIGN.md §10, §13);
+                                   # 'tcp' = workers on host:port endpoints
+    shm_threshold_bytes: Optional[int] = 16384   # arrays at least this big
+                                   # ride shared-memory slabs instead of the
+                                   # socket ('process' transport only; None
+                                   # disables the fast path entirely)
+    shm_slots: int = 8             # ring geometry, both directions: slots
+    shm_slot_bytes: int = 1 << 20  # per ring x payload bytes per slot
+    worker_hosts: Optional[Tuple[str, ...]] = None   # 'tcp:host:port' specs,
+                                   # shard-major (s*R + r): attach to these
+                                   # external workers instead of spawning
+    rpc_timeout_s: float = 120.0   # per-RPC deadline against a worker (init
+                                   # is exempt: it covers engine warm-up)
     pipeline_depth: int = 1        # drain(): batches in flight at once; >1
                                    # overlaps batch i's fold/cache work with
                                    # batch i+1's replica queries
@@ -105,26 +131,43 @@ class ClusterRouter:
             raise ValueError(f"dataset must be (n, dim); got {data.shape}")
         self.dim = int(data.shape[1])
         S, R = ccfg.num_shards, ccfg.num_replicas
-        if ccfg.transport in ("process", "tcp"):
-            raise NotImplementedError(
-                f"transport {ccfg.transport!r} needs cluster/transport.py, shm.py, "
-                "worker.py and remote.py, which are not ported yet (ROADMAP "
-                "Queue 1 item 2)")
-        if ccfg.transport != "inproc":
+        if ccfg.transport not in ("inproc", "process", "tcp"):
             raise ValueError(
                 f"unknown transport {ccfg.transport!r} "
                 "(expected 'inproc', 'process', or 'tcp')")
+        # where the shards' answers are folded (and, inproc, the replicas)
+        self.device = resolve_device(device)
+        self._shm = None               # module ref, process transports only
+        self._wire_pool = None         # router-owned request-staging ring
         # shard s owns gids {g : g % S == s}; seed rows keep gid == row
-        self.replicas: List[List[ShardReplica]] = [[
-            ShardReplica(
-                s, r, cfg, serve_cfg, seed,
-                os.path.join(root, f"shard{s:02d}", f"replica{r}"),
-                data[s::S], keep_snapshots=ccfg.keep_snapshots,
-                wal_fsync=ccfg.wal_fsync,
-                snapshot_every_bytes=ccfg.snapshot_every_bytes,
-                snapshot_every_s=ccfg.snapshot_every_s,
-                params_fn=params_fn, device=device)
-            for r in range(R)] for s in range(S)]
+        if ccfg.transport in ("process", "tcp"):
+            from . import shm as shm_mod
+            from .remote import spawn_replica_grid
+            self._shm = shm_mod
+            if (ccfg.transport == "process"
+                    and ccfg.shm_threshold_bytes is not None):
+                try:
+                    self._wire_pool = shm_mod.SlabRing(
+                        slots=ccfg.shm_slots,
+                        slot_bytes=ccfg.shm_slot_bytes, tag="router")
+                except OSError:
+                    self._wire_pool = None   # no /dev/shm: socket path only
+            self.replicas = spawn_replica_grid(
+                cfg, serve_cfg, ccfg, root,
+                [np.ascontiguousarray(data[s::S]) for s in range(S)],
+                seed=seed, params_fn=params_fn, device=str(self.device),
+                shm_pool=self._wire_pool)
+        else:
+            self.replicas = [[
+                ShardReplica(
+                    s, r, cfg, serve_cfg, seed,
+                    os.path.join(root, f"shard{s:02d}", f"replica{r}"),
+                    data[s::S], keep_snapshots=ccfg.keep_snapshots,
+                    wal_fsync=ccfg.wal_fsync,
+                    snapshot_every_bytes=ccfg.snapshot_every_bytes,
+                    snapshot_every_s=ccfg.snapshot_every_s,
+                    params_fn=params_fn, device=self.device)
+                for r in range(R)] for s in range(S)]
         self.next_gid = int(data.shape[0])
         self._shard_seq = [0] * S
         self._adopt_durable_state()
@@ -395,6 +438,10 @@ class ClusterRouter:
             if peer is not rep and peer.last_seq > rep.last_seq:
                 caught_up = rep.catch_up_from(peer)
                 break
+        if self._shm is not None:
+            # a SIGKILL'd worker leaks its response ring; its replacement
+            # made a fresh one, so the orphan is collectable right here
+            self._shm.reap_orphan_slabs()
         parked_applied = 0
         parked = self._parked.get(s, [])
         while parked:  # pop AFTER a successful replay: a failure mid-replay
@@ -545,51 +592,88 @@ class ClusterRouter:
                 "(rows marked -1; see stats['dispatch_failures'])")
         return out
 
+    def _stage_fanout(self, rows: np.ndarray, n: int, bucket: int):
+        """One gather for the whole fan-out: pad the batch straight into a
+        shared slab slot, so the S shards get descriptor-only frames over
+        one staged copy.  Returns (staged, padded); staged None = no slab
+        (ring off or full, batch under the threshold, tcp), and then the
+        plain pad and a socket copy a send apply."""
+        nbytes = bucket * self.dim * 4
+        staged = None
+        if (self._wire_pool is not None
+                and nbytes >= (self.ccfg.shm_threshold_bytes or 0)):
+            from .transport import stage_buffer
+            staged = stage_buffer(self._wire_pool, (bucket, self.dim),
+                                  np.int32)
+        if staged is not None:
+            staged, buf = staged
+            buf[:n] = rows
+            buf[n:] = 0
+            return staged, buf
+        if n < bucket:
+            rows = np.concatenate(
+                [rows, np.zeros((bucket - n, self.dim), np.int32)])
+        return None, rows
+
     def _dispatch(self, rows: np.ndarray, ctx=None,
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """Fan one batch out to every shard and fold the top-k lists."""
         n = rows.shape[0]
         bucket = self._any_alive_replica().bucket_for(n)
-        padded = rows
-        if n < bucket:
-            padded = np.concatenate(
-                [rows, np.zeros((bucket - n, self.dim), np.int32)])
+        staged, padded = self._stage_fanout(rows, n, bucket)
         # _dispatch runs on a pool thread once drain() pipelines, so the
         # counters must go through the lock
         self._bump("batches")
         self._bump("queries", n)
         t0 = time.perf_counter()
-        with obs_trace.span("fanout", parent=ctx,
-                            shards=self.num_shards, n_real=n):
-            fan_ctx = obs_trace.current() or ctx
-            # all shards in flight at once: batch latency is ~max(per-shard)
-            # and one shard's hedge wait does not stall the others
-            shard_futs = [
-                self._pool.submit(self._query_shard, s, padded, n, fan_ctx)
-                for s in range(self.num_shards)]
-            try:
-                with obs_trace.span("merge", shards=self.num_shards):
-                    out = self._fold_shards(shard_futs, n)
-            except BaseException:
-                # one shard failed: wait out its siblings (not in _inflight)
-                # so a follow-up mutation cannot race an in-flight query
-                cf.wait(shard_futs)
-                raise
+        try:
+            with obs_trace.span("fanout", parent=ctx,
+                                shards=self.num_shards, n_real=n):
+                fan_ctx = obs_trace.current() or ctx
+                # all shards in flight at once: batch latency is
+                # ~max(per-shard) and one shard's hedge wait does not stall
+                # the others
+                shard_futs = [
+                    self._pool.submit(self._query_shard, s, padded, n,
+                                      fan_ctx, staged)
+                    for s in range(self.num_shards)]
+                try:
+                    with obs_trace.span("merge", shards=self.num_shards):
+                        out = self._fold_shards(shard_futs, n)
+                except BaseException:
+                    # one shard failed: wait out its siblings (not in
+                    # _inflight) so a follow-up mutation cannot race an
+                    # in-flight query
+                    cf.wait(shard_futs)
+                    raise
+        finally:
+            if staged is not None:
+                # drop the stager's reference; the slot itself frees when
+                # the last in-flight send (a late hedge loser) retires
+                staged.release()
         ms = (time.perf_counter() - t0) * 1e3
         with self._stats_lock:
             self._dispatch_lat.record_ms(ms)
         self.flight.record(ms, {"n_real": n, "shards": self.num_shards})
         return out
 
+    def _on_device(self, x) -> torch.Tensor:
+        """A shard's answer on the router's device.  A remote replica's is
+        a view of a receive buffer or a slab slot, copied here
+        (the slot frees when the view dies)."""
+        if torch.is_tensor(x):
+            return x.to(self.device)
+        return torch.from_numpy(np.array(x, np.int32)).to(self.device)
+
     def _fold_shards(self, shard_futs, n: int,
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """Map each shard's local ids to gids (``i * S + s``) and fold the
-        lists pairwise with ``topk_merge``, on the replicas' device; one
-        copy to the host at the end."""
+        lists pairwise with ``topk_merge``, on the router's device; one copy
+        to the host at the end."""
         merged_d: Optional[torch.Tensor] = None
         merged_i: Optional[torch.Tensor] = None
         for s, fut in enumerate(shard_futs):
-            d, i = fut.result()
+            d, i = map(self._on_device, fut.result())
             gi = torch.where(i >= 0, i * self.num_shards + s, -1).to(torch.int32)
             if merged_d is None:
                 merged_d, merged_i = d, gi
@@ -598,16 +682,20 @@ class ClusterRouter:
         return merged_d[:n].cpu().numpy(), merged_i[:n].cpu().numpy()
 
     def _traced_query(self, rep: ShardReplica, padded: np.ndarray,
-                      n_real: int, ctx, role: str):
+                      n_real: int, ctx, role: str, staged=None):
         """One replica query in a ``replica_query`` span, on the pool thread
         that serves the future; ``role`` tells the hedge primary, the
-        re-issue and a failover apart."""
+        re-issue and a failover apart.  A replica that ``supports_staged``
+        gets the slab-staged batch instead of the rows."""
         with obs_trace.span("replica_query", parent=ctx,
                             shard=rep.shard_id, replica=rep.replica_id,
                             hedge=role):
+            if staged is not None and getattr(rep, "supports_staged", False):
+                return rep.query(padded, n_real, staged=staged)
             return rep.query(padded, n_real)
 
-    def _query_shard(self, s: int, padded: np.ndarray, n_real: int, ctx=None):
+    def _query_shard(self, s: int, padded: np.ndarray, n_real: int, ctx=None,
+                     staged=None):
         """One shard's answer, with failover and hedged re-issue.
 
         The preferred replica rotates per batch.  A fast failure fails over
@@ -626,7 +714,7 @@ class ClusterRouter:
         with obs_trace.span("shard_query", parent=ctx, shard=s) as sp:
             ctx = obs_trace.current() or ctx
             fut = self._pool.submit(self._traced_query, primary, padded,
-                                    n_real, ctx, "primary")
+                                    n_real, ctx, "primary", staged)
             self._track(fut)
             try:
                 res = fut.result(timeout=self.ccfg.hedge_ms / 1e3)
@@ -651,7 +739,7 @@ class ClusterRouter:
                 sp.set(hedged=True)
                 peer = order[1]
                 fut2 = self._pool.submit(self._traced_query, peer, padded,
-                                         n_real, ctx, "reissue")
+                                         n_real, ctx, "reissue", staged)
                 self._track(fut2)
                 return self._first_complete(
                     s, [(fut, primary), (fut2, peer)], primary)
@@ -663,7 +751,7 @@ class ClusterRouter:
                 for peer in order[1:]:
                     try:
                         res = self._traced_query(peer, padded, n_real,
-                                                 ctx, "failover")
+                                                 ctx, "failover", staged)
                         self._health_ok(peer)
                         return res
                     except Exception as e2:
@@ -773,7 +861,10 @@ class ClusterRouter:
             "cluster_metrics": (obs_metrics.summarize_snapshot(cluster_snap)
                                 if cluster_snap else None),
             "flight": self.flight.summary(),
-            "wire": None,               # no RPC transport in one process
+            # router-side wire accounting (§13): socket and slab payload
+            # bytes, staging fallbacks, reaped orphans; None inproc
+            "wire": (self._shm.wire_counters()
+                     if self._shm is not None else None),
             "num_shards": self.ccfg.num_shards,
             "num_replicas": self.ccfg.num_replicas,
             "next_gid": self.next_gid,
@@ -788,3 +879,6 @@ class ClusterRouter:
         for group in self.replicas:
             for rep in group:
                 rep.close()
+        if self._wire_pool is not None:
+            self._wire_pool.close()
+            self._wire_pool = None

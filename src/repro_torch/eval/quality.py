@@ -15,8 +15,9 @@ truth (``brute_force_l1``); every scheme is scored against it:
 Parameters come from a parameter source, ``params_fn(cfg, dim)``, by default
 the port's own seeded draw (``core.index.make_params``), so that a caller can
 hand in parameters made elsewhere (the JAX package's, for parity).  The
-cluster oracle runs the in-process ``cluster.ClusterRouter``; the
-distributed one waits for ``launch/dist_index.py`` (ROADMAP Queue 1 item 3).
+cluster oracle runs ``cluster.ClusterRouter`` in-process or over worker
+processes; the distributed one waits for ``launch/dist_index.py`` (ROADMAP
+Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -378,8 +379,11 @@ class QualityRun:
         Bit-identity needs a non-truncating candidate gather (each shard
         takes its own ``candidate_cap`` a probed bucket), so the cap is
         raised to the built index's largest bucket
-        (``pipeline.oracle_candidate_cap``).  Only ``transport='inproc'``
-        is ported; the replicas live on this run's device.
+        (``pipeline.oracle_candidate_cap``).  The replicas live on this
+        run's device.  ``transport='process'`` (or ``'tcp'``) runs the same
+        oracle against worker subprocesses behind the RPC transport, each
+        engine on this run's device: the claims must survive the wire, and
+        the kill is a real SIGKILL.
         """
         from repro_torch.cluster import ClusterConfig, ClusterRouter
         from repro_torch.serve.engine import ServeConfig
@@ -397,20 +401,22 @@ class QualityRun:
                               hedge_ms=60000.0,  # oracle: never hedge
                               wal_fsync=False, transport=transport),
                 self.data, root, params_fn=self._params_fn, device=self.device)
-            cd, ci = router.query(queries)
-            matches = bool(np.array_equal(cd, fd) and np.array_equal(ci, fi))
-            # WAL some mutations through, kill a replica, recover it, then
-            # make it serve (peer killed): still equal to flat on the
-            # original points (the inserted probes are deleted again)
-            gids = router.insert(queries[:4])
-            router.kill_replica(0, 0)
-            router.delete(gids)
-            router.recover_replica(0, 0)
-            router.kill_replica(0, min(1, num_replicas - 1))
-            rd, ri = router.query(queries)
-            recovered = bool(np.array_equal(rd, fd) and np.array_equal(ri, fi))
-            summary = router.summary()
-            router.close()
+            try:  # the workers stop even when a check raises
+                cd, ci = router.query(queries)
+                matches = bool(np.array_equal(cd, fd) and np.array_equal(ci, fi))
+                # WAL some mutations through, kill a replica, recover it, then
+                # make it serve (peer killed): still equal to flat on the
+                # original points (the inserted probes are deleted again)
+                gids = router.insert(queries[:4])
+                router.kill_replica(0, 0)
+                router.delete(gids)
+                router.recover_replica(0, 0)
+                router.kill_replica(0, min(1, num_replicas - 1))
+                rd, ri = router.query(queries)
+                recovered = bool(np.array_equal(rd, fd) and np.array_equal(ri, fi))
+                summary = router.summary()
+            finally:
+                router.close()
         return {
             "cluster_matches_flat": matches,
             "cluster_recovery_matches_flat": recovered,

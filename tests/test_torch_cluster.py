@@ -812,5 +812,5 @@ def test_check_cluster_matches_the_jax_package(small):
     got = trun.check_cluster(cfg)
     assert got["cluster_matches_flat"] and got["cluster_recovery_matches_flat"]
     assert got == jrun.check_cluster(jrun.scheme_config("mp-rw-lsh", 4, 20))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        trun.check_cluster(cfg, transport="process")
+    with pytest.raises(ValueError, match="unknown transport"):
+        trun.check_cluster(cfg, transport="carrier")

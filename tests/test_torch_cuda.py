@@ -404,6 +404,63 @@ def test_cluster_router_on_the_card(card, tmp_path):
 
 
 @pytest.mark.cuda
+def test_process_router_on_the_card(card, tmp_path):
+    """A 2 x 2 process router whose workers run their engines on the card
+    equals the same router with its workers on the CPU, bit for bit: fresh,
+    after mutations, and through a SIGKILL, failover and recovery.  Each
+    card worker's telemetry reports device ``cuda`` and its own launches of
+    the probe's two kernels and the rerank; the parent folds with
+    ``topk_merge`` on the card."""
+    from repro_torch.cluster import ClusterConfig, ClusterRouter
+    from repro_torch.data import ann_synthetic as ds
+    from repro_torch.kernels import _build
+    spec = ds.DatasetSpec("cluster-card", n=900, dim=16, universe=64, num_clusters=8)
+    data = ds.make_dataset(spec)
+    queries = ds.make_queries(spec, data, 24)
+    cfg = IndexConfig(num_tables=4, num_hashes=8, width=24, num_probes=20,
+                      candidate_cap=256, universe=64, k=8, rerank_chunk=128)
+    serve = ServeConfig(batch_size=16, delta_cap=128)
+    ccfg = ClusterConfig(transport="process", hedge_ms=60000, wal_fsync=False,
+                         cache_capacity=0)
+    routers = [ClusterRouter(cfg, serve, ccfg, data, str(tmp_path / dev), device=dev)
+               for dev in ("cpu", "cuda")]
+    _build.reset_launches()
+
+    def same():
+        (hd, hi), (cd, ci) = (r.query(queries) for r in routers)
+        _eq(hd, cd)
+        _eq(hi, ci)
+
+    try:
+        same()
+        for r in routers:
+            g = r.insert((queries[:6] + 2).astype(np.int32))
+            r.delete([0, 3, int(g[1])])
+        same()
+        for r in routers:
+            r.replicas[0][0].handle.sigkill()      # unannounced
+            r._rr[0] = 0                           # the dead worker is preferred
+        same()
+        for r in routers:
+            r.delete([int(g[2])])
+            r.recover_replica(0, 0)
+            r.kill_replica(0, 1)
+        same()
+        for group in routers[1].replicas:
+            for rep in group:
+                if rep.alive:
+                    t = rep.telemetry()
+                    assert t["device"] == "cuda"
+                    assert all(t["launches"][k] > 0 for k in (
+                        "fused_probe_extents", "fused_probe_gather", "fused_rerank"))
+        assert routers[1].summary()["failovers"] >= 1
+        assert _build.LAUNCHES["topk_merge"] > 0
+    finally:
+        for r in routers:
+            r.close()
+
+
+@pytest.mark.cuda
 def test_checkpoint_restore_defaults_to_the_card(card, tmp_path):
     """``CheckpointManager.restore`` with no ``device`` puts every leaf on
     the card, as the JAX package's restore puts it on the accelerator."""
