@@ -5,6 +5,7 @@ the paper's quality protocol at the same size, and hold every CUDA kernel of
 those paths against its plain-torch version.
 
   python3 chip_smoke.py          # from the repository root; needs one card
+  python3 chip_smoke.py --dist-cards 4   # the distributed index on 4 cards only
 
 Phases (each path runs with the launch counters zeroed just before it and
 read just after, and must launch the kernels named in ``PATHS``):
@@ -50,8 +51,9 @@ read just after, and must launch the kernels named in ``PATHS``):
                  full QualitySpec: the exact ground truth, 35 timed records
                  over MP-RW-LSH, RW-LSH, CP-LSH, MP-CP-LSH and SRS, the
                  tables-needed claim, the served configuration's recall, and
-                 the segmented and compacted cross-layer oracles at the
-                 claim's configuration; then, outside the counted path, the
+                 the segmented, compacted and distributed (nccl, one rank
+                 a card) cross-layer oracles at the claim's configuration;
+                 then, outside the counted path, the
                  path's ground truth, SRS and fragmented index's fold, and
                  one configuration of each family ('rw', 'cauchy',
                  'gaussian'), through the kernels and through their plain
@@ -99,6 +101,25 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ground truth and the sizing run before the counted path),
                  in-process, then over worker processes on the card with
                  ``transport='process'`` and ``'tcp'`` (each its own path);
+  dist           the distributed index (``repro_torch.launch.dist_index``):
+                 four rank processes sharing the one card under gloo (the
+                 exchanges copied through the host), over the same 1 M
+                 points and 1,024 drain queries: a (2, 2) mesh (500 K rows
+                 a shard, 512 queries a block) under 'allgather', 'ring'
+                 and 'tree', bit for bit alike, every distance <= the flat
+                 index's, every id's distance exact through
+                 ``l1_distance_rows`` (held against its plain version);
+                 four more (2, 2) calls with the cap from the built
+                 histogram's 0.999 quantile and a bucket covering the
+                 counts, alike under every merge and twice; the dry-run's
+                 ANN configuration (k = 50) through 'tree'; the first 50,000
+                 points on the card == on four CPU ranks (plain versions);
+                 a (1, 4) mesh == the flat ``query_index``; 'nccl' with four
+                 ranks on one card refused by the port, and NCCL's own
+                 answer to two ranks on card 0 ("Duplicate GPU detected")
+                 recorded; then ``check_distributed``
+                 under nccl, one rank a card.  The path's launches are the
+                 ranks' (each counts its own);
   batch          the kernels against their plain versions at the main path's
                  shapes, and their times beside the least time the card
                  could take (bytes over 3.35 TB/s, or operations over 67 T/s,
@@ -120,15 +141,18 @@ read just after, and must launch the kernels named in ``PATHS``):
                  gives ``quality_launches``, ``tuned_launches``,
                  ``cluster_launches``, ``cluster_process_launches``,
                  ``cluster_oracle_launches``,
-                 ``cluster_oracle_process_launches`` and
-                 ``cluster_oracle_tcp_launches``, its launches on those
-                 paths.  The probe's library call is the
+                 ``cluster_oracle_process_launches``,
+                 ``cluster_oracle_tcp_launches`` and ``dist_launches``, its
+                 launches on those paths.  The probe's library call is the
                  staged probe at the same cap (``stage_bucket_lookup``'s two
                  ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
                  whose valid candidates must equal the gather's.
 
 Prints one ``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
-``{"cluster": ...}`` line, one ``{"kernels": [...]}`` line, the
+``{"cluster": ...}`` line, one ``{"dist": ...}`` line (each run's mesh,
+merge, backend and exchange, each rank's boot, build seconds and bytes
+sent a call, the query's wall ms: the maximum over ranks, median of 5
+calls after one, recall@10), one ``{"kernels": [...]}`` line, the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the exit code is not 0.  Exits 2 with
 no result when no card is present or the port's sources are missing.
@@ -178,7 +202,9 @@ PATHS = {"ground_truth": ("l1_distance",),
          # over worker processes: the workers' launches plus the parent's
          "cluster_process": (*PROBE, "fused_rerank", "topk_merge"),
          "cluster_oracle_process": (*PROBE, "fused_rerank", "topk_merge"),
-         "cluster_oracle_tcp": (*PROBE, "fused_rerank", "topk_merge")}
+         "cluster_oracle_tcp": (*PROBE, "fused_rerank", "topk_merge"),
+         # over rank processes: the ranks' launches
+         "dist": (*PROBE, "fused_rerank", "topk_merge")}
 TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
 # the JAX package's full QualitySpec (benchmarks/quality_bench.py:42-47)
@@ -192,6 +218,16 @@ CLUSTER_SHARDS, CLUSTER_REPLICAS = 2, 2
 # the cluster oracle: rows, queries, and the bound on the flat query's slab
 # at the raised cap (ids, the gather's and the rerank's copies)
 ORACLE_ROWS, ORACLE_QUERIES, ORACLE_SLAB_BYTES = 250_000, 64, 4 << 30
+# the distributed index: four rank processes sharing the one card (gloo, the
+# exchanges through the host), timed calls a run, the occ_hist quantiles of
+# the capped runs (the serving policy's, and one whose cap truncates), the
+# rows and queries of the card-against-CPU check, and the dry-run's ANN
+# configuration (src/repro/launch/dryrun.py:181-183)
+DIST_RANKS, DIST_REPS = 4, 5
+DIST_QUANTILES = {"policy": 0.999, "truncating": 0.9}
+DIST_CPU_ROWS, DIST_CPU_QUERIES = 50_000, 64
+DRYRUN_ANN = dict(num_tables=8, num_hashes=16, width=256, num_probes=100,
+                  candidate_cap=8, universe=512, k=50, rerank_chunk=1024)
 
 
 def log(msg: str) -> None:
@@ -357,7 +393,7 @@ def quality_phase(ops, spec, data, queries, served_cfg, kernel_modules):
         claim = qrun.table_claim(records)
         l_mp = claim["tables_needed"]["mp-rw-lsh"] or max(qspec.table_sweep)
         oracle_cfg = qrun.scheme_config("mp-rw-lsh", l_mp, qspec.probe_sweep[-1])
-        cross = qrun.check_cross_layer(oracle_cfg)
+        cross = qrun.check_cross_layer(oracle_cfg, cluster=False)
         served = qrun.eval_config(served_cfg, timed=True)
         return qrun, records, claim, oracle_cfg, cross, served
 
@@ -368,7 +404,7 @@ def quality_phase(ops, spec, data, queries, served_cfg, kernel_modules):
         check(0.0 <= r["recall"] <= 1.0 and r["ratio"] >= 1.0 - 1e-9,
               f"quality record {r} has recall in [0, 1] and ratio >= 1")
     flags = {k: v for k, v in cross.items() if isinstance(v, bool)}
-    check(len(flags) == 5 and all(flags.values()),
+    check(len(flags) == 6 and all(flags.values()),
           f"every cross-layer flag holds at the claim's config: {flags}")
 
     # one configuration of each family through the kernels and through their
@@ -1033,6 +1069,328 @@ def cluster_oracle_phase(ops, spec, data):
     return out, all_launches
 
 
+def _nccl_rank_on_card0(rank, init, out):
+    """One of two ranks that both take card 0 under nccl (what the port
+    refuses): NCCL's own answer at the first collective, written to
+    ``out.<rank>``."""
+    import datetime
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=init, rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=60))
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = f"no error: all_reduce gave {t.item()}"
+    except Exception as err:         # the answer is the result
+        msg = f"{type(err).__name__}: {err}"
+    Path(f"{out}.{rank}").write_text(msg)
+    os._exit(0)
+
+
+def nccl_own_answer() -> list:
+    """NCCL's own answer to two ranks on one card, each rank's text: the
+    reason the ``dist`` phase's ranks share the card under gloo."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        init, out = Path(tmp, "store").as_uri(), os.path.join(tmp, "answer")
+        procs = [ctx.Process(target=_nccl_rank_on_card0, args=(r, init, out))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(120)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        check(not hung, "NCCL with two ranks on card 0 answered within 120 s")
+        return [Path(f"{out}.{r}").read_text() for r in range(2)]
+
+
+def dist_phase(ops, plain_rows, recall, cfg, data, queries, gt_i0):
+    """The distributed index (``repro_torch.launch.dist_index``, the
+    ``dist`` path) on the one card: four gloo ranks, each its own process
+    and CUDA context, the exchanges copied through the host.  Over the
+    serve phase's points and drain queries: a (2, 2) mesh (500 K rows a
+    shard, 512 queries a block) under the three merges, then with a cap
+    from the built histogram and a bucket covering the counts (four
+    calls), the dry-run's ANN configuration through the tree, the first
+    50,000 points, and a (1, 4) mesh (the queries over four ranks).  The
+    path's launches are the ranks' (each counts its own)."""
+    from repro_torch.core.index import IndexConfig, build_index, make_params, query_index
+    from repro_torch.core.pipeline import BIG_DIST
+    from repro_torch.eval import QualityRun, QualitySpec
+    from repro_torch.launch import dist_index as di
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda")
+    params = make_params(cfg, DIM)
+    dry = IndexConfig(**DRYRUN_ANN)
+    base = {"cfg": cfg, "params": params}
+    runs = {f"rows2_model2_{m}": {"shape": (2, 2), "merge": m, "reps": DIST_REPS, **base}
+            for m in di.MERGES}
+    for tag, q in DIST_QUANTILES.items():
+        capped = {"shape": (2, 2), "cand_bucket": "cover", "cap_quantile": q, **base}
+        for m in di.MERGES:
+            runs[f"rows2_model2_{m}_{tag}"] = {"merge": m, **capped}
+        runs[f"rows2_model2_tree_again_{tag}"] = {"merge": "tree", **capped}
+    runs.update({
+            "dryrun_rows2_model2_tree": {"shape": (2, 2), "merge": "tree", "reps": DIST_REPS,
+                                         "cfg": dry, "params": make_params(dry, DIM)},
+            "rows2_model2_first_rows": {"shape": (2, 2), "rows": DIST_CPU_ROWS,
+                                        "queries": DIST_CPU_QUERIES, **base},
+            "model4_allgather": {"shape": (1, 4), "reps": DIST_REPS, **base}})
+    names = list(runs)
+    rank_launches = {k: 0 for k in ops.LAUNCHES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        path = os.path.join(tmp, "points.npy")
+        np.save(path, data)
+        if torch.cuda.device_count() < DIST_RANKS:
+            try:
+                di.spawn_ranks(DIST_RANKS, di.run_meshes, path, queries, [],
+                               backend="nccl", device="cuda")
+            except ValueError as err:
+                nccl_refusal = str(err)
+            else:
+                check(False, "backend 'nccl' with two ranks on one card raises")
+            check("two ranks on one card" in nccl_refusal,
+                  f"the nccl refusal names the shared card: {nccl_refusal}")
+            nccl_answer = [next((ln.strip() for ln in a.splitlines() if "Duplicate GPU" in ln),
+                                a[:300]) for a in nccl_own_answer()]
+            log(f"dist: NCCL's own answer to two ranks on card 0: {nccl_answer}")
+            check(all("Duplicate GPU" in a for a in nccl_answer),
+                  "dist: NCCL itself refuses two ranks on one card")
+
+        def ranks():
+            reports = di.spawn_ranks(DIST_RANKS, di.run_meshes, path, queries,
+                                     list(runs.values()), backend="gloo", device="cuda",
+                                     timeout_s=600)
+            for rep in reports:
+                for k, n in rep["launches"].items():
+                    rank_launches[k] += n
+            return reports
+
+        reports, launches = run_path("dist", ops, ranks, more=rank_launches)
+        t0 = time.perf_counter()
+        cpu = di.spawn_ranks(DIST_RANKS, di.run_meshes, path, queries,
+                             [runs["rows2_model2_first_rows"]], backend="gloo",
+                             device="cpu", timeout_s=600)
+        cpu_s = time.perf_counter() - t0
+    recs = [rep["result"] for rep in reports]
+    got = {name: di.assemble(recs, k) for k, name in enumerate(names)}
+    check(all(rep["device"] == "cuda:0" for rep in reports)
+          and all(r["exchange"] == "host" and r["backend"] == "gloo" for rr in recs for r in rr),
+          "dist: every rank computes on the card, and exchanges through the host")
+    for k, name in enumerate(names):
+        if runs[name]["shape"][0] > 1:
+            check(all(rr[k]["sent_bytes"] > 0 for rr in recs),
+                  f"dist {name}: every rank sent bytes (the (2, 2) mesh exchanges)")
+    # the merges, bit for bit
+    for m in ("ring", "tree"):
+        check(all(np.array_equal(a, b) for a, b in zip(got[f"rows2_model2_{m}"],
+                                                        got["rows2_model2_allgather"])),
+              f"dist: '{m}' == 'allgather' on the (2, 2) mesh, bit for bit")
+    caps = {}
+    for tag in DIST_QUANTILES:
+        capped = [n for n in names if n.endswith(tag)]
+        taken = {(rr[names.index(n)]["cand_cap"], rr[names.index(n)]["cand_bucket"])
+                 for n in capped for rr in recs}
+        check(len(taken) == 1, f"dist: one cap and one bucket on every rank and {tag} run "
+              f"({taken})")
+        caps[tag] = taken.pop()
+        check(all(np.array_equal(a, b) for n in capped
+                  for a, b in zip(got[n], got[f"rows2_model2_allgather_{tag}"])),
+              f"dist: the {tag} capped runs equal each other under every merge and twice")
+    check(all(np.array_equal(a, b) for a, b in zip(got["rows2_model2_allgather_policy"],
+                                                    got["rows2_model2_allgather"])),
+          "dist: at the serving policy's cap and a covering bucket, == uncapped, bit for bit")
+    check(caps["truncating"][0] < cfg.candidate_cap,
+          f"dist: the truncating cap {caps['truncating'][0]} < {cfg.candidate_cap}")
+    # against the flat index over the same points and parameters
+    t0 = time.perf_counter()
+    data_c, q_c = torch.from_numpy(data).to(card), torch.from_numpy(queries).to(card)
+    state = build_index(cfg, data_c, params=params.to(card))
+    fd, fi = (x.cpu().numpy() for x in query_index(cfg, state, q_c))
+    del state
+    d4, i4 = got["model4_allgather"]
+    check(np.array_equal(d4, fd) and np.array_equal(i4, fi),
+          "dist: the (1, 4) mesh == the flat query_index, bit for bit")
+    check(all((got[f"rows2_model2_{m}"][0] <= fd).all() for m in di.MERGES),
+          "dist: every (2, 2) distance <= the flat index's at its position")
+
+    def verify(name, d, i):
+        """Each returned id's distance again through ``ops.l1_distance_rows``,
+        held against its plain version."""
+        ok = torch.from_numpy(i >= 0).to(card)
+        rows = data_c[torch.from_numpy(np.maximum(i, 0)).long().to(card)].contiguous()
+        qs = q_c[:d.shape[0]].contiguous()
+        kd, pd = ops.l1_distance_rows(qs, rows), plain_rows(qs, rows)
+        check(equal(kd, pd), f"dist {name}: l1_distance_rows kernel == plain")
+        check(equal(torch.where(ok, kd, 0), torch.where(ok, torch.from_numpy(d).to(card), 0))
+              and bool((torch.from_numpy(d).to(card)[~ok] == BIG_DIST).all()),
+              f"dist {name}: every returned id's distance is exact")
+
+    for name in names:
+        verify(name, *got[name])
+    check(got["dryrun_rows2_model2_tree"][0].shape == (queries.shape[0], dry.k),
+          "dist: the dry-run configuration answers k = 50")
+    # the card's ranks against the CPU's at the first rows
+    cd, ci = di.assemble([rep["result"] for rep in cpu], 0)
+    check(np.array_equal(cd, got["rows2_model2_first_rows"][0])
+          and np.array_equal(ci, got["rows2_model2_first_rows"][1]),
+          f"dist: the (2, 2) mesh on CPU ranks (plain versions) == on the card, first "
+          f"{DIST_CPU_ROWS} points, {DIST_CPU_QUERIES} queries, bit for bit")
+    check(all(v == 0 for rep in cpu for v in rep["launches"].values()),
+          "dist: the CPU ranks launched no kernel")
+    # the distributed oracle under nccl, one rank a card
+    oracle_q = queries[:QUALITY_QUERIES]
+    qrun = QualityRun(data, oracle_q, UNIVERSE, QualitySpec(k=K), device="cuda",
+                      params_fn=lambda c, dim: make_params(c, dim))
+    oracle = qrun.check_distributed(cfg)
+    check(oracle["dist_matches_flat"] and oracle["devices"] == torch.cuda.device_count(),
+          f"dist: check_distributed under nccl, one rank a card: {oracle}")
+    checks_s = time.perf_counter() - t0
+
+    out = {"ranks": DIST_RANKS, "backend": recs[0][0]["backend"],
+           "exchange": recs[0][0]["exchange"],
+           "boot_s": [rep["boot_s"] for rep in reports],
+           "ready_s": [rep["ready_s"] for rep in reports],
+           "rank_seconds": [rep["seconds"] for rep in reports],
+           "nccl_refusal": nccl_refusal if torch.cuda.device_count() < DIST_RANKS else None,
+           "nccl_own_answer": nccl_answer if torch.cuda.device_count() < DIST_RANKS else None,
+           "runs": {}, "cpu_ranks_s": cpu_s,
+           "cpu_ranks_boot_s": [rep["boot_s"] for rep in cpu],
+           "check_distributed": {**oracle, "backend": "nccl", "queries": QUALITY_QUERIES},
+           "checks_s": checks_s, "launches": launches}
+    for k, name in enumerate(names):
+        run, rr = runs[name], [r[k] for r in recs]
+        per_call = np.max([r["query_ms"] for r in rr], axis=0) if run.get("reps") else None
+        d, i = got[name]
+        out["runs"][name] = {
+            "shape": list(run["shape"]), "merge": run.get("merge", "allgather"),
+            "config": "dryrun" if run["cfg"] is dry else "serve",
+            "backend": rr[0]["backend"], "exchange": rr[0]["exchange"],
+            "rows": run.get("rows", N_POINTS), "queries": int(d.shape[0]),
+            "rows_per_shard": run.get("rows", N_POINTS) // run["shape"][0],
+            "queries_per_block": int(d.shape[0]) // run["shape"][1],
+            "cand_cap": rr[0]["cand_cap"], "cand_bucket": rr[0]["cand_bucket"],
+            "build_s": [r["build_s"] for r in rr],
+            "query_ms": None if per_call is None else float(np.median(per_call)),
+            "query_ms_calls": None if per_call is None else per_call.tolist(),
+            "sent_bytes": [r["sent_bytes"] for r in rr],
+            "build_sent_bytes": [r["build_sent_bytes"] for r in rr],
+            # the ground truth is over every point
+            "recall_at_10": None if run.get("rows") else float(recall(i[:, :K], gt_i0))}
+    out["flat_recall_at_10"] = float(recall(fi, gt_i0))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def dist_cards_main(cards: int) -> int:
+    """``python3 chip_smoke.py --dist-cards N``: the distributed index under
+    nccl, one card a rank, on N cards, in turns with gloo ranks on the same
+    cards (the exchanges through the host): nccl, gloo, gloo, nccl.  At the
+    serve configuration over the 1 M points and 1,024 queries: (2, N/2) and
+    (N, 1) meshes under the three merges and (1, N), five timed calls each;
+    every result equal across backends and merges, (1, N) equal to the flat
+    index; then ``QualityRun.query_dist`` over the N cards (nccl ranks
+    spawned) equal to flat.  Prints one ``{"dist_cards": ...}`` line."""
+    from repro_torch.core.baselines import recall
+    from repro_torch.core.index import IndexConfig, build_index, make_params, query_index
+    from repro_torch.data import ann_synthetic as ds
+    from repro_torch.eval import QualityRun, QualitySpec
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import l1_distance as kl1
+    from repro_torch.launch import dist_index as di
+
+    check(torch.cuda.device_count() >= cards,
+          f"--dist-cards {cards} needs {cards} cards, found {torch.cuda.device_count()}")
+    t_start = time.perf_counter()
+    log(nvidia_smi_line())
+    for name in _build.build_all():
+        _build.library(name)
+    spec = ds.DatasetSpec("sift1m", n=N_POINTS, dim=DIM, universe=UNIVERSE)
+    data = ds.make_dataset(spec)
+    queries = ds.make_queries(spec, data, N_QUERIES)
+    card = torch.device("cuda")
+    data_c, q_c = torch.from_numpy(data).to(card), torch.from_numpy(queries).to(card)
+    gt_d, gt_i = exact_knn(ops, kl1.l1_distance_plain, data_c, q_c, K)
+    dbar, gt_i = float(gt_d.float().mean()), gt_i.cpu().numpy()
+    cfg = IndexConfig(num_tables=8, num_hashes=12, width=max(8, int(3.0 * math.sqrt(dbar)) & ~1),
+                      num_probes=200, candidate_cap=128, universe=UNIVERSE, k=K,
+                      rerank_chunk=1024)
+    params = make_params(cfg, DIM)
+    state = build_index(cfg, data_c, params=params.to(card))
+    fd, fi = (x.cpu().numpy() for x in query_index(cfg, state, q_c))
+    del state, data_c, q_c
+    torch.cuda.empty_cache()
+    runs = [{"shape": shape, "merge": m, "reps": DIST_REPS, "cfg": cfg, "params": params}
+            for shape in ((2, cards // 2), (cards, 1)) for m in di.MERGES]
+    runs.append({"shape": (1, cards), "reps": DIST_REPS, "cfg": cfg, "params": params})
+    names = [f"rows{r['shape'][0]}_model{r['shape'][1]}_{r.get('merge', 'allgather')}"
+             for r in runs]
+    out = {"cards": cards, "width": cfg.width, "calls": []}
+    first = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
+        path = os.path.join(tmp, "points.npy")
+        np.save(path, data)
+        for backend in ("nccl", "gloo", "gloo", "nccl"):
+            t0 = time.perf_counter()
+            reports = di.spawn_ranks(cards, di.run_meshes, path, queries, runs,
+                                     backend=backend, device="cuda", timeout_s=600)
+            recs = [rep["result"] for rep in reports]
+            call = {"backend": backend, "seconds": time.perf_counter() - t0,
+                    "devices": [rep["device"] for rep in reports],
+                    "boot_s": [rep["boot_s"] for rep in reports],
+                    "launches": {k: sum(rep["launches"][k] for rep in reports)
+                                 for k in reports[0]["launches"]}, "runs": {}}
+            got = {name: di.assemble(recs, k) for k, name in enumerate(names)}
+            first = first or got
+            for k, name in enumerate(names):
+                check(all(np.array_equal(a, b) for a, b in zip(got[name], first[name])),
+                      f"dist_cards {backend} {name} == the first call's, bit for bit")
+                check((got[name][0] <= fd).all(), f"dist_cards {name}: every distance <= flat")
+                per_call = np.max([rr[k]["query_ms"] for rr in recs], axis=0)
+                call["runs"][name] = {
+                    "exchange": recs[0][k]["exchange"], "query_ms": float(np.median(per_call)),
+                    "query_ms_calls": per_call.tolist(),
+                    "build_s": [rr[k]["build_s"] for rr in recs],
+                    "sent_bytes": [rr[k]["sent_bytes"] for rr in recs],
+                    "recall_at_10": float(recall(got[name][1], gt_i))}
+            check(call["devices"] == [f"cuda:{r}" for r in range(cards)],
+                  f"dist_cards {backend}: one card a rank ({call['devices']})")
+            for k in (*PROBE, "fused_rerank", "topk_merge"):
+                check(call["launches"][k] > 0, f"dist_cards {backend}: the ranks launched {k}")
+            log(f"dist_cards {backend}: {call['seconds']:.1f} s, " + ", ".join(
+                f"{n} {r['query_ms']:.3f} ms" for n, r in call["runs"].items()))
+            out["calls"].append(call)
+    for shape in ((2, cards // 2), (cards, 1)):
+        base = f"rows{shape[0]}_model{shape[1]}"
+        check(all(np.array_equal(a, b) for m in ("ring", "tree")
+                  for a, b in zip(first[f"{base}_{m}"], first[f"{base}_allgather"])),
+              f"dist_cards {base}: ring == tree == allgather, bit for bit")
+    d1, i1 = first[f"rows1_model{cards}_allgather"]
+    check(np.array_equal(d1, fd) and np.array_equal(i1, fi),
+          f"dist_cards: the (1, {cards}) mesh == the flat query_index, bit for bit")
+    qrun = QualityRun(data, queries[:QUALITY_QUERIES], UNIVERSE, QualitySpec(k=K),
+                      device="cuda", params_fn=lambda c, dim: make_params(c, dim))
+    t0 = time.perf_counter()
+    oracle = qrun.check_distributed(cfg)
+    check(oracle == {"devices": cards, "dist_matches_flat": True},
+          f"dist_cards: check_distributed over {cards} cards: {oracle}")
+    out["check_distributed"] = {**oracle, "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_start
+    log(json.dumps({"dist_cards": out}))
+    log(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def nvidia_smi_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
@@ -1179,6 +1537,8 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-cards":
+        return dist_cards_main(int(sys.argv[2]))
     from repro_torch.core import pipeline as pipe
     from repro_torch.core.baselines import recall
     from repro_torch.core.index import IndexConfig, probe_index
@@ -1342,9 +1702,9 @@ def main() -> int:
         deleted = np.unique(gt_i0[32:32 + N_DELETE, 0].cpu().numpy()).astype(np.int32)
         dead[torch.from_numpy(deleted).long().to(card)] = True
         return float(gt_d0.float().mean()), deleted, exact_knn(
-            ops, kl1.l1_distance_plain, points, q_c, K, dead=dead)[1]
+            ops, kl1.l1_distance_plain, points, q_c, K, dead=dead)[1], gt_i0
 
-    (dbar, deleted, gt_i), gt_launches = run_path("ground_truth", ops, ground_truth)
+    (dbar, deleted, gt_i, gt_i0), gt_launches = run_path("ground_truth", ops, ground_truth)
     width = max(8, int(3.0 * math.sqrt(dbar)) & ~1)
     cfg = IndexConfig(num_tables=8, num_hashes=12, width=width, num_probes=200,
                       candidate_cap=128, universe=UNIVERSE, k=K, rerank_chunk=1024)
@@ -1554,6 +1914,19 @@ def main() -> int:
                     f"{oracle[t]['seconds']:.1f} s" for t in ("process", "tcp")))
     log(json.dumps({"cluster": {**cluster, "process": process, "oracle": oracle,
                                 "walk_range": walk_range}}))
+
+    # -- dist: the distributed index over rank processes on the card ---------
+    dist, d_launches = dist_phase(ops, kl1.l1_distance_rows_plain, recall, cfg, data,
+                                  queries, gt_i0.cpu().numpy())
+    for name, row in dist["runs"].items():
+        log(f"phase dist {name}: {row['shape']} {row['merge']} ({row['config']}), "
+            f"query {row['query_ms']} ms (max over ranks, median of {DIST_REPS}), build "
+            f"{json.dumps([round(x, 3) for x in row['build_s']])} s, sent "
+            f"{json.dumps(row['sent_bytes'])} B, recall@10 {row['recall_at_10']}")
+    log(f"phase dist: {dist['seconds']:.1f} s; rank boots (s) "
+        f"{json.dumps([round(x, 2) for x in dist['boot_s']])}, CPU ranks "
+        f"{dist['cpu_ranks_s']:.1f} s, checks {dist['checks_s']:.1f} s")
+    log(json.dumps({"dist": dist}))
 
     # -- one served batch: kernels against plain, and their times -------------
     idx = engine.index
@@ -1874,7 +2247,7 @@ def main() -> int:
         **l1r[torch.int32], "shape": list(rd.shape), "int16": l1r[torch.int16]})
     for path, counts in (("quality", q_launches), ("tuned", t_launches),
                          ("cluster", c_launches), ("cluster_process", p_launches),
-                         *o_launches.items()):
+                         *o_launches.items(), ("dist", d_launches)):
         for row in rows:
             row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
                                        if row["name"] == "fused_probe" else counts[row["name"]])

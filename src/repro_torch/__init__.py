@@ -30,8 +30,10 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
   analysis/ the ``REPRO_SANITIZE`` race sanitizer
   data/     seeded synthetic datasets and the even-integer normalizer
             (numpy, same bits as ``repro``)
-  launch/   ``python -m repro_torch.launch.serve`` and
-            ``python -m repro_torch.launch.cluster_serve``
+  launch/   ``python -m repro_torch.launch.serve``,
+            ``python -m repro_torch.launch.cluster_serve`` and the
+            distributed index (``dist_index``: row shards and query blocks
+            over rank processes on ``torch.distributed``)
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); with no card they raise.

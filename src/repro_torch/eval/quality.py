@@ -9,19 +9,20 @@ truth (``brute_force_l1``); every scheme is scored against it:
     recall@k and overall ratio; ``table_claim`` derives the paper's headline,
     the tables each scheme needs to reach recall R;
   * the cross-layer oracles push one configuration through ``query_index``
-    (flat), ``SegmentedIndex.query`` (fresh, mutated, compacted) and the
-    compacted two-phase query, and check that they agree.
+    (flat), ``SegmentedIndex.query`` (fresh, mutated, compacted), the
+    compacted two-phase query and the distributed query, and check that they
+    agree.
 
 Parameters come from a parameter source, ``params_fn(cfg, dim)``, by default
 the port's own seeded draw (``core.index.make_params``), so that a caller can
 hand in parameters made elsewhere (the JAX package's, for parity).  The
 cluster oracle runs ``cluster.ClusterRouter`` in-process or over worker
-processes; the distributed one waits for ``launch/dist_index.py`` (ROADMAP
-Queue 1 item 3).
+processes, the distributed one ``launch.dist_index`` over one rank a card.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import tempfile
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -44,8 +45,6 @@ __all__ = ["SCHEMES", "QualitySpec", "QualityRun", "tables_needed"]
 SCHEMES = ("mp-rw-lsh", "rw-lsh", "cp-lsh", "mp-cp-lsh", "srs")
 _MULTIPROBE = {"mp-rw-lsh": True, "rw-lsh": False,
                "cp-lsh": False, "mp-cp-lsh": True}
-_NOT_PORTED = ("needs launch/dist_index.py, which is not ported yet (ROADMAP "
-               "Queue 1 item 3)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,8 +148,43 @@ class QualityRun:
     def query_segmented(self, cfg: IndexConfig):
         return self._segmented(cfg, self.data).query(self.queries)
 
+    def dist_devices(self) -> int:
+        """The ranks of ``query_dist``: one a card (one on the CPU), and one
+        in all when the queries do not divide over the cards."""
+        n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        return 1 if self.queries.shape[0] % n_dev else n_dev
+
     def query_dist(self, cfg: IndexConfig, merge: str = "allgather"):
-        raise NotImplementedError(f"query_dist {_NOT_PORTED}")
+        """The distributed query on a (1, n_devices) mesh: one row shard,
+        the queries over 'model' (``launch.dist_index``; nccl on the card,
+        gloo on the CPU).
+
+        One row shard keeps the candidate set identical to the flat path
+        (per-shard candidate_cap never truncates differently), so the
+        result must be bit-for-bit equal to ``query_index``, which makes this
+        a consistency oracle rather than an approximate comparison.  One
+        rank runs in this process (a default group of one, which must not
+        exist yet); more run as ``spawn_ranks`` processes.
+        """
+        from repro_torch.launch import dist_index as di
+
+        n_dev = self.dist_devices()
+        backend = "nccl" if self.device.type == "cuda" else "gloo"
+        run = {"shape": (1, n_dev), "cfg": cfg, "params": self.params(cfg).to("cpu"),
+               "merge": merge}
+        if n_dev == 1:
+            with di.single_process_group(backend):
+                recs = [di.run_meshes(self.device, self.data, self.queries, [run])]
+        else:
+            queries = self.queries.cpu().numpy()
+            with tempfile.TemporaryDirectory(prefix="rwt-quality-") as tmp:
+                path = os.path.join(tmp, "data.npy")
+                np.save(path, self.data.cpu().numpy())
+                recs = [rep["result"] for rep in di.spawn_ranks(
+                    n_dev, di.run_meshes, path, queries, [run], backend=backend,
+                    device=self.device)]
+        d, i = di.assemble(recs, 0)
+        return (torch.from_numpy(d).to(self.device), torch.from_numpy(i).to(self.device))
 
     # -- scoring -----------------------------------------------------------
 
@@ -366,7 +400,16 @@ class QualityRun:
         }
 
     def check_distributed(self, cfg: IndexConfig, flat=None) -> dict:
-        raise NotImplementedError(f"check_distributed {_NOT_PORTED}")
+        """Distributed-path oracle: the all-gather ``query_dist`` == flat, bit
+        for bit (one row shard; the queries over 'model').  ``flat`` may pass
+        a precomputed ``query_flat(cfg)`` result to skip the rebuild."""
+        fd, fi = self.query_flat(cfg) if flat is None else flat
+        dd, di_ = self.query_dist(cfg)
+        return {
+            "devices": self.dist_devices(),
+            "dist_matches_flat": bool(
+                np.array_equal(_np(dd), _np(fd)) and np.array_equal(_np(di_), _np(fi))),
+        }
 
     def check_cluster(self, cfg: IndexConfig, num_shards: int = 2,
                       num_replicas: int = 2, root_dir: Optional[str] = None,
@@ -427,15 +470,15 @@ class QualityRun:
             "cluster_transport": transport,
         }
 
-    def check_cross_layer(self, cfg: IndexConfig, cluster: bool = False) -> dict:
-        """The segmented and compacted oracles for one config (one flat
-        query shared); ``cluster=True`` adds the distributed oracle, which is
-        not ported yet, then the cluster oracle."""
+    def check_cross_layer(self, cfg: IndexConfig, cluster: bool = True) -> dict:
+        """All oracle layers for one config; every flag must hold.  The
+        segmented, compacted and distributed oracles share one flat query;
+        ``cluster`` adds the cluster oracle."""
         flat = self.query_flat(cfg)
         out = self.check_segmented(cfg, flat=flat)
         out.update(self.check_compact(cfg, flat=flat))
+        out.update(self.check_distributed(cfg, flat=flat))
         if cluster:
-            out.update(self.check_distributed(cfg, flat=flat))
             out.update(self.check_cluster(cfg))
         return out
 

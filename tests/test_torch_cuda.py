@@ -471,3 +471,39 @@ def test_checkpoint_restore_defaults_to_the_card(card, tmp_path):
     step, back = mgr.restore_latest(tree)
     assert step == 1 and back["w"].device.type == "cuda" and back["m"]["n"].is_cuda
     assert torch.equal(back["w"].cpu(), tree["w"])
+
+
+@pytest.mark.cuda
+def test_dist_ranks_on_the_card_match_cpu_ranks(card):
+    """Two gloo ranks sharing the card (the exchanges through the host)
+    answer as the same two ranks on the CPU, bit for bit, under every merge
+    and on both meshes; the card ranks launch the probe's two kernels, the
+    rerank and (for the ring and tree folds) ``topk_merge``.  'nccl' with
+    more ranks than cards raises before any rank starts."""
+    from repro_torch.core.index import make_params
+    from repro_torch.data import ann_synthetic as ds
+    from repro_torch.launch import dist_index as di
+    spec = ds.DatasetSpec("dist-card", n=2048, dim=16, universe=64, num_clusters=8)
+    data = ds.make_dataset(spec)
+    queries = ds.make_queries(spec, data, 16)
+    cfg = IndexConfig(num_tables=4, num_hashes=8, width=24, num_probes=20,
+                      candidate_cap=32, universe=64, k=8, rerank_chunk=128)
+    params = make_params(cfg, 16)
+    runs = [{"shape": (2, 1), "cfg": cfg, "params": params, "merge": m} for m in di.MERGES]
+    runs.append({"shape": (1, 2), "cfg": cfg, "params": params})
+    got = {dev: di.spawn_ranks(2, di.run_meshes, data, queries, runs, backend="gloo",
+                               device=dev, timeout_s=300) for dev in ("cpu", "cuda")}
+    for k in range(len(runs)):
+        want = di.assemble([rep["result"] for rep in got["cpu"]], k)
+        card_out = di.assemble([rep["result"] for rep in got["cuda"]], k)
+        _eq(want[0], card_out[0])
+        _eq(want[1], card_out[1])
+    for rep in got["cuda"]:
+        assert rep["device"] == "cuda:0" or torch.cuda.device_count() > 1
+        assert all(r["exchange"] == "host" for r in rep["result"])
+        assert all(rep["launches"][k] > 0 for k in (
+            "fused_probe_extents", "fused_probe_gather", "fused_rerank", "topk_merge"))
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="two ranks on one card"):
+            di.spawn_ranks(2, di.run_meshes, data, queries, runs, backend="nccl",
+                           device="cuda")

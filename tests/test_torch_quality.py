@@ -2,7 +2,8 @@
 ``QualityRun`` against ``repro.eval``'s on the CPU at the
 tests/test_eval_quality.py config, with the JAX package's parameters
 bridged.  RW records equal bit for bit; CP and SRS records within one result
-of recall and 1e-3 of ratio; the claim and the cross-layer oracles equal."""
+of recall and 1e-3 of ratio; the claim, the cross-layer oracles and the
+distributed query equal."""
 import dataclasses
 
 import numpy as np
@@ -92,18 +93,30 @@ def test_oracles_match_jax(runs, check):
     assert all(v for k, v in got.items() if isinstance(v, bool))
 
 
-def test_cross_layer_and_the_oracles_still_to_port(runs):
-    _, trun = runs
-    cfg = trun.scheme_config(*ORACLE)
-    out = trun.check_cross_layer(cfg)
-    flags = {k: v for k, v in out.items() if isinstance(v, bool)}
-    assert len(flags) == 5 and all(flags.values()), flags
-    # the cluster oracle is ported (tests/test_torch_cluster.py); the
-    # distributed one is not, and cluster=True runs it first
-    for call in (lambda: trun.check_cross_layer(cfg, cluster=True),
-                 lambda: trun.query_dist(cfg), lambda: trun.check_distributed(cfg)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            call()
+def test_cross_layer_matches_jax(runs):
+    """Without the cluster oracle (tests/test_torch_cluster.py holds it):
+    the segmented, compacted and distributed oracles, the JAX package's
+    dict, six flags, all true."""
+    jrun, trun = runs
+    got = trun.check_cross_layer(trun.scheme_config(*ORACLE), cluster=False)
+    assert got == jrun.check_cross_layer(jrun.scheme_config(*ORACLE), cluster=False)
+    flags = {k: v for k, v in got.items() if isinstance(v, bool)}
+    assert len(flags) == 6 and all(flags.values()), flags
+
+
+def test_check_distributed_matches_jax(runs):
+    jrun, trun = runs
+    got = trun.check_distributed(trun.scheme_config(*ORACLE))
+    assert got == jrun.check_distributed(jrun.scheme_config(*ORACLE))
+    assert got == {"devices": 1, "dist_matches_flat": True}
+
+
+def test_query_dist_matches_jax(runs):
+    jrun, trun = runs
+    d, i = trun.query_dist(trun.scheme_config(*ORACLE))
+    jd, ji = jrun.query_dist(jrun.scheme_config(*ORACLE))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
 
 
 def test_timed_records(runs, sweeps):
