@@ -9,6 +9,10 @@ those paths against its plain-torch version.
 
 Phases (each path runs with the launch counters zeroed just before it and
 read just after, and must launch the kernels named in ``PATHS``):
+  lint           ``python -m repro_torch.analysis --check --json`` in a
+                 subprocess, before any card phase: exit 0, and its report
+                 of every sanctioned finding (allowed inline or baselined)
+                 for ``host_syncs``;
   build          compile csrc/*.cu with nvcc (sm_90a), one process per source;
   kernels        each kernel against its plain version at small adversarial
                  shapes (ties, duplicate ids, uint32 extremes, truncating
@@ -46,6 +50,22 @@ read just after, and must launch the kernels named in ``PATHS``):
   order          the two engines' batches timed alternately (ABBA), so the
                  order of the two serve phases does not enter the gap, and
                  one profiled batch of each;
+  host_syncs     each engine ('gather', then 'pallas') at the serve
+                 configuration under torch's sync debug mode ("warn"): after
+                 warm-up and one drain over a segment, a delta and
+                 tombstones, 8 drained batches of 64, a compaction, 8 more;
+                 each sync recorded at its innermost frame in the port (and
+                 its frames there), and every sync inside r1-host-sync's
+                 scope must lie on a line the lint allows or baselines, or
+                 in a host helper called from one (``hold_syncs``), else the
+                 run fails; prints one
+                 ``{"host_syncs": ...}`` line (syncs a batch, the count at
+                 each file:line, the compaction's, the sanctioned lines not
+                 hit, whether ``torch.cuda.synchronize`` is reported);
+  examples       ``repro_torch.examples``' quickstart, ann_serving and
+                 cluster_serving, each ``main()`` on the card at its own
+                 sizes (each checks its own claims), then on the CPU: every
+                 step's (d, i) equal, bit for bit; their seconds and recall;
   quality        the paper's protocol (``repro_torch.eval.QualityRun``) on
                  the same 1 M points and 256 queries at the JAX package's
                  full QualitySpec: the exact ground truth, 35 timed records
@@ -142,13 +162,15 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ``cluster_launches``, ``cluster_process_launches``,
                  ``cluster_oracle_launches``,
                  ``cluster_oracle_process_launches``,
-                 ``cluster_oracle_tcp_launches`` and ``dist_launches``, its
-                 launches on those paths.  The probe's library call is the
+                 ``cluster_oracle_tcp_launches``, ``dist_launches``,
+                 ``host_syncs_launches``, ``host_syncs_rw_hash_launches``
+                 and ``examples_launches``, its launches on those paths.  The probe's library call is the
                  staged probe at the same cap (``stage_bucket_lookup``'s two
                  ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
                  whose valid candidates must equal the gather's.
 
-Prints one ``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
+Prints one ``{"host_syncs": ...}`` line, one ``{"quality": ...}`` line, one
+``{"tuned": ...}`` line, one
 ``{"cluster": ...}`` line, one ``{"dist": ...}`` line (each run's mesh,
 merge, backend and exchange, each rank's boot, build seconds and bytes
 sent a call, the query's wall ms: the maximum over ranks, median of 5
@@ -161,6 +183,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -170,6 +193,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -204,7 +229,15 @@ PATHS = {"ground_truth": ("l1_distance",),
          "cluster_oracle_process": (*PROBE, "fused_rerank", "topk_merge"),
          "cluster_oracle_tcp": (*PROBE, "fused_rerank", "topk_merge"),
          # over rank processes: the ranks' launches
-         "dist": (*PROBE, "fused_rerank", "topk_merge")}
+         "dist": (*PROBE, "fused_rerank", "topk_merge"),
+         # the serve traffic under torch's sync debug mode, each engine
+         "host_syncs": (*PROBE, "fused_rerank", "topk_merge"),
+         "host_syncs_rw_hash": ("rw_hash", "rw_prefix_table", *PROBE, "fused_rerank",
+                                "topk_merge"),
+         # the three ANN examples at their own sizes; brute_force_l1 runs
+         # l1_distance
+         "examples": (*PROBE, "fused_rerank", "topk_merge", "l1_distance")}
+SYNC_BATCHES = 8            # drained batches before and after the compaction
 TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
 # the JAX package's full QualitySpec (benchmarks/quality_bench.py:42-47)
@@ -1391,6 +1424,165 @@ def dist_cards_main(cards: int) -> int:
     return 0
 
 
+def lint_phase() -> dict:
+    """The port's lint gate, ``python -m repro_torch.analysis --check
+    --json``, in a subprocess on this machine's Python; its report (the
+    findings and every sanctioned one, with its lines)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--check", "--json"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(proc.returncode == 0, "python -m repro_torch.analysis --check exits 0:\n"
+          + proc.stdout[-2000:] + proc.stderr[-2000:])
+    report = json.loads(proc.stdout)
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+class SyncRecorder:
+    """Records each synchronizing CUDA call that torch's sync debug mode
+    ("warn") reports: its frames inside ``src/repro_torch/``, innermost
+    first, as package-rooted ``(path, line, function)`` (the warning's own filename
+    may point into torch).  ``window`` names where the syncs go."""
+
+    def __init__(self):
+        self.pkg = str(ROOT / "src" / "repro_torch") + os.sep
+        self.stacks = {}            # site (and "site via ..." per other chain) -> frames
+        self.counts = {}            # window -> {site: count}
+        self.window = None
+
+    def showwarning(self, message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message) or self.window is None:
+            return
+        frames = [(os.path.relpath(f.filename, ROOT / "src").replace(os.sep, "/"), f.lineno,
+                   f.name)
+                  for f in reversed(traceback.extract_stack()) if f.filename.startswith(self.pkg)]
+        site = f"{frames[0][0]}:{frames[0][1]}" if frames else f"(outside the port) {filename}:{lineno}"
+        if self.stacks.get(site, frames) != frames:     # another chain to the same site
+            site_chain = f"{site} via " + " < ".join(f"{p}:{n}" for p, n, _ in frames[1:])
+            self.stacks.setdefault(site_chain, frames)
+        else:
+            self.stacks.setdefault(site, frames)
+        win = self.counts.setdefault(self.window, {})
+        win[site] = win.get(site, 0) + 1
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Sync debug mode "warn" for the block, reset to 0 in any case."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = self.showwarning
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+
+def host_syncs_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, sanctioned):
+    """Serve at the serve configuration with each engine under torch's sync
+    debug mode: after warm-up and one drain (outside the record), 8 drained
+    batches over a segment and a delta, a compaction, 8 more.  Every sync
+    is recorded at its innermost frame in the port and held against the
+    lint's sanctioned reads (``hold_syncs``): a sync inside r1-host-sync's
+    scope that no allow or baseline entry covers fails the phase."""
+    from repro_torch.analysis.rules import hold_syncs
+    from repro_torch.serve.engine import AnnServingEngine
+    t_phase = time.perf_counter()
+    out, launches, batch = {}, {}, serve_cfg.batch_size
+    for tag, path, run_cfg in (("gather", "host_syncs", cfg),
+                               ("pallas", "host_syncs_rw_hash",
+                                dataclasses.replace(cfg, hash_impl="pallas"))):
+        rec = SyncRecorder()
+
+        def serve_recorded():
+            eng = AnnServingEngine(run_cfg, serve_cfg, data, device="cuda")
+            eng.insert(inserted)
+            eng.delete(deleted)
+            eng.submit(queries[:batch])
+            eng.drain()                 # the delta's and tombstones' copies
+            with rec.recording():
+                for window, lo in (("drains", 0), ("compact", None),
+                                   ("drains", SYNC_BATCHES * batch)):
+                    rec.window = window
+                    if lo is None:
+                        eng.compact()
+                        continue
+                    for b in range(SYNC_BATCHES):
+                        eng.submit(queries[lo + b * batch:lo + (b + 1) * batch])
+                        eng.drain()
+                rec.window = None
+            return eng
+
+        eng, launches[path] = run_path(path, ops, serve_recorded)
+        check(eng.index.num_segments == 1 and eng.index.compactions == 1,
+              f"host_syncs {tag}: one compaction into one segment")
+        missed, unhit = hold_syncs(rec.stacks, sanctioned)
+        drains = rec.counts.get("drains", {})
+        n_batches = 2 * SYNC_BATCHES
+        out[tag] = {
+            "batches": n_batches,
+            "syncs_per_batch": sum(drains.values()) / n_batches,
+            "drain_sites": dict(sorted(drains.items())),
+            "compact_sites": dict(sorted(rec.counts.get("compact", {}).items())),
+            "chains": {site: [f"{p}:{n}" for p, n, _ in frames]
+                       for site, frames in sorted(rec.stacks.items())},
+            "missed_by_the_lint": missed,
+            "sanctioned_not_hit": unhit,
+        }
+        del eng
+    # does torch report the engine's explicit synchronize (its batch timing)?
+    rec = SyncRecorder()
+    with rec.recording():
+        rec.window = "synchronize"
+        torch.cuda.synchronize()
+        rec.window = None
+    out["synchronize_reported"] = bool(rec.counts)
+    out["seconds"] = time.perf_counter() - t_phase
+    for tag in ("gather", "pallas"):
+        check(not out[tag]["missed_by_the_lint"],
+              f"host_syncs {tag}: every sync inside r1-host-sync's scope carries an allow "
+              f"or a baseline entry (missed: {out[tag]['missed_by_the_lint']})")
+    return out, launches
+
+
+def examples_phase() -> dict:
+    """The three ANN examples' ``main()`` on the card at their own sizes (each
+    checks its own claims; a failed assert fails the run), then each again
+    on the CPU (the kernels' plain versions): every step's (d, i), the
+    recall and the inserted gids equal the card's, bit for bit.  Each one's
+    seconds on both, recall and the tail of what it printed."""
+    from repro_torch.examples import ann_serving, cluster_serving, quickstart
+    out = {}
+    for name, mod in (("quickstart", quickstart), ("ann_serving", ann_serving),
+                      ("cluster_serving", cluster_serving)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            res = mod.main()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            plain = mod.main(device="cpu")
+        cpu_seconds = time.perf_counter() - t0
+        steps = sorted(res["answers"])
+        check(steps == sorted(plain["answers"]) and all(
+            np.array_equal(a, b) for step in steps
+            for a, b in zip(res["answers"][step], plain["answers"][step])),
+              f"examples {name}: every step's (d, i) on the card == on the CPU, bit for bit")
+        check(res["recall"] == plain["recall"] and np.array_equal(
+            res.get("gids", ()), plain.get("gids", ())),
+              f"examples {name}: recall and gids on the card == on the CPU")
+        out[name] = {"seconds": seconds, "cpu_seconds": cpu_seconds,
+                     "recall": res["recall"], "steps_equal_on_the_cpu": steps,
+                     **{k: v for k, v in res.items()
+                        if k not in ("recall", "answers", "gids")},
+                     "printed_tail": printed.getvalue().strip().splitlines()[-2:]}
+    return out
+
+
 def nvidia_smi_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
@@ -1561,6 +1753,16 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(smi)
     log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    # -- lint: the port's analysis gate, before any card phase ---------------
+    lint = lint_phase()
+    by_how = {}
+    for ent in lint["sanctioned"]:
+        key = f"{ent['rule']} {ent['how']}"
+        by_how[key] = by_how.get(key, 0) + 1
+    log(f"phase lint: python -m repro_torch.analysis --check --json exits 0 in "
+        f"{lint['seconds']:.1f} s; {len(lint['findings'])} finding(s), all baselined; "
+        f"sanctioned by rule and kind {json.dumps(dict(sorted(by_how.items())))}")
 
     # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1803,6 +2005,28 @@ def main() -> int:
     for tag, eng in (("serve", engine), ("serve_rw_hash", rw_engine)):
         log_profile(tag, eng, queries[:serve_cfg.batch_size])
     del rw_engine
+
+    # -- host_syncs: the serve traffic under torch's sync debug mode ----------
+    syncs, s_launches = host_syncs_phase(ops, cfg, serve_cfg, data, queries, inserted,
+                                         deleted, lint["sanctioned"])
+    for tag in ("gather", "pallas"):
+        row = syncs[tag]
+        log(f"phase host_syncs {tag}: {row['syncs_per_batch']:.2f} syncs a batch over "
+            f"{row['batches']} batches {json.dumps(row['drain_sites'])}; compaction "
+            f"{json.dumps(row['compact_sites'])}; sanctioned, not hit: "
+            f"{json.dumps(row['sanctioned_not_hit'])}")
+    log(f"phase host_syncs: {syncs['seconds']:.1f} s; torch.cuda.synchronize reported "
+        f"as a sync: {syncs['synchronize_reported']}")
+    log(json.dumps({"host_syncs": syncs}))
+
+    # -- examples: the three ANN examples at their own sizes -----------------
+    t0 = time.perf_counter()
+    examples, e_launches = run_path("examples", ops, examples_phase)
+    for name, row in examples.items():
+        log(f"phase examples {name}: {row['seconds']:.1f} s (CPU {row['cpu_seconds']:.1f} s), "
+            f"recall@10 {row['recall']}, "
+            f"printed ... {json.dumps(row['printed_tail'])}")
+    log(f"phase examples: {time.perf_counter() - t0:.1f} s")
     # why a compacted self-hit can miss: its epicenter buckets overflow the cap
     seg = engine.index.segments[0]
     _, _, occ_e, _ = probe_index(cfg, seg.state, q_c[:inserted_rows.size])
@@ -2247,7 +2471,8 @@ def main() -> int:
         **l1r[torch.int32], "shape": list(rd.shape), "int16": l1r[torch.int16]})
     for path, counts in (("quality", q_launches), ("tuned", t_launches),
                          ("cluster", c_launches), ("cluster_process", p_launches),
-                         *o_launches.items(), ("dist", d_launches)):
+                         *o_launches.items(), ("dist", d_launches), *s_launches.items(),
+                         ("examples", e_launches)):
         for row in rows:
             row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
                                        if row["name"] == "fused_probe" else counts[row["name"]])

@@ -27,7 +27,11 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             autotuner (``tune_for_recall``)
   obs/      metrics registry, latency histogram, flight recorder and
             ``REPRO_TRACE`` spans (``python -m repro_torch.obs render``)
-  analysis/ the ``REPRO_SANITIZE`` race sanitizer
+  analysis/ the lint suite (``python -m repro_torch.analysis``: five rules
+            in torch vocabulary, the dead-code report) and the
+            ``REPRO_SANITIZE`` race sanitizer
+  examples/ ``quickstart``, ``ann_serving`` and ``cluster_serving``
+            (``python -m repro_torch.examples.<name>``)
   data/     seeded synthetic datasets and the even-integer normalizer
             (numpy, same bits as ``repro``)
   launch/   ``python -m repro_torch.launch.serve``,
@@ -36,17 +40,18 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             over rank processes on ``torch.distributed``)
 
 Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``); with no card they raise.
+(``device="cpu"``); with no card they raise.  The package itself imports
+torch only when a device is resolved, so that ``repro_torch.analysis``
+runs where torch is not installed.
 """
 from __future__ import annotations
-
-import torch
 
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """``None`` means the card.  A CUDA device without a card raises."""
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -15,13 +15,18 @@ written by either package restores in the other:
   * retention: the newest ``keep`` checkpoints stay.
 
 A tree is nested dicts (keys sorted, as ``jax.tree_util`` orders them),
-lists and tuples, with ``None`` as an empty subtree; its leaves are torch
-tensors, numpy arrays or scalars.  Leaves go to the host with
+lists, tuples and dataclasses (``IndexState``, ``LshParams``,
+``WalkTable``: their init fields in order, less the static ones a class
+names in ``_ckpt_static``, as the JAX package's ``tree_flatten`` lists
+them), with ``None`` as an empty subtree; its leaves are torch tensors,
+numpy arrays or scalars.  A Python scalar leaf restores as a Python scalar
+of its type.  Leaves go to the host with
 ``.cpu().numpy()``; a dtype numpy cannot name (``bfloat16``) is stored as
 raw unsigned words under its own name, as the JAX package stores it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -45,7 +50,17 @@ def _children(node):
         return [(str(k), node[k]) for k in sorted(node)]
     if isinstance(node, (list, tuple)):
         return [(str(i), c) for i, c in enumerate(node)]
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(str(i), getattr(node, name))
+                for i, name in enumerate(_node_fields(node))]
     return None
+
+
+def _node_fields(node) -> list:
+    """A dataclass node's children, by field name, in tree order."""
+    static = getattr(node, "_ckpt_static", ())
+    return [f.name for f in dataclasses.fields(node)
+            if f.init and f.name not in static]
 
 
 def _flatten(tree: Any, prefix: str = "", out: Optional[dict] = None) -> dict:
@@ -72,6 +87,10 @@ def _rebuild(template: Any, leaf_fn, prefix: str = ""):
     if isinstance(template, (list, tuple)):
         vals = [_rebuild(c, leaf_fn, path(str(i))) for i, c in enumerate(template)]
         return type(template)(vals) if isinstance(template, list) else tuple(vals)
+    if _children(template) is not None:                 # a dataclass node
+        return dataclasses.replace(template, **{
+            name: _rebuild(getattr(template, name), leaf_fn, path(str(i)))
+            for i, name in enumerate(_node_fields(template))})
     return leaf_fn(prefix)
 
 
@@ -174,7 +193,10 @@ def restore_pytree(template: Any, directory: str, device=None) -> Any:
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         if tuple(arr.shape) != shape:
             raise ValueError(f"{key}: ckpt shape {tuple(arr.shape)} != {shape}")
-        vals[key] = _as_tensor(arr, device)
+        if type(leaf) in (int, float, bool):
+            vals[key] = type(leaf)(arr.item())
+        else:
+            vals[key] = _as_tensor(arr, device)
     return _rebuild(template, vals.__getitem__)
 
 

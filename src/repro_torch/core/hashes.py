@@ -57,6 +57,7 @@ class LshParams:
     mix_c: torch.Tensor
     walks: Optional[walks_lib.WalkTable] = None
     proj: Optional[torch.Tensor] = None
+    _ckpt_static = ("family", "width")     # not checkpoint leaves
 
     @property
     def num_tables(self) -> int:

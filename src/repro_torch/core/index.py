@@ -122,7 +122,7 @@ def build_index(cfg: IndexConfig, dataset: torch.Tensor, row_offset: int = 0,
     dataset = dataset.to(getattr(torch, cfg.dataset_dtype))
     sorted_keys, order = torch.sort(keys_t, dim=-1, stable=True)
     if template is None:
-        template = torch.from_numpy(make_template(cfg)).to(device)
+        template = torch.from_numpy(make_template(cfg)).to(device)  # repro: allow[r1-host-sync] build-time: the template's one copy, once per build given no template
     occ_from = _run_lengths(sorted_keys)
     return IndexState(params=params, sorted_keys=sorted_keys,
                       sorted_ids=order.to(torch.int32), dataset=dataset,
@@ -170,12 +170,12 @@ def _occ_histogram(sorted_keys: torch.Tensor, occ_from: torch.Tensor) -> torch.T
         return torch.zeros((l, OCC_HIST_BINS), dtype=torch.int32, device=device)
     is_start = torch.ones((l, n), dtype=torch.bool, device=device)
     is_start[:, 1:] = sorted_keys[:, 1:] != sorted_keys[:, :-1]
-    edges = torch.from_numpy(2 ** np.arange(31, dtype=np.int64)).to(
+    edges = torch.from_numpy(2 ** np.arange(31, dtype=np.int64)).to(  # repro: allow[r1-host-sync] build-time: the bin edges' one copy, once per build
         device=device, dtype=torch.int32)
     bins = torch.searchsorted(edges, occ_from).clamp(max=OCC_HIST_BINS - 1)
     bins = torch.where(is_start, bins, OCC_HIST_BINS)   # spill column
     flat = bins + (OCC_HIST_BINS + 1) * torch.arange(l, device=device)[:, None]
-    hist = torch.bincount(flat.reshape(-1), minlength=l * (OCC_HIST_BINS + 1))
+    hist = torch.bincount(flat.reshape(-1), minlength=l * (OCC_HIST_BINS + 1))  # repro: allow[r1-host-sync] build-time: the histogram's length read, once per build
     return hist.reshape(l, OCC_HIST_BINS + 1)[:, :OCC_HIST_BINS].to(torch.int32)
 
 
@@ -226,6 +226,6 @@ def query_index_compact(cfg: IndexConfig, state: IndexState, queries,
     if ctot_cap is None:
         ctot_cap = cfg.num_tables * cfg.probes_per_table * cfg.candidate_cap
     probe_keys, lo, occ, counts = probe_index(cfg, state, queries)
-    cb, cc, _ = pipe.pick_rung(int(counts.max()), ctot_cap, floor,
+    cb, cc, _ = pipe.pick_rung(int(counts.max()), ctot_cap, floor,  # repro: allow[r1-host-sync] THE sanctioned phase-A rung-pick read (DESIGN.md §8)
                                ctot_norm, c_cap, overflow)
     return finish_index(cfg, cb, cc, state, probe_keys, lo, occ, queries)

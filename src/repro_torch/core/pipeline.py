@@ -292,7 +292,7 @@ def _rows_operands(dataset, queries):
     if queries.dtype == dataset.dtype:
         return queries, lambda rows: rows
     narrow = queries.to(dataset.dtype)
-    if torch.equal(narrow.to(queries.dtype), queries):
+    if torch.equal(narrow.to(queries.dtype), queries):  # repro: allow[r1-host-sync] once per l1_distance_chunked call: whether the queries fit the dataset's type
         return narrow, lambda rows: rows
     return queries.to(torch.int32), lambda rows: rows.to(torch.int32)
 
@@ -311,7 +311,7 @@ def l1_distance_chunked(dataset, queries, ids, k: int, chunk: int):
     """
     n = dataset.shape[0]
     q, ctot = ids.shape
-    big = torch.tensor(BIG_DIST, dtype=torch.int32, device=ids.device)
+    big = torch.full((), BIG_DIST, dtype=torch.int32, device=ids.device)
     pad = (-ctot) % chunk
     if pad:
         ids = torch.cat([ids, torch.full((q, pad), n, dtype=ids.dtype,

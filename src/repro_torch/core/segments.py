@@ -54,7 +54,7 @@ class Segment:
 
 def _seg_ctot_cap(cfg: IndexConfig, state: IndexState) -> int:
     """Ladder top: L*P*min(cap, max bucket occupancy)."""
-    occ = pipe.max_bucket_occupancy(state.sorted_keys, state.occ_from)
+    occ = pipe.max_bucket_occupancy(state.sorted_keys, state.occ_from)  # repro: allow[r1-host-sync] seal-time cap derivation, once per segment seal
     return cfg.num_tables * cfg.probes_per_table * min(cfg.candidate_cap, occ)
 
 
@@ -78,8 +78,7 @@ def _query_segment(cfg, state: IndexState, gids, tombstones, queries):
 
 def _truncated_total(occ, counts, c_cap: int, cbucket: int) -> int:
     """Candidates the truncate rung drops against the full-cap gather."""
-    got = torch.minimum(occ.clamp(max=c_cap).sum(dim=-1),
-                        torch.tensor(cbucket, device=occ.device))
+    got = occ.clamp(max=c_cap).sum(dim=-1).clamp(max=cbucket)
     return int((counts - got).sum())
 
 
@@ -133,7 +132,7 @@ class SegmentedIndex:
         self.cap_quantile = float(cap_quantile)
         self.cap_sample = int(cap_sample)
         self.fingerprint = hashes_lib.params_fingerprint(self.params)
-        self._template = torch.from_numpy(make_template(cfg)).to(self.device)
+        self._template = torch.from_numpy(make_template(cfg)).to(self.device)  # repro: allow[r1-host-sync] index construction: the template's one copy to the device
         self.segments: List[Segment] = []
         self._delta_points = np.zeros((self.delta_cap, dim), np.int32)
         self._delta_gids = np.full((self.delta_cap,), -1, np.int32)
@@ -178,7 +177,7 @@ class SegmentedIndex:
 
     def _build(self, data) -> IndexState:
         data = data if torch.is_tensor(data) else torch.from_numpy(data)
-        return build_index(self.cfg, data.to(self.device, torch.int32),
+        return build_index(self.cfg, data.to(self.device, torch.int32),  # repro: allow[r1-host-sync] build-time: the points' one copy to the device, once per build (seed, seal, compaction)
                            params=self.params, template=self._template)
 
     @classmethod
@@ -292,7 +291,7 @@ class SegmentedIndex:
             return
         state = self._build(self._delta_points[:n].copy())
         self.segments.append(self._segment(
-            state, torch.from_numpy(self._delta_gids[:n].copy()).to(self.device)))
+            state, torch.from_numpy(self._delta_gids[:n].copy()).to(self.device)))  # repro: allow[r1-host-sync] seal-time: the sealed gids' one copy, once per seal
         self._delta_count = 0
         self._delta_gids[:] = -1
         self._delta_cache = None
@@ -304,8 +303,8 @@ class SegmentedIndex:
         for seg in self.segments:
             if seg.fingerprint != self.fingerprint:
                 raise ValueError("segment params diverged; cannot compact")
-            parts.append(seg.state.dataset.to(torch.int32).cpu().numpy())
-            gid_parts.append(seg.gids.cpu().numpy())
+            parts.append(seg.state.dataset.to(torch.int32).cpu().numpy())  # repro: allow[r1-host-sync] compaction materializes on host by design
+            gid_parts.append(seg.gids.cpu().numpy())  # repro: allow[r1-host-sync] compaction materializes on host by design
         if self._delta_count:
             parts.append(self._delta_points[:self._delta_count].copy())
             gid_parts.append(self._delta_gids[:self._delta_count].copy())
@@ -330,7 +329,7 @@ class SegmentedIndex:
             return
         state = self._build(data)
         self.segments = [self._segment(
-            state, torch.from_numpy(np.ascontiguousarray(gids)).to(self.device))]
+            state, torch.from_numpy(np.ascontiguousarray(gids)).to(self.device))]  # repro: allow[r1-host-sync] compaction: the new segment's gids, once per compaction
 
     # -- query ------------------------------------------------------------
 
@@ -350,15 +349,15 @@ class SegmentedIndex:
             cap = 1 << (len(dead) - 1).bit_length() if dead else 1
             out = np.full((cap,), _INT32_MAX, np.int32)
             out[:len(dead)] = dead
-            self._tomb_cache = torch.from_numpy(out).to(self.device)
+            self._tomb_cache = torch.from_numpy(out).to(self.device)  # repro: allow[r1-host-sync] cached between mutations: one copy on the first batch after a delete
         return self._tomb_cache
 
     def _delta_arrays(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device snapshot of the delta buffer, cached between mutations."""
         if self._delta_cache is None:
             self._delta_cache = (
-                torch.from_numpy(self._delta_points.copy()).to(self.device),
-                torch.from_numpy(self._delta_gids.copy()).to(self.device))
+                torch.from_numpy(self._delta_points.copy()).to(self.device),  # repro: allow[r1-host-sync] cached between mutations: one copy on the first batch after an insert
+                torch.from_numpy(self._delta_gids.copy()).to(self.device))  # repro: allow[r1-host-sync] cached between mutations: one copy on the first batch after an insert
         return self._delta_cache
 
     def _as_queries(self, queries) -> torch.Tensor:
@@ -410,7 +409,7 @@ class SegmentedIndex:
         if state.occ_hist is None or self.cap_quantile >= 1.0:
             seg.ctot_norm, seg.c_norm = seg.ctot_cap, c_full
             return
-        c_norm = max(1, min(c_full, pipe.occupancy_quantile(
+        c_norm = max(1, min(c_full, pipe.occupancy_quantile(  # repro: allow[r1-host-sync] seal-time cap derivation, once per segment
             state.occ_hist, self.cap_quantile)))
         ctot_norm = lp * c_norm
         s = min(self.cap_sample, seg.size)
@@ -418,7 +417,7 @@ class SegmentedIndex:
             stride = max(1, seg.size // s)
             sample = state.dataset[::stride][:s].to(torch.int32)
             _, _, occ, _ = probe_index(cfg, state, sample)
-            totals = np.minimum(occ.cpu().numpy(), c_norm).sum(axis=-1)
+            totals = np.minimum(occ.cpu().numpy(), c_norm).sum(axis=-1)  # repro: allow[r1-host-sync] seal-time occupancy sampling, once per segment
             realized = int(np.percentile(totals, 90))
             ctot_norm = min(ctot_norm, 1 << max(0, 2 * realized - 1).bit_length())
         seg.ctot_norm = max(1, min(ctot_norm, seg.ctot_cap))
@@ -435,10 +434,10 @@ class SegmentedIndex:
             if hist is not None and seg.size:
                 if seg.occ_stats is None:
                     seg.occ_stats = {
-                        "p50": pipe.occupancy_quantile(hist, 0.5),
-                        "p99": pipe.occupancy_quantile(hist, 0.99),
-                        "p999": pipe.occupancy_quantile(hist, 0.999),
-                        "max": pipe.max_bucket_occupancy(
+                        "p50": pipe.occupancy_quantile(hist, 0.5),  # repro: allow[r1-host-sync] cache fill, once per sealed segment
+                        "p99": pipe.occupancy_quantile(hist, 0.99),  # repro: allow[r1-host-sync] cache fill, once per sealed segment
+                        "p999": pipe.occupancy_quantile(hist, 0.999),  # repro: allow[r1-host-sync] cache fill, once per sealed segment
+                        "max": pipe.max_bucket_occupancy(  # repro: allow[r1-host-sync] cache fill, once per sealed segment
                             seg.state.sorted_keys, seg.state.occ_from),
                     }
                 entry["occ_quantiles"] = dict(seg.occ_stats)
@@ -482,7 +481,7 @@ class SegmentedIndex:
                                                           queries)
                 # the host read of the count synchronizes the card
                 cb, c_cap, over = pipe.pick_rung(
-                    int(counts.max()), seg.ctot_cap, floor, seg.ctot_norm,
+                    int(counts.max()), seg.ctot_cap, floor, seg.ctot_norm,  # repro: allow[r1-host-sync] THE sanctioned phase-A rung-pick read (DESIGN.md §8)
                     seg.c_norm, overflow)
             with obs_trace.span("phase_b_rerank", segment=int(seg.size),
                                 cbucket=int(cb),
@@ -498,7 +497,7 @@ class SegmentedIndex:
                 if c_cap is not None:
                     stats["truncated_candidates"] = (
                         stats.get("truncated_candidates", 0)
-                        + _truncated_total(occ, counts, c_cap, cb))
+                        + _truncated_total(occ, counts, c_cap, cb))  # repro: allow[r1-host-sync] overflow-rung stats, rare by construction
         if self._delta_count or not results:
             with obs_trace.span("delta_scan", fill=int(self._delta_count)):
                 self._query_delta_if_any(results, tomb, queries)

@@ -1,0 +1,25 @@
+"""Runnable walkthroughs of the port, one per JAX package example
+(``examples/*.py``), same sizes, configs and printed lines:
+
+  python -m repro_torch.examples.quickstart [--device cpu]
+  python -m repro_torch.examples.ann_serving [--device cpu]
+  python -m repro_torch.examples.cluster_serving [--device cpu]
+
+Each ``main(device=None, params_fn=None)`` runs on the card unless asked for
+the CPU, draws its hash parameters from a seed unless ``params_fn(cfg,
+dim)`` gives them (the tests bridge the JAX twin's), keeps its dataset spec
+in the module constant ``SPEC``, checks its own claims (a failed ``assert``
+raises) and returns what it measured, with each step's (d, i) under
+``answers``.
+"""
+import argparse
+
+__all__ = ["cli_device"]
+
+
+def cli_device(description: str):
+    """The ``--device`` of an example's command line (default: the card)."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (the default) or 'cpu'")
+    return ap.parse_args().device

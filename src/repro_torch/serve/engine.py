@@ -313,7 +313,7 @@ class AnnServingEngine:
                  "rungs": [list(u) for u in used]}
         if ms > self.flight.slow_ms:
             # slow path only: stamp the exemplar with a result preview
-            entry["preview_d"] = d[:1].cpu().tolist()
+            entry["preview_d"] = d[:1].cpu().tolist()  # repro: allow[r1-host-sync] flight-recorder slow-exemplar capture — batch-boundary read after torch.cuda.synchronize, slow path only (DESIGN.md §12)
         self.flight.record(ms, entry, spans=obs_trace.capture_end())
         return d, i
 
@@ -338,8 +338,8 @@ class AnnServingEngine:
         for lo in range(0, q.shape[0], self.serve_cfg.batch_size):
             chunk = q[lo: lo + self.serve_cfg.batch_size]
             d, i = self._run_batch(self._pad(chunk), chunk.shape[0])
-            out_d.append(d[:chunk.shape[0]].cpu().numpy())
-            out_i.append(i[:chunk.shape[0]].cpu().numpy())
+            out_d.append(d[:chunk.shape[0]].cpu().numpy())  # repro: allow[r1-host-sync] batch-boundary result conversion after torch.cuda.synchronize
+            out_i.append(i[:chunk.shape[0]].cpu().numpy())  # repro: allow[r1-host-sync] batch-boundary result conversion after torch.cuda.synchronize
         return np.concatenate(out_d), np.concatenate(out_i)
 
     def drain(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -352,8 +352,8 @@ class AnnServingEngine:
             take = self._pending[:self.serve_cfg.batch_size]
             self._pending = self._pending[len(take):]
             d, i = self._run_batch(self._pad(np.stack(take)), len(take))
-            out_d.append(d[:len(take)].cpu().numpy())
-            out_i.append(i[:len(take)].cpu().numpy())
+            out_d.append(d[:len(take)].cpu().numpy())  # repro: allow[r1-host-sync] batch-boundary result conversion after torch.cuda.synchronize
+            out_i.append(i[:len(take)].cpu().numpy())  # repro: allow[r1-host-sync] batch-boundary result conversion after torch.cuda.synchronize
         self._maybe_compact()
         if not out_d:
             return (np.zeros((0, self.cfg.k), np.int32),

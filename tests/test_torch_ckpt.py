@@ -184,3 +184,50 @@ def test_bfloat16_crosses_the_packages(tmp_path):
     save_pytree({"w": torch.tensor(vals, dtype=torch.bfloat16)}, str(tmp_path / "t"))
     back = jckpt.restore_flat(str(tmp_path / "t"))["w"]
     assert np.asarray(back, np.float32).tolist() == vals
+
+
+def test_index_payload_round_trips_with_the_jax_leaf_paths(tmp_path):
+    """A serving index's ``checkpoint_payload()`` (IndexState, gids,
+    next_gid) saves and restores through the port's manager: the same leaf
+    paths and shapes as the JAX manager writes for the JAX index's payload
+    at the same config (the dataclasses flatten in the JAX ``tree_flatten``
+    order, ``family`` and ``width`` static), every leaf equal after the
+    restore, ``next_gid`` a Python int, and the restored node answers as
+    the saved one."""
+    import jax
+    from repro.core import index as jidx
+    from repro.core.segments import SegmentedIndex as JSegmented
+    from repro_torch.core.index import IndexConfig
+    from repro_torch.core.segments import SegmentedIndex
+    from test_torch_bridge import bridged
+    rng = np.random.default_rng(5)
+    data = (rng.integers(0, 16, (300, 8)) * 2).astype(np.int32)
+    queries = data[:12] + 2
+    kw = dict(num_tables=3, num_hashes=6, width=16, num_probes=8,
+              candidate_cap=32, universe=32, k=5)
+    jcfg, cfg = jidx.IndexConfig(**kw), IndexConfig(**kw)
+    key = jax.random.PRNGKey(1)
+    jnode = JSegmented.from_dataset(jcfg, key, jnp.asarray(data))
+    node = SegmentedIndex.from_dataset(
+        cfg, data, params=bridged(jidx.make_params(jcfg, key, 8)), device="cpu")
+    for n in (jnode, node):
+        n.delete([4, 9])
+        n.insert(data[20:30] + 2)
+    payload = node.checkpoint_payload()
+    jmgr = jckpt.CheckpointManager(str(tmp_path / "j"), keep=1)
+    jmgr.save(1, jnode.checkpoint_payload())
+    mgr = CheckpointManager(str(tmp_path / "t"), keep=1)
+    mgr.save(1, payload)
+    jflat, flat = jmgr.restore_flat_step(1), mgr.restore_flat_step(1)
+    assert sorted(flat) == sorted(jflat)
+    assert {k: v.shape for k, v in flat.items()} == {k: v.shape for k, v in jflat.items()}
+    state, gids, next_gid = mgr.restore(1, payload, device="cpu")
+    for want, got in zip(manager_mod._flatten(payload).values(),
+                         manager_mod._flatten((state, gids, next_gid)).values()):
+        assert torch.equal(torch.as_tensor(want), torch.as_tensor(got))
+    assert type(next_gid) is int and next_gid == payload[2] == int(jnode.checkpoint_payload()[2])
+    assert state.params.family == "rw" and state.params.width == payload[0].params.width
+    d, i = node.query(torch.from_numpy(queries))
+    d2, i2 = SegmentedIndex.from_checkpoint(cfg, state, gids, next_gid).query(
+        torch.from_numpy(queries))
+    assert torch.equal(d, d2) and torch.equal(i, i2)

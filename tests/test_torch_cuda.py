@@ -507,3 +507,20 @@ def test_dist_ranks_on_the_card_match_cpu_ranks(card):
         with pytest.raises(ValueError, match="two ranks on one card"):
             di.spawn_ranks(2, di.run_meshes, data, queries, runs, backend="nccl",
                            device="cuda")
+
+
+@pytest.mark.cuda
+def test_quickstart_on_the_card(card, monkeypatch):
+    """The quickstart example at its own sizes on the card (its recall), and
+    at a shrunk spec the card's (d, i) == the CPU's, bit for bit."""
+    from repro_torch.data import ann_synthetic as ds
+    from repro_torch.examples import quickstart
+    full = quickstart.main(device="cuda")
+    assert full["answers"]["query"][1].shape == (quickstart.NUM_QUERIES, 10)
+    assert 0.5 <= full["recall"] <= 1.0
+    monkeypatch.setattr(quickstart, "SPEC", ds.DatasetSpec(
+        "quickstart", n=2000, dim=16, universe=128, num_clusters=8))
+    monkeypatch.setattr(quickstart, "NUM_QUERIES", 16)
+    on_card, on_cpu = quickstart.main(device="cuda"), quickstart.main(device="cpu")
+    for card_t, cpu_t in zip(on_card["answers"]["query"], on_cpu["answers"]["query"]):
+        _eq(card_t, cpu_t)
