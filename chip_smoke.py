@@ -66,6 +66,25 @@ read just after, and must launch the kernels named in ``PATHS``):
                  cluster_serving, each ``main()`` on the card at its own
                  sizes (each checks its own claims), then on the CPU: every
                  step's (d, i) equal, bit for bit; their seconds and recall;
+                 and ``generate``, whose greedy tokens on the card equal the
+                 CPU's;
+  lm             the language models (no kernel of the repo): every arch's
+                 reduced() on the card against the CPU (float32, TF32 off;
+                 train_loss, prefill, 8 decode steps and their caches,
+                 within 1e-3), then smollm-360m at full width and depth:
+                 float32 teacher-forced decode against the full forward
+                 (the JAX package's 2e-2), bf16 prefill against float32
+                 (0.1 x max |logit|), then in bf16 through
+                 ``LanguageModel``: prefill ms of 8 x 128 tokens, a
+                 192-slot cache filled by 128 single-token steps, 64 greedy
+                 steps (ms a step, tokens/s), the peak of allocated memory
+                 by stage, a profiled decode step and prefill; one
+                 ``{"lm": ...}`` line with the card's name and power limit;
+  lm_retrieval   ``repro_torch.examples.retrieval_augmented_lm.main()`` on
+                 the card at its own sizes (hit rate >= 0.9, recall@5 >=
+                 0.5), its index's answers and ground truth again through
+                 the kernels' plain versions on the card, bit for bit, and
+                 its embeddings against the CPU's;
   quality        the paper's protocol (``repro_torch.eval.QualityRun``) on
                  the same 1 M points and 256 queries at the JAX package's
                  full QualitySpec: the exact ground truth, 35 timed records
@@ -163,14 +182,15 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ``cluster_oracle_launches``,
                  ``cluster_oracle_process_launches``,
                  ``cluster_oracle_tcp_launches``, ``dist_launches``,
-                 ``host_syncs_launches``, ``host_syncs_rw_hash_launches``
-                 and ``examples_launches``, its launches on those paths.  The probe's library call is the
+                 ``host_syncs_launches``, ``host_syncs_rw_hash_launches``,
+                 ``examples_launches`` and ``lm_retrieval_launches``, its
+                 launches on those paths.  The probe's library call is the
                  staged probe at the same cap (``stage_bucket_lookup``'s two
                  ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
                  whose valid candidates must equal the gather's.
 
-Prints one ``{"host_syncs": ...}`` line, one ``{"quality": ...}`` line, one
-``{"tuned": ...}`` line, one
+Prints one ``{"host_syncs": ...}`` line, one ``{"lm": ...}`` line, one
+``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
 ``{"cluster": ...}`` line, one ``{"dist": ...}`` line (each run's mesh,
 merge, backend and exchange, each rank's boot, build seconds and bytes
 sent a call, the query's wall ms: the maximum over ranks, median of 5
@@ -236,7 +256,10 @@ PATHS = {"ground_truth": ("l1_distance",),
                                 "topk_merge"),
          # the three ANN examples at their own sizes; brute_force_l1 runs
          # l1_distance
-         "examples": (*PROBE, "fused_rerank", "topk_merge", "l1_distance")}
+         "examples": (*PROBE, "fused_rerank", "topk_merge", "l1_distance"),
+         # the retrieval-augmented LM: the one-pass query_index and the
+         # brute-force ground truth
+         "lm_retrieval": (*PROBE, "fused_rerank", "l1_distance")}
 SYNC_BATCHES = 8            # drained batches before and after the compaction
 TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
@@ -261,6 +284,13 @@ DIST_QUANTILES = {"policy": 0.999, "truncating": 0.9}
 DIST_CPU_ROWS, DIST_CPU_QUERIES = 50_000, 64
 DRYRUN_ANN = dict(num_tables=8, num_hashes=16, width=256, num_probes=100,
                   candidate_cap=8, universe=512, k=50, rerank_chunk=1024)
+# the language models: every arch's reduced() on the card against the CPU
+# (float32, TF32 off), then smollm-360m at full width and depth: B 8 prompts
+# of 128 tokens, 64 greedy steps against a 192-slot cache; the JAX
+# package's own decode-against-forward bound (tests/test_models.py:77-78)
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_CACHE, LM_GREEDY = "smollm_360m", 8, 128, 192, 64
+LM_REDUCED_TOL, LM_FULL_TOL, LM_BF16_SHARE = 1e-3, 2e-2, 0.1
+LM_DECODE_STEPS = 8
 
 
 def log(msg: str) -> None:
@@ -315,11 +345,21 @@ def cuda_ms_pair(fa, fb, reps: int = 20, warm: int = 2):
     return float(np.median(ta)), float(np.median(tb))
 
 
+# the device times that came from CUDA events because every profiler window
+# of device_ms recorded nothing
+DEVICE_MS_FROM_EVENTS = []
+
+
 def device_ms(fn, reps: int = 10, tries: int = 3) -> float:
     """Device time of one call: torch.profiler's device-side time over
     ``reps`` calls (every kernel, memset and copy the call launches) / reps.
     A window in which the profiler recorded no device event at all (seen
-    now and then on the H100) is profiled again, up to ``tries`` times."""
+    now and then on the H100) is profiled again, up to ``tries`` times.
+    Where every window was empty (seen once in a whole run, late in it),
+    the time is that of two CUDA events around ``reps`` calls issued back to
+    back, / reps: the host's issue time counts where it is the longer, so
+    this reads at or above the profiler's time.  Such a time is logged and
+    kept in DEVICE_MS_FROM_EVENTS."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -336,7 +376,11 @@ def device_ms(fn, reps: int = 10, tries: int = 3) -> float:
             total += getattr(e, "self_cuda_time_total", 0.0) if dev is None else dev
         if total > 0:
             return total / 1e3 / reps
-    check(False, f"the profiler recorded device time in one of {tries} windows")
+    ms = event_ms(lambda: [fn() for _ in range(reps)]) / reps
+    DEVICE_MS_FROM_EVENTS.append(ms)
+    log(f"device_ms: the profiler recorded no device event in {tries} windows; "
+        f"{ms:.6f} ms a call from CUDA events around {reps} calls")
+    return ms
 
 
 def sass_loops(lib: Path, kernel: str, updates_per_lds) -> list:
@@ -1580,7 +1624,283 @@ def examples_phase() -> dict:
                      **{k: v for k, v in res.items()
                         if k not in ("recall", "answers", "gids")},
                      "printed_tail": printed.getvalue().strip().splitlines()[-2:]}
+    # the greedy generation example: the same tokens on the card and the CPU
+    from repro_torch.examples import generate
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        res = generate.main()
+    seconds = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        plain = generate.main(device="cpu")
+    check(np.array_equal(res["sequence"], plain["sequence"]),
+          "examples generate: the greedy sequence on the card == on the CPU")
+    out["generate"] = {"seconds": seconds, "arch": res["arch"],
+                       "shape": list(res["sequence"].shape),
+                       "printed_tail": printed.getvalue().strip().splitlines()[-1:]}
     return out
+
+
+def _lm_run(M, tf, cfg, params, device) -> dict:
+    """One reduced arch on ``device``: train_loss and its metrics, prefill
+    logits, LM_DECODE_STEPS teacher-forced decode steps and the caches they
+    return (tests/test_models.py's batch), each result on the CPU."""
+    rng = np.random.default_rng
+    b, s = 2, 16
+    batch = {"tokens": rng(0).integers(1, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": rng(1).integers(1, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.frontend or cfg.kind == "encdec":
+        batch["frontend"] = np.full((b, cfg.frontend_len, cfg.d_model), 0.02, np.float32)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    total, metrics = M.train_loss(params, cfg, batch)
+    out = {"total": total, **{k: metrics[k] for k in ("loss", "aux")},
+           "prefill": M.prefill(params, cfg, batch)}
+    ekv = None
+    if cfg.kind == "encdec":
+        ekv = tf.encode_cross_kv(params, cfg, tf.encoder_stack(params, cfg, batch["frontend"]))
+    caches = M.make_caches(cfg, b, 12, torch.float32, device=device)
+    for i in range(LM_DECODE_STEPS):
+        out[f"decode{i}"], caches = M.decode_step(params, cfg, caches,
+                                                  batch["tokens"][:, i:i + 1], i, enc_kv=ekv)
+    stack = [("caches", caches)]
+    while stack:
+        name, node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend((f"{name}.{k}", v) for k, v in node.items())
+        else:
+            out[name] = node
+    return {k: torch.as_tensor(v).float().cpu() for k, v in out.items()}
+
+
+def lm_phase() -> dict:
+    """The language models on the card.  Every arch's reduced() against the
+    same port on the CPU (float32, TF32 off): train_loss, prefill and
+    LM_DECODE_STEPS decode steps with their caches, within LM_REDUCED_TOL.
+    Then smollm-360m at full width and depth: in float32, LM_PROMPT
+    teacher-forced decode steps against the full forward's logits (and the
+    last one against prefill's) within LM_FULL_TOL; in its config's bf16
+    (the same seed-0 draws, which ``init_params`` casts), through
+    ``LanguageModel``: prefill logits within LM_BF16_SHARE x max |float32
+    logits| (a sanity bound: a wrong cast or mask, not rounding), prefill
+    ms, the prompt into a LM_CACHE-slot cache by LM_PROMPT single-token
+    steps from pos0 = 0 (the reference's multi-token decode step gives
+    every token position pos0, so it is not a prefill; the last step's
+    logits against prefill's, same bound), then LM_GREEDY greedy steps: ms
+    a step at B LM_BATCH, tokens per second, the peak of allocated memory
+    in each stage, and one profiled decode step and prefill (device busy,
+    launches, idle share)."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {"reduced": {}}
+    try:
+        with torch.no_grad():
+            for arch in configs.ARCHS:
+                t0 = time.perf_counter()
+                cfg = configs.get_reduced(arch)
+                params = M.init_params(cfg, device="cpu")
+                card = _lm_run(M, tf, cfg, tf.tree_map(lambda t: t.cuda(), params), "cuda")
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+                cpu = _lm_run(M, tf, cfg, params, "cpu")
+                check(sorted(card) == sorted(cpu) and all(
+                    torch.allclose(card[k], cpu[k], atol=LM_REDUCED_TOL, rtol=LM_REDUCED_TOL)
+                    for k in cpu), f"lm {arch}: reduced() on the card == on the CPU within "
+                    f"{LM_REDUCED_TOL}")
+                out["reduced"][arch] = {
+                    "max_abs_err": max(float((card[k] - cpu[k]).abs().max()) for k in cpu),
+                    "loss": float(card["loss"]), "card_seconds": card_s,
+                    "results": len(cpu)}
+            out["full"] = _lm_full(M, tf, configs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _lm_f32(M, tf, cfg32, toks) -> dict:
+    """smollm-360m in float32: LM_PROMPT teacher-forced decode steps against
+    the full forward (and the last against prefill); returns prefill's
+    logits and the errors.  Every tensor it makes is freed on return."""
+    vocab = cfg32.vocab
+    params = M.init_params(cfg32, device="cuda")
+    pos = tf._positions(LM_BATCH, LM_PROMPT, toks.device)
+    h, _, _ = tf.decoder_stack(params, cfg32, M._embed(params, cfg32, toks), positions=pos)
+    full = tf.logits_from_hidden(params, cfg32, h)[..., :vocab]
+    pre32 = M.prefill(params, cfg32, {"tokens": toks})[:, 0, :vocab].clone()
+    check(torch.allclose(pre32, full[:, -1], atol=1e-4, rtol=1e-4),
+          "lm full: prefill == the full forward's last position (float32)")
+    caches = M.make_caches(cfg32, LM_BATCH, LM_CACHE, torch.float32, device="cuda")
+    worst = 0.0
+    for i in range(LM_PROMPT):
+        lg, caches = M.decode_step(params, cfg32, caches, toks[:, i:i + 1], i)
+        lg = lg[:, 0, :vocab]
+        check(torch.allclose(lg, full[:, i], atol=LM_FULL_TOL, rtol=LM_FULL_TOL),
+              f"lm full: float32 decode step {i} == the full forward within {LM_FULL_TOL}")
+        worst = max(worst, float((lg - full[:, i]).abs().max()))
+    check(torch.allclose(lg, pre32, atol=LM_FULL_TOL, rtol=LM_FULL_TOL),
+          "lm full: the last teacher-forced step's logits == prefill's (float32)")
+    return {"pre32": pre32, "params": sum(t.numel() for t in _leaves(params)),
+            "decode_vs_forward_max_abs_err": worst,
+            "last_vs_prefill_max_abs_err": float((lg - pre32).abs().max()),
+            "max_abs_logit": float(full.abs().max())}
+
+
+def _peak_since(mark: dict, stage: str) -> None:
+    """Record the peak of allocated memory since the last mark, and start a
+    new one."""
+    torch.cuda.synchronize()
+    mark[stage] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _lm_full(M, tf, configs) -> dict:
+    """smollm-360m at full width and depth: float32 checks, then the bf16
+    model (the same draws, cast as ``init_params`` casts them) served
+    through ``LanguageModel``."""
+    cfg16 = configs.get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    vocab = cfg16.vocab
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()
+    batch = {"tokens": toks}
+    f32 = _lm_f32(M, tf, cfg32, toks)
+    pre32 = f32.pop("pre32")
+    torch.cuda.empty_cache()
+    res = {"config": {"name": cfg16.name, "n_layers": cfg16.n_layers, "d_model": cfg16.d_model,
+                      "n_heads": cfg16.n_heads, "n_kv": cfg16.n_kv, "d_ff": cfg16.d_ff,
+                      "vocab": vocab, "dtype": cfg16.dtype,
+                      "param_count": cfg16.param_count(), "params": f32.pop("params")},
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "cache": LM_CACHE, "greedy": LM_GREEDY,
+           "f32": f32}
+
+    # bfloat16, through the module: the same seed-0 draws, cast to bf16
+    memory = {"before": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = M.LanguageModel(cfg16, device="cuda")
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    _peak_since(memory, "weights")
+    pre16 = lm.prefill(batch)[:, 0, :vocab].float()
+    bound = LM_BF16_SHARE * float(pre32.abs().max())
+    err16 = float((pre16 - pre32).abs().max())
+    check(torch.isfinite(pre16).all() and err16 <= bound,
+          f"lm full: bf16 prefill logits within {bound:.3f} of float32's ({err16:.3f})")
+    prefill_ms = cuda_ms(lambda: lm.prefill(batch), reps=10)
+    _peak_since(memory, "prefill")
+    caches = lm.make_caches(LM_BATCH, LM_CACHE, torch.bfloat16)
+    check(caches["sub0"]["k"].dtype == torch.bfloat16 and
+          caches["sub0"]["k"].shape == (cfg16.n_groups, LM_BATCH, LM_CACHE, cfg16.n_kv,
+                                        cfg16.head_dim), "lm full: the bf16 cache's layout")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(LM_PROMPT):
+        lg, caches = lm.decode_step(caches, toks[:, i:i + 1], i)
+    stop.record()
+    stop.synchronize()
+    fill_ms = start.elapsed_time(stop)
+    _peak_since(memory, "fill")
+    last = lg[:, 0, :vocab].float()
+    err_fill = float((last - pre16).abs().max())
+    check(err_fill <= bound, f"lm full: bf16 cache fill's last logits within {bound:.3f} of "
+          f"prefill's ({err_fill:.3f})")
+    tok = torch.argmax(lg[..., :vocab], dim=-1).to(torch.int32)
+    seq = [tok]
+    start.record()
+    for i in range(LM_PROMPT, LM_PROMPT + LM_GREEDY):
+        lg, caches = lm.decode_step(caches, tok, i)
+        tok = torch.argmax(lg[..., :vocab], dim=-1).to(torch.int32)
+        seq.append(tok)
+    stop.record()
+    stop.synchronize()
+    greedy_ms = start.elapsed_time(stop)
+    _peak_since(memory, "greedy")
+    seq = torch.cat(seq, dim=1)
+    check(bool(torch.isfinite(lg[..., :vocab]).all()) and bool(((seq >= 0) & (seq < vocab)).all()),
+          "lm full: greedy logits finite, tokens inside the vocabulary")
+    step_ms = greedy_ms / LM_GREEDY
+    res["bf16"] = {"prefill_vs_f32_max_abs_err": err16, "bound": bound,
+                   "fill_vs_prefill_max_abs_err": err_fill,
+                   "prefill_ms": prefill_ms, "fill_ms": fill_ms,
+                   "fill_ms_per_step": fill_ms / LM_PROMPT,
+                   "decode_ms_per_step": step_ms,
+                   "tokens_per_s": LM_BATCH * 1e3 / step_ms,
+                   # the peak of allocated memory above what the earlier
+                   # phases left allocated when this one started
+                   "peak_allocated": max(memory[k] for k in memory if k != "before")
+                   - memory["before"],
+                   "memory_peaks": memory,
+                   "weights_bytes": sum(t.numel() * t.element_size() for t in lm.parameters()),
+                   "cache_bytes": sum(t.numel() * t.element_size() for t in _leaves(caches)),
+                   "greedy_tokens_first_row": seq[0, :8].tolist()}
+    res["bf16"]["decode_profile"] = device_split(
+        lambda: lm.decode_step(caches, tok, LM_CACHE - 1))
+    res["bf16"]["prefill_profile"] = device_split(lambda: lm.prefill(batch))
+    del lm, caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def lm_retrieval_phase(ops, kernel_modules):
+    """``retrieval_augmented_lm.main()`` on the card at its own sizes (the
+    ``lm_retrieval`` path): its claims (near-duplicate queries find their
+    source passage: top-1 hit rate >= 0.9; recall@5 >= 0.5); then its index
+    answered again, and its ground truth taken again, through the kernels'
+    plain versions on the card, bit for bit; then the same example on the
+    CPU: the embeddings within LM_REDUCED_TOL (TF32 off)."""
+    from repro_torch.core.baselines import brute_force_l1
+    from repro_torch.core.index import query_index
+    from repro_torch.examples import retrieval_augmented_lm as rag
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        printed = io.StringIO()
+
+        def quiet_main():
+            with contextlib.redirect_stdout(printed):
+                return rag.main()
+        res, launches = run_path("lm_retrieval", ops, quiet_main)
+        seconds = time.perf_counter() - t0
+        check(res["hit_rate"] >= 0.9 and res["recall"] >= 0.5,
+              f"lm_retrieval: hit rate {res['hit_rate']} >= 0.9, recall@5 {res['recall']} >= 0.5")
+        idx = res["index"]
+        before = dict(ops.LAUNCHES)
+        with plain_kernels(ops, *kernel_modules):
+            d, i = query_index(idx["cfg"], idx["state"], idx["queries"])
+            td, ti = brute_force_l1(idx["points"], idx["queries"], rag.K)
+        torch.cuda.synchronize()
+        check(dict(ops.LAUNCHES) == before, "lm_retrieval: the plain route launched no kernel")
+        for name, (wd, wi) in (("query", (d, i)), ("brute_force", (td, ti))):
+            got = res["answers"][name]
+            check(np.array_equal(got[0], wd.cpu().numpy())
+                  and np.array_equal(got[1], wi.cpu().numpy()),
+                  f"lm_retrieval: {name} through the kernels == their plain versions on the "
+                  f"card, bit for bit")
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = rag.main(device="cpu")
+        cpu_seconds = time.perf_counter() - t1
+        errs = {name: float(np.abs(res["embeddings"][name] - cpu["embeddings"][name]).max())
+                for name in ("memory", "query")}
+        check(all(np.allclose(res["embeddings"][n], cpu["embeddings"][n], atol=LM_REDUCED_TOL,
+                              rtol=LM_REDUCED_TOL) for n in errs),
+              f"lm_retrieval: the card's embeddings == the CPU's within {LM_REDUCED_TOL} {errs}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"seconds": seconds, "cpu_seconds": cpu_seconds, "hit_rate": res["hit_rate"],
+            "recall": res["recall"], "cpu_hit_rate": cpu["hit_rate"], "cpu_recall": cpu["recall"],
+            "embedding_max_abs_err": errs, "plain_equal": True,
+            "memory": list(res["embeddings"]["memory"].shape),
+            "printed_tail": printed.getvalue().strip().splitlines()[-1:]}, launches
 
 
 def nvidia_smi_line(fields: str = "name,power.limit") -> str:
@@ -1687,19 +2007,20 @@ def batch_ms_since(engine, recorded_before) -> list:
     return [ms for _, ms, _ in engine.flight.entries()[-n:]]
 
 
-def log_profile(tag, engine, batch) -> None:
-    """Where one served batch's time goes: torch.profiler device time by
-    operator, and the device's idle share of the batch's wall time."""
+def device_split(fn, reps: int = 3) -> dict:
+    """Where one call's time goes: its host-clock wall ms, torch.profiler's
+    device-busy ms and device launches a call, the device's idle share of
+    the wall time, and the ten largest device rows (ms a call, name)."""
     from torch.profiler import ProfilerActivity, profile
-    engine.query_batch(batch)                       # steady state first
+    fn()                                            # steady state first
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            engine.query_batch(batch)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    rows = []
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    rows, launches = [], 0
     for e in prof.key_averages():
         # device-side events only: an aten op's row repeats its kernels' time
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -1708,15 +2029,25 @@ def log_profile(tag, engine, batch) -> None:
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0.0)
         if dev > 0:
-            rows.append((dev / 1e3 / 3, e.key))
+            rows.append((dev / 1e3 / reps, e.key))
+            launches += e.count
     rows.sort(reverse=True)
-    if not rows:
+    busy = sum(ms for ms, _ in rows)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": launches / reps,
+            "idle_share": max(0.0, 1 - busy / wall_ms) if rows else None,
+            "top": [[ms, key[:90]] for ms, key in rows[:10]]}
+
+
+def log_profile(tag, engine, batch) -> None:
+    """Where one served batch's time goes: torch.profiler device time by
+    operator, and the device's idle share of the batch's wall time."""
+    split = device_split(lambda: engine.query_batch(batch))
+    if not split["top"]:
         log(f"profile of one {tag} batch: the profiler recorded no device time")
         return
-    busy = sum(ms for ms, _ in rows)
-    log(f"profile of one {tag} batch: wall {wall_ms:.3f} ms, device busy "
-        f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-    for ms, key in rows[:10]:
+    log(f"profile of one {tag} batch: wall {split['wall_ms']:.3f} ms, device busy "
+        f"{split['busy_ms']:.3f} ms, idle share {split['idle_share']:.3f}")
+    for ms, key in split["top"]:
         log(f"  {ms:8.3f} ms  {key[:90]}")
 
 
@@ -2023,10 +2354,35 @@ def main() -> int:
     t0 = time.perf_counter()
     examples, e_launches = run_path("examples", ops, examples_phase)
     for name, row in examples.items():
+        if name == "generate":
+            log(f"phase examples generate: {row['seconds']:.1f} s, {row['arch']} "
+                f"{row['shape']}, printed ... {json.dumps(row['printed_tail'])}")
+            continue
         log(f"phase examples {name}: {row['seconds']:.1f} s (CPU {row['cpu_seconds']:.1f} s), "
             f"recall@10 {row['recall']}, "
             f"printed ... {json.dumps(row['printed_tail'])}")
     log(f"phase examples: {time.perf_counter() - t0:.1f} s")
+
+    # -- lm: the language models; lm_retrieval: the model feeding the index --
+    lm = lm_phase()
+    for arch, row in lm["reduced"].items():
+        log(f"phase lm {arch}: reduced() card == CPU, max abs err {row['max_abs_err']:.3g} "
+            f"over {row['results']} results")
+    full = lm["full"]
+    log(f"phase lm {full['config']['name']} ({full['config']['params']} parameters, "
+        f"B {LM_BATCH}, prompt {LM_PROMPT}, cache {LM_CACHE}): float32 decode vs forward "
+        f"max abs err {full['f32']['decode_vs_forward_max_abs_err']:.4g}; bf16 prefill "
+        f"{full['bf16']['prefill_ms']:.3f} ms, decode {full['bf16']['decode_ms_per_step']:.3f} "
+        f"ms a step, {full['bf16']['tokens_per_s']:.0f} tokens/s, peak allocated "
+        f"{full['bf16']['peak_allocated'] / 2**30:.3f} GiB above the phase's start; "
+        f"{lm['seconds']:.1f} s "
+        f"[{smi}]")
+    lm["card"] = smi
+    log(json.dumps({"lm": lm}))
+    lm_rag, r_launches = lm_retrieval_phase(ops, (kfp, kfr, ktm, kl1, krw))
+    log(f"phase lm_retrieval: {lm_rag['seconds']:.1f} s (CPU {lm_rag['cpu_seconds']:.1f} s), "
+        f"hit rate {lm_rag['hit_rate']}, recall@5 {lm_rag['recall']}, embeddings vs CPU "
+        f"{json.dumps(lm_rag['embedding_max_abs_err'])}")
     # why a compacted self-hit can miss: its epicenter buckets overflow the cap
     seg = engine.index.segments[0]
     _, _, occ_e, _ = probe_index(cfg, seg.state, q_c[:inserted_rows.size])
@@ -2472,7 +2828,7 @@ def main() -> int:
     for path, counts in (("quality", q_launches), ("tuned", t_launches),
                          ("cluster", c_launches), ("cluster_process", p_launches),
                          *o_launches.items(), ("dist", d_launches), *s_launches.items(),
-                         ("examples", e_launches)):
+                         ("examples", e_launches), ("lm_retrieval", r_launches)):
         for row in rows:
             row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
                                        if row["name"] == "fused_probe" else counts[row["name"]])
@@ -2481,6 +2837,8 @@ def main() -> int:
         next(r for r in rows if r["name"] == "rw_hash")["table"][f"{path}_launches"] = \
             counts["rw_prefix_table"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"device times from CUDA events, the profiler having recorded nothing: "
+        f"{len(DEVICE_MS_FROM_EVENTS)} {DEVICE_MS_FROM_EVENTS}")
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

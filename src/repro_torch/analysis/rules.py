@@ -217,7 +217,8 @@ class HostSyncRule(Rule):
     paths.
 
     Scope: the staged pipeline, the segmented index, the kernels, the
-    serving engine, and the ``repro_torch.obs`` hot-path helpers — the
+    serving engine, the ``repro_torch.obs`` hot-path helpers, the language
+    models and the greedy decode loop of ``examples/generate.py`` — the
     modules where an unplanned ``.item()`` / ``int()`` / ``.cpu()`` on a
     card tensor stalls the device pipeline per batch.  ``repro_torch/obs/``
     is in scope because its primitives (``span``, ``record_ms``, the
@@ -238,9 +239,12 @@ class HostSyncRule(Rule):
     id = "r1-host-sync"
     description = "host sync on a device value in a hot-path module"
 
+    # the port adds the language models, whose decode step runs once a
+    # token, and the greedy decode loop of ``examples/generate.py``
     SCOPE = ("repro_torch/core/pipeline.py", "repro_torch/core/segments.py",
              "repro_torch/core/index.py", "repro_torch/serve/engine.py",
-             "repro_torch/kernels/", "repro_torch/obs/")
+             "repro_torch/kernels/", "repro_torch/obs/", "repro_torch/models/",
+             "repro_torch/examples/generate.py")
 
     def applies(self, path: str) -> bool:
         return path.startswith(self.SCOPE)

@@ -524,3 +524,41 @@ def test_quickstart_on_the_card(card, monkeypatch):
     on_card, on_cpu = quickstart.main(device="cuda"), quickstart.main(device="cpu")
     for card_t, cpu_t in zip(on_card["answers"]["query"], on_cpu["answers"]["query"]):
         _eq(card_t, cpu_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm_360m", "granite_moe_3b_a800m", "zamba2_1_2b",
+                                  "seamless_m4t_medium"])
+def test_lm_reduced_on_the_card_matches_cpu(card, arch):
+    """A reduced arch's prefill and 4 decode steps with the same draws on the
+    card and the CPU, float32 with TF32 off, within 1e-3."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    cfg = get_reduced(arch)
+    params = M.init_params(cfg, device="cpu")
+    toks = _t(np.random.default_rng(0).integers(1, cfg.vocab, (2, 8)).astype(np.int32))
+    batch = {"tokens": toks}
+    if cfg.kind == "encdec":
+        batch["frontend"] = torch.full((2, cfg.frontend_len, cfg.d_model), 0.02)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for dev in ("cpu", card):
+            p = tf.tree_map(lambda t: t.to(dev), params)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            ekv = None
+            if cfg.kind == "encdec":
+                ekv = tf.encode_cross_kv(p, cfg, tf.encoder_stack(p, cfg, b["frontend"]))
+            got = [M.prefill(p, cfg, b)]
+            caches = M.make_caches(cfg, 2, 6, torch.float32, device=dev)
+            for i in range(4):
+                lg, caches = M.decode_step(p, cfg, caches, b["tokens"][:, i:i + 1], i,
+                                           enc_kv=ekv)
+                got.append(lg)
+            outs.append([g.cpu() for g in got])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, atol=1e-3, rtol=1e-3)
