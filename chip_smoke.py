@@ -85,6 +85,22 @@ read just after, and must launch the kernels named in ``PATHS``):
                  0.5), its index's answers and ground truth again through
                  the kernels' plain versions on the card, bit for bit, and
                  its embeddings against the CPU's;
+  train          language-model training (no kernel of the repo on it): every
+                 arch's reduced() on the card against the CPU (float32, TF32
+                 off): the gradient of one batch (each leaf within
+                 TRAIN_GRAD_SHARE of its max |g|), then three train steps'
+                 losses and grad norms; ``smollm-360m`` at full width and
+                 depth (bf16 parameters, float32 moments, remat as
+                 configured), B 8 x S 128 from ``batch_at_step``: 20 steps
+                 through ``make_train_step`` (ms a step from CUDA events,
+                 the median after 2; tokens/s; the peak of allocated memory
+                 by stage; finite losses and grad norms, every leaf
+                 changed), one profiled step, the gradients with and without
+                 remat (equal within TRAIN_REMAT_SHARE, the peak without
+                 above the peak with) and one step without remat; then
+                 ``repro_torch.examples.train_smollm`` (``improved=yes``),
+                 and 100 steps resumed to 200 against the straight run;
+                 one ``{"train": ...}`` line;
   quality        the paper's protocol (``repro_torch.eval.QualityRun``) on
                  the same 1 M points and 256 queries at the JAX package's
                  full QualitySpec: the exact ground truth, 35 timed records
@@ -183,14 +199,14 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ``cluster_oracle_process_launches``,
                  ``cluster_oracle_tcp_launches``, ``dist_launches``,
                  ``host_syncs_launches``, ``host_syncs_rw_hash_launches``,
-                 ``examples_launches`` and ``lm_retrieval_launches``, its
-                 launches on those paths.  The probe's library call is the
+                 ``examples_launches``, ``lm_retrieval_launches`` and
+                 ``train_launches``, its launches on those paths.  The probe's library call is the
                  staged probe at the same cap (``stage_bucket_lookup``'s two
                  ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
                  whose valid candidates must equal the gather's.
 
 Prints one ``{"host_syncs": ...}`` line, one ``{"lm": ...}`` line, one
-``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
+``{"train": ...}`` line, one ``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
 ``{"cluster": ...}`` line, one ``{"dist": ...}`` line (each run's mesh,
 merge, backend and exchange, each rank's boot, build seconds and bytes
 sent a call, the query's wall ms: the maximum over ranks, median of 5
@@ -259,7 +275,9 @@ PATHS = {"ground_truth": ("l1_distance",),
          "examples": (*PROBE, "fused_rerank", "topk_merge", "l1_distance"),
          # the retrieval-augmented LM: the one-pass query_index and the
          # brute-force ground truth
-         "lm_retrieval": (*PROBE, "fused_rerank", "l1_distance")}
+         "lm_retrieval": (*PROBE, "fused_rerank", "l1_distance"),
+         # language-model training: eager torch, no kernel of the repo
+         "train": ()}
 SYNC_BATCHES = 8            # drained batches before and after the compaction
 TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
@@ -291,6 +309,20 @@ DRYRUN_ANN = dict(num_tables=8, num_hashes=16, width=256, num_probes=100,
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_CACHE, LM_GREEDY = "smollm_360m", 8, 128, 192, 64
 LM_REDUCED_TOL, LM_FULL_TOL, LM_BF16_SHARE = 1e-3, 2e-2, 0.1
 LM_DECODE_STEPS = 8
+# language-model training: every arch's reduced() one step on the card
+# against the CPU (float32, TF32 off; B 4 x S 32, the CPU tests' batch):
+# each gradient leaf within TRAIN_GRAD_SHARE of its max |g|, then
+# TRAIN_REDUCED_STEPS steps' losses and grad norms within TRAIN_STEP_RTOL
+# (an AdamW step turns a gradient's rounding into a sign, so parameters are
+# not compared); smollm-360m at full width and depth in bf16, B 8 x S 128,
+# TRAIN_STEPS steps (the step time the median after TRAIN_WARM), and its
+# gradients with and without remat within TRAIN_REMAT_SHARE (bf16);
+# repro_torch.examples.train_smollm straight and resumed half-way, losses
+# within TRAIN_RESUME_RTOL and parameters within TRAIN_RESUME_SHARE of a
+# leaf's max |value| (the card's reductions need not repeat bit for bit)
+TRAIN_GRAD_SHARE, TRAIN_STEP_RTOL, TRAIN_REDUCED_STEPS = 1e-3, 1e-3, 3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 128, 20, 2
+TRAIN_REMAT_SHARE, TRAIN_RESUME_RTOL, TRAIN_RESUME_SHARE = 2e-2, 1e-4, 1e-3
 
 
 def log(msg: str) -> None:
@@ -1849,6 +1881,231 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+def _train_batch(cfg, b: int, s: int, step: int, device) -> dict:
+    """``batch_at_step``'s tokens and labels (and a seeded frontend for the
+    frontend and enc-dec archs) on ``device``."""
+    from repro_torch.data.lm_synthetic import LmDataConfig, batch_at_step
+    tokens, labels = batch_at_step(LmDataConfig(vocab=cfg.vocab, global_batch=b, seq_len=s),
+                                   step)
+    batch = {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
+    if cfg.frontend or cfg.kind == "encdec":
+        batch["frontend"] = torch.from_numpy(np.random.default_rng(step).normal(
+            0, 0.02, (b, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _leaf_share(want: dict, got: dict) -> float:
+    """The largest of each leaf's max |got - want| over its max |want|."""
+    worst = 0.0
+    for w, g in zip(_leaves(want), _leaves(got)):
+        w, g = w.float().cpu(), g.float().cpu()
+        worst = max(worst, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    return worst
+
+
+def _train_reduced(arch: str) -> dict:
+    """One arch's reduced(): the gradient on the card against the CPU, then
+    TRAIN_REDUCED_STEPS train steps' losses and grad norms."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+    cfg = configs.get_reduced(arch)
+    params = M.init_params(cfg, device="cpu")
+    opt = OptConfig(lr=5e-3, warmup_steps=5)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tf.tree_map(lambda t: t.to(dev), params)
+        (total, metrics), grads = value_and_grad(cfg)(p, _train_batch(cfg, 4, 32, 0, dev))
+        state, step, curve = init_opt_state(p, opt), make_train_step(cfg, opt), []
+        for i in range(TRAIN_REDUCED_STEPS):
+            p, state, m = step(p, state, _train_batch(cfg, 4, 32, i, dev))
+            curve.append((m["loss"], m["grad_norm"]))
+        runs[dev] = {"values": [float(total), float(metrics["loss"]), float(metrics["aux"])],
+                     "grads": grads,
+                     "curve": [[float(a), float(b)] for a, b in curve]}
+    cpu, card = runs["cpu"], runs["cuda"]
+    share = _leaf_share(cpu["grads"], card["grads"])
+    check(share <= TRAIN_GRAD_SHARE, f"train {arch}: the card's gradient within "
+          f"{TRAIN_GRAD_SHARE} of each leaf's max |g| of the CPU's ({share:.3g})")
+    check(np.allclose(card["values"], cpu["values"], rtol=TRAIN_STEP_RTOL, atol=1e-6),
+          f"train {arch}: total, loss and aux on the card == the CPU's {card['values']} "
+          f"{cpu['values']}")
+    check(np.allclose(card["curve"], cpu["curve"], rtol=TRAIN_STEP_RTOL),
+          f"train {arch}: {TRAIN_REDUCED_STEPS} steps' losses and grad norms on the card == "
+          f"the CPU's {card['curve']} {cpu['curve']}")
+    return {"grad_share": share, "loss": card["values"][1], "curve": card["curve"],
+            "curve_max_rel_err": float(np.max(np.abs(np.subtract(card["curve"], cpu["curve"]))
+                                              / np.abs(cpu["curve"])))}
+
+
+def _train_full() -> dict:
+    """smollm-360m at full width and depth in its config's bf16 (remat on,
+    float32 moments), the launcher's AdamW: TRAIN_STEPS steps on
+    ``batch_at_step``'s B TRAIN_BATCH x S TRAIN_SEQ, each between two CUDA
+    events, the peak of allocated memory by stage above the phase's start,
+    one profiled step; then, at the trained parameters, the gradients with
+    remat and without (each one's peak) and one step without remat.  The
+    first draws stay on the host, so that the card holds only what
+    training holds."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+    cfg = configs.get_config(LM_ARCH)
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.opt_moment_dtype == "float32",
+          "train full: smollm-360m trains with remat, bf16 parameters, float32 moments")
+    seconds = {}
+    t0 = time.perf_counter()
+    host = M.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    seconds["draw"] = time.perf_counter() - t0
+    memory = {"before": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    p = tf.tree_map(lambda t: t.cuda(), host)
+    opt = OptConfig(lr=3e-3, moment_dtype=cfg.opt_moment_dtype, warmup_steps=20)
+    st = init_opt_state(p, opt)
+    _peak_since(memory, "weights_and_moments")
+    batches = [_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i, "cuda") for i in range(TRAIN_STEPS)]
+    step = make_train_step(cfg, opt)
+    ms, curve = [], []
+    t0 = time.perf_counter()
+    for batch in batches:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, st, m = step(p, st, batch)
+        stop.record()
+        ms.append((start, stop))
+        curve.append((m["loss"], m["grad_norm"]))
+    _peak_since(memory, "steps")
+    seconds["steps"] = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in ms]
+    curve = [[float(a), float(b)] for a, b in curve]
+    check(bool(np.isfinite(curve).all()), f"train full: every loss and grad norm finite {curve}")
+    changed = [not torch.equal(a, b.cpu()) for a, b in zip(_leaves(host), _leaves(p))]
+    check(all(changed), f"train full: every parameter leaf changed ({sum(changed)}/"
+          f"{len(changed)})")
+    del host
+    step_ms = float(np.median(ms[TRAIN_WARM:]))
+    t0 = time.perf_counter()
+    profile = device_split(lambda: step(p, st, batches[0]), reps=1)
+    _peak_since(memory, "profile")
+    seconds["profile"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    grads, grad_peak = {}, {}
+    for name, c in (("remat", cfg), ("no_remat", dataclasses.replace(cfg, remat=False))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, grads[name] = value_and_grad(c)(p, batches[0])
+        torch.cuda.synchronize()
+        grad_peak[name] = torch.cuda.max_memory_allocated() - base
+    share = _leaf_share(grads["remat"], grads["no_remat"])
+    check(share <= TRAIN_REMAT_SHARE, f"train full: the gradients without remat within "
+          f"{TRAIN_REMAT_SHARE} of each leaf's max |g| of remat's ({share:.3g})")
+    check(grad_peak["no_remat"] > grad_peak["remat"],
+          f"train full: the gradient's peak without remat {grad_peak['no_remat']} above "
+          f"remat's {grad_peak['remat']}")
+    del grads
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = make_train_step(dataclasses.replace(cfg, remat=False), opt)(p, st, batches[0])
+    stop.record()
+    stop.synchronize()
+    no_remat_step = {"ms": start.elapsed_time(stop), "loss": float(out[2]["loss"]),
+                     "peak_above": torch.cuda.max_memory_allocated() - base}
+    seconds["remat_checks"] = time.perf_counter() - t0
+    del out, p, st, batches
+    torch.cuda.empty_cache()
+    return {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "vocab": cfg.vocab, "dtype": cfg.dtype, "remat": cfg.remat,
+                       "remat_policy": cfg.remat_policy,
+                       "moment_dtype": cfg.opt_moment_dtype},
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+            "step_ms": step_ms, "step_ms_all": ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / step_ms,
+            "curve": curve, "peak_allocated": max(v for k, v in memory.items() if k != "before")
+            - memory["before"], "memory_peaks": memory,
+            "grad_peak_above": grad_peak, "remat_grad_share": share,
+            "no_remat_step": no_remat_step, "profile": profile, "seconds": seconds}
+
+
+def _train_example() -> dict:
+    """``repro_torch.examples.train_smollm.main()`` on the card: 200 steps
+    straight (its ``improved=yes``), then 100 steps, stopped, and resumed
+    to 200 from the checkpoint, against the straight run."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.examples import train_smollm
+    printed = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        def run(name, steps, resume):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                losses = train_smollm.main(steps=steps, ckpt_dir=os.path.join(root, name),
+                                           resume=resume)
+            printed[f"{name}_{steps}"] = out.getvalue().strip().splitlines()
+            return losses, time.perf_counter() - t0
+        straight, straight_s = run("straight", train_smollm.STEPS, False)
+        half = train_smollm.STEPS // 2
+        first, _ = run("resumed", half, False)
+        resumed, resumed_s = run("resumed", train_smollm.STEPS, True)
+        last = printed[f"straight_{train_smollm.STEPS}"][-1]
+        check(last.endswith("improved=yes"), f"train example: {last}")
+        check(any(line == f"resumed from step {half}"
+                  for line in printed[f"resumed_{train_smollm.STEPS}"]),
+              "train example: the second run resumed from its checkpoint")
+        check(len(first) + len(resumed) == len(straight) and np.allclose(
+            first + resumed, straight, rtol=TRAIN_RESUME_RTOL, atol=0),
+              f"train example: the resumed run's losses == the straight run's within "
+              f"{TRAIN_RESUME_RTOL}")
+        want = CheckpointManager(os.path.join(root, "straight")).restore_flat_step(
+            train_smollm.STEPS)
+        got = CheckpointManager(os.path.join(root, "resumed")).restore_flat_step(
+            train_smollm.STEPS)
+        check(sorted(want) == sorted(got), "train example: the same checkpoint leaves")
+        as_t = lambda a: torch.as_tensor(a).float()
+        share = max(float((as_t(got[k]) - as_t(want[k])).abs().max())
+                    / max(float(as_t(want[k]).abs().max()), 1e-30) for k in want)
+        check(share <= TRAIN_RESUME_SHARE, f"train example: the resumed run's parameters and "
+              f"moments within {TRAIN_RESUME_SHARE} of each leaf's max of the straight run's "
+              f"({share:.3g})")
+        exact = all(np.array_equal(np.asarray(want[k]), np.asarray(got[k])) for k in want
+                    if not torch.is_tensor(want[k]))
+    return {"last_line": last, "straight_s": straight_s, "resumed_s": resumed_s,
+            "loss_first": straight[0], "loss_last": straight[-1],
+            "resume_max_abs_loss_err": float(np.max(np.abs(np.subtract(first + resumed,
+                                                                       straight)))),
+            "resume_leaf_share": share, "resume_bit_for_bit": exact,
+            "printed_tail": printed[f"straight_{train_smollm.STEPS}"][-2:]}
+
+
+def train_phase() -> dict:
+    """Language-model training on the card (the ``train`` path): every
+    arch's reduced() against the CPU, smollm-360m at full width and depth,
+    and the training example with its resume."""
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        from repro_torch import configs
+        out = {"reduced": {arch: _train_reduced(arch) for arch in configs.ARCHS}}
+        out["reduced_s"] = time.perf_counter() - t_phase
+        out["full"] = _train_full()
+        t0 = time.perf_counter()
+        out["example"] = _train_example()
+        out["example_s"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def lm_retrieval_phase(ops, kernel_modules):
     """``retrieval_augmented_lm.main()`` on the card at its own sizes (the
     ``lm_retrieval`` path): its claims (near-duplicate queries find their
@@ -2383,6 +2640,28 @@ def main() -> int:
     log(f"phase lm_retrieval: {lm_rag['seconds']:.1f} s (CPU {lm_rag['cpu_seconds']:.1f} s), "
         f"hit rate {lm_rag['hit_rate']}, recall@5 {lm_rag['recall']}, embeddings vs CPU "
         f"{json.dumps(lm_rag['embedding_max_abs_err'])}")
+    # -- train: language-model training (no kernel of the repo) ---------------
+    train, tr_launches = run_path("train", ops, train_phase)
+    for arch, row in train["reduced"].items():
+        log(f"phase train {arch}: reduced() card == CPU, gradient within {row['grad_share']:.3g}"
+            f" of max |g|, {TRAIN_REDUCED_STEPS} steps' losses and grad norms within "
+            f"{row['curve_max_rel_err']:.3g}")
+    full, ex = train["full"], train["example"]
+    log(f"phase train {full['config']['name']} (bf16, remat, B {TRAIN_BATCH} x S {TRAIN_SEQ},"
+        f" {TRAIN_STEPS} steps): {full['step_ms']:.3f} ms a step, "
+        f"{full['tokens_per_s']:.0f} tokens/s, peak allocated "
+        f"{full['peak_allocated'] / 2**30:.3f} GiB above the phase's start; gradient peaks "
+        f"remat {full['grad_peak_above']['remat'] / 2**30:.3f} GiB, no remat "
+        f"{full['grad_peak_above']['no_remat'] / 2**30:.3f} GiB; loss "
+        f"{full['curve'][0][0]:.4f} -> {full['curve'][-1][0]:.4f}; profiled step wall "
+        f"{full['profile']['wall_ms']:.1f} ms, device busy {full['profile']['busy_ms']:.2f} ms,"
+        f" {full['profile']['launches']:.0f} launches, idle share "
+        f"{full['profile']['idle_share']} [{smi}]")
+    log(f"phase train example: {ex['last_line']}; resumed == straight within "
+        f"{ex['resume_leaf_share']:.3g} (bit for bit: {ex['resume_bit_for_bit']}); "
+        f"{train['seconds']:.1f} s")
+    train["card"] = smi
+    log(json.dumps({"train": train}))
     # why a compacted self-hit can miss: its epicenter buckets overflow the cap
     seg = engine.index.segments[0]
     _, _, occ_e, _ = probe_index(cfg, seg.state, q_c[:inserted_rows.size])
@@ -2828,7 +3107,8 @@ def main() -> int:
     for path, counts in (("quality", q_launches), ("tuned", t_launches),
                          ("cluster", c_launches), ("cluster_process", p_launches),
                          *o_launches.items(), ("dist", d_launches), *s_launches.items(),
-                         ("examples", e_launches), ("lm_retrieval", r_launches)):
+                         ("examples", e_launches), ("lm_retrieval", r_launches),
+                         ("train", tr_launches)):
         for row in rows:
             row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
                                        if row["name"] == "fused_probe" else counts[row["name"]])

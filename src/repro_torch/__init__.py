@@ -30,12 +30,17 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
   analysis/ the lint suite (``python -m repro_torch.analysis``: five rules
             in torch vocabulary, the dead-code report) and the
             ``REPRO_SANITIZE`` race sanitizer
-  examples/ ``quickstart``, ``ann_serving`` and ``cluster_serving``
+  models/   the language-model substrate (ten architectures) over
+            parameter trees, ``configs/`` their numbers
+  train/    AdamW and the train step (gradients by ``torch.autograd``)
+  examples/ ``quickstart``, ``ann_serving``, ``cluster_serving``,
+            ``generate``, ``retrieval_augmented_lm`` and ``train_smollm``
             (``python -m repro_torch.examples.<name>``)
-  data/     seeded synthetic datasets and the even-integer normalizer
-            (numpy, same bits as ``repro``)
+  data/     seeded synthetic datasets, the synthetic LM token stream and
+            the even-integer normalizer (numpy, same bits as ``repro``)
   launch/   ``python -m repro_torch.launch.serve``,
-            ``python -m repro_torch.launch.cluster_serve`` and the
+            ``python -m repro_torch.launch.cluster_serve``,
+            ``python -m repro_torch.launch.train`` and the
             distributed index (``dist_index``: row shards and query blocks
             over rank processes on ``torch.distributed``)
 

@@ -1,7 +1,9 @@
 """Sharded, atomic checkpointing, torch counterpart of ``repro.ckpt``.
 
-The on-disk layout is the JAX package's, byte for byte, so a directory
-written by either package restores in the other:
+The on-disk layout is the JAX package's, byte for byte (but for a bf16
+leaf's ``.npy`` header: the port writes its words as ``<u2``, where the JAX
+package may write ``<V2``; the manifest and the data are the same), so a
+directory written by either package restores in the other:
 
   * every leaf is one ``.npy`` (chunked along dim 0 into ``<leaf>.c<i>.npy``
     files above ``chunk_bytes``) plus one JSON manifest (shapes, dtypes,

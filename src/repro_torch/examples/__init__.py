@@ -6,6 +6,7 @@
   python -m repro_torch.examples.cluster_serving [--device cpu]
   python -m repro_torch.examples.generate [--arch smollm-360m] [--device cpu]
   python -m repro_torch.examples.retrieval_augmented_lm [--device cpu]
+  python -m repro_torch.examples.train_smollm [--device cpu]
 
 Each ``main(device=None, params_fn=None)`` runs on the card unless asked for
 the CPU, draws its hash parameters from a seed unless ``params_fn(cfg,
@@ -14,7 +15,9 @@ in the module constant ``SPEC``, checks its own claims (a failed ``assert``
 raises) and returns what it measured, with each step's (d, i) under
 ``answers``.  The two language-model examples draw their model parameters
 from a seed unless ``params_fn(cfg)`` (``generate``) or ``lm_params_fn(cfg)``
-(``retrieval_augmented_lm``) gives the tree.
+(``retrieval_augmented_lm``) gives the tree.  ``train_smollm``'s
+``main(device=None, steps, ckpt_dir, resume)`` runs the training launcher
+and returns each step's loss.
 """
 import argparse
 

@@ -9,9 +9,10 @@ MoE (llama4/granite), VLM backbone (phi-3-vision), encoder-decoder
 (mamba2).  ``src/repro_torch/configs/<arch>.py`` instantiates the exact
 assignment-sheet numbers.
 
-``remat``, ``remat_policy``, ``scan_unroll``, ``fsdp`` and
-``opt_moment_dtype`` shape the JAX package's compiled programs and its
-sharding; the port's forward reads none of them.
+``remat`` and ``remat_policy`` checkpoint the stacks' layer groups while
+grad is enabled; the training launcher takes ``opt_moment_dtype``.
+``scan_unroll`` and ``fsdp`` shape the JAX package's compiled programs and
+its sharding; the port reads neither.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Top-level model API: loss / prefill / decode across all families, the JAX
 package's ``models/model.py`` in torch.
 
-  * train    : tokens (B, S) -> next-token CE loss (the forward value and its
-               metrics; no gradient yet)
+  * train    : tokens (B, S) -> next-token CE loss and its metrics,
+               differentiable (``repro_torch.train`` takes its gradient)
   * prefill  : tokens (B, S) -> last-position logits
   * decode   : new tokens against a KV/SSM cache of length S_max
 
@@ -74,7 +74,7 @@ def _prompt(params, cfg: ModelConfig, batch):
 
 
 # --------------------------------------------------------------------------
-# Training loss (the forward value)
+# Training loss
 # --------------------------------------------------------------------------
 
 def train_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
@@ -95,7 +95,7 @@ def train_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     x, _, aux = _stack_forward(params, cfg, x, positions, enc_kv=enc_kv)
     logits = tf.logits_from_hidden(params, cfg, x)
     # stable logsumexp with f32 accumulation (logits may be bf16)
-    lmax = logits.amax(dim=-1, keepdim=True)
+    lmax = logits.amax(dim=-1, keepdim=True).detach()
     expsum = torch.exp((logits - lmax).float()).sum(dim=-1)
     logz = torch.log(expsum) + lmax[..., 0].float()
     # the label logit by a masked reduction over the vocab axis, as the

@@ -5,9 +5,15 @@ Layers are *grouped*: a group is ``cfg.group_size`` consecutive layers with
 (possibly) different static kinds — e.g. llama4 interleaves [dense, moe],
 gemma2 alternates [local, global].  Every group shares one stacked param
 tree (leading axis = n_groups), which the JAX package scans over; here a
-Python loop walks the groups.  ``remat``, ``remat_policy`` and
-``scan_unroll`` shape the reference's compiled scan and take no part in
-this forward.
+Python loop walks the groups, each stacked leaf unbound once a walk (its
+gradient is one ``stack`` of the per-layer gradients, where indexing each
+layer would write a zero-filled copy of the whole stack per layer).
+
+While grad is enabled, ``cfg.remat`` checkpoints each scanned body as the
+reference's ``jax.checkpoint`` does: ``'full'`` keeps only the body's
+inputs, ``'dots'`` also keeps its activation x weight products (the
+products with no batch dimension).  Without grad (serving) it takes no
+part; ``scan_unroll`` takes none either.
 
 Caches are trees stacked the same way.  The zamba2 hybrid applies a single
 *weight-shared* attention block every ``hybrid_attn_period`` layers, each
@@ -15,10 +21,12 @@ invocation with its own KV cache slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
 
@@ -28,22 +36,37 @@ from .ssm import mamba_block
 
 __all__ = ["param_specs", "init_params", "decoder_stack", "hybrid_stack",
            "encoder_stack", "encdec_decoder_stack", "encode_cross_kv",
-           "logits_from_hidden", "tree_map", "tree_index", "tree_stack"]
+           "logits_from_hidden", "tree_map", "tree_leaves", "tree_unbind",
+           "tree_stack"]
 
 
 # --------------------------------------------------------------------------
 # Trees of tensors (nested dicts, the JAX package's pytrees)
 # --------------------------------------------------------------------------
 
-def tree_map(fn, tree):
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of one tree, or of same-structured trees."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree):
+    """The leaves in the JAX package's order (dict keys sorted)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    else:
+        yield tree
 
 
-def tree_index(tree, i):
-    """Every leaf's slice ``[i]`` along its stacked leading axis."""
-    return tree_map(lambda a: a[i], tree)
+def tree_unbind(tree, n: int) -> List[Any]:
+    """The ``n`` slices of a tree along every leaf's stacked leading axis,
+    each leaf unbound once (views; ``None`` gives ``n`` Nones)."""
+    if tree is None:
+        return [None] * n
+    flat = tree_map(torch.unbind, tree)
+    return [tree_map(lambda parts: parts[i], flat) for i in range(n)]
 
 
 def tree_stack(trees):
@@ -214,16 +237,37 @@ def _apply_sub(kind: str, p: dict, x, cfg: ModelConfig, *, positions, cache,
     return mlp_block(p["mlp"], x, cfg), nc, 0.0
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``'dots'`` policy: keep the products with no batch dimension
+    (einsum runs an activation x weight product as ``mm`` or as ``bmm``
+    over a batch of one), recompute the rest."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` checkpointed by the configured policy while grad is enabled
+    (the reference's ``_remat``); otherwise ``fn`` itself."""
+    grad = torch.is_grad_enabled()  # repro: allow[r1-host-sync] autograd's mode, a host bool
+    if not (cfg.remat and grad):
+        return fn
+    context_fn = _ckpt.noop_context_fn
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                       _save_dots)
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
+
+
 def decoder_stack(params, cfg: ModelConfig, x, *, positions, caches=None,
                   cache_pos0=None):
     """Loop over layer groups.  caches: tree stacked (n_groups, ...) or None.
     Returns (x, new_caches, aux)."""
     kinds = cfg.sub_block_kinds()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_caches = []
-    for gi in range(cfg.n_groups):
-        gp = tree_index(params["blocks"], gi)
-        gcache = None if caches is None else tree_index(caches, gi)
+
+    def group_fn(x, aux, gp, gcache):
         new_cache = {}
         for j, kind in enumerate(kinds):
             sub_cache = None if gcache is None else gcache.get(f"sub{j}")
@@ -232,6 +276,14 @@ def decoder_stack(params, cfg: ModelConfig, x, *, positions, caches=None,
             if nc is not None:
                 new_cache[f"sub{j}"] = nc
             aux = aux + a
+        return x, aux, new_cache
+
+    fn = _remat(group_fn, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
+    for gp, gcache in zip(tree_unbind(params["blocks"], cfg.n_groups),
+                          tree_unbind(caches, cfg.n_groups)):
+        x, aux, new_cache = fn(x, aux, gp, gcache)
         new_caches.append(new_cache)
     return x, (tree_stack(new_caches) if new_caches[0] else None), aux
 
@@ -244,22 +296,28 @@ def hybrid_stack(params, cfg: ModelConfig, x, *, positions, caches=None,
               'shared': {'k': (n_shared, B, S, KV, hd), 'v': ...} or None}
     """
     period = cfg.hybrid_attn_period
+    starts = range(0, cfg.n_layers, period)
     new_shared_k, new_shared_v, new_mamba = [], [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    mamba_caches = None if caches is None else caches.get("mamba")
-    shared = None if caches is None else caches.get("shared")
-    for si, start in enumerate(range(0, cfg.n_layers, period)):
+    layers = tree_unbind(params["blocks"], cfg.n_layers)
+    mamba_caches = tree_unbind(None if caches is None else caches.get("mamba"), cfg.n_layers)
+    shared = tree_unbind(None if caches is None else caches.get("shared"), len(starts))
+
+    def layer_fn(x, lp, lc):
+        x, nc, _ = _apply_sub("mamba", lp, x, cfg, positions=positions, cache=lc,
+                              cache_pos0=cache_pos0)
+        return x, nc
+
+    fn = _remat(layer_fn, cfg)
+    for si, start in enumerate(starts):
         # shared attention block (weights shared; per-invocation KV cache)
-        sc = None if shared is None else {"k": shared["k"][si], "v": shared["v"][si]}
-        x, nc, _ = _apply_sub("attn", params["shared_attn"], x, cfg,
-                              positions=positions, cache=sc, cache_pos0=cache_pos0)
+        x, nc, _ = _apply_sub("attn", params["shared_attn"], x, cfg, positions=positions,
+                              cache=shared[si], cache_pos0=cache_pos0)
         if nc is not None:
             new_shared_k.append(nc["k"])
             new_shared_v.append(nc["v"])
         for layer in range(start, min(start + period, cfg.n_layers)):
-            lc = None if mamba_caches is None else tree_index(mamba_caches, layer)
-            x, nc, _ = _apply_sub("mamba", tree_index(params["blocks"], layer), x, cfg,
-                                  positions=positions, cache=lc, cache_pos0=cache_pos0)
+            x, nc = fn(x, layers[layer], mamba_caches[layer])
             if nc is not None:
                 new_mamba.append(nc)
     new_caches = None
@@ -278,23 +336,33 @@ def _positions(b: int, s: int, device, offset: int = 0) -> torch.Tensor:
 
 def encoder_stack(params, cfg: ModelConfig, x):
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    for layer in range(cfg.n_enc_layers):
-        x, _, _ = _apply_sub("attn", tree_index(params["enc_blocks"], layer), x, cfg,
-                             positions=positions, cache=None, cache_pos0=None,
-                             causal=False)
+
+    def layer_fn(x, lp):
+        x, _, _ = _apply_sub("attn", lp, x, cfg, positions=positions, cache=None,
+                             cache_pos0=None, causal=False)
+        return x
+
+    fn = _remat(layer_fn, cfg)
+    for lp in tree_unbind(params["enc_blocks"], cfg.n_enc_layers):
+        x = fn(x, lp)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def encdec_decoder_stack(params, cfg: ModelConfig, x, *, positions, enc_kv,
                          enc_valid, caches=None, cache_pos0=None):
     """Decoder with cross-attention.  enc_kv: stacked per-layer (ck, cv)."""
-    new_caches = []
-    for layer in range(cfg.n_layers):
-        gc = None if caches is None else tree_index(caches, layer)
-        x, nc, _ = _apply_sub("attn", tree_index(params["dec_blocks"], layer), x, cfg,
-                              positions=positions, cache=gc, cache_pos0=cache_pos0,
-                              xkv=(enc_kv["ck"][layer], enc_kv["cv"][layer]),
+    def layer_fn(x, lp, lc, ekv):
+        x, nc, _ = _apply_sub("attn", lp, x, cfg, positions=positions, cache=lc,
+                              cache_pos0=cache_pos0, xkv=(ekv["ck"], ekv["cv"]),
                               xvalid=enc_valid)
+        return x, nc
+
+    fn = _remat(layer_fn, cfg)
+    n = cfg.n_layers
+    new_caches = []
+    for lp, lc, ekv in zip(tree_unbind(params["dec_blocks"], n), tree_unbind(caches, n),
+                           tree_unbind(enc_kv, n)):
+        x, nc = fn(x, lp, lc, ekv)
         new_caches.append(nc)
     out = None if caches is None else tree_stack(new_caches)
     return x, out, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -562,3 +562,51 @@ def test_lm_reduced_on_the_card_matches_cpu(card, arch):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm_360m", "granite_moe_3b_a800m", "zamba2_1_2b",
+                                  "seamless_m4t_medium"])
+def test_train_step_on_the_card_matches_cpu(card, arch):
+    """A reduced arch's gradient and one train step with the same draws on
+    the card and the CPU, float32 with TF32 off: each gradient leaf within
+    1e-3 of the CPU leaf's max |g|; the loss and grad norm within 1e-4
+    relative; every parameter after the step within 2 lr plus 1e-4 of its
+    leaf's max (one step from zero moments: a sign flip of a gradient near
+    zero moves its parameter by 2 lr)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.lm_synthetic import LmDataConfig, batch_at_step
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+    cfg = get_reduced(arch)
+    params = M.init_params(cfg, device="cpu")
+    tokens, labels = batch_at_step(LmDataConfig(vocab=cfg.vocab, global_batch=4, seq_len=32), 0)
+    batch = {"tokens": _t(tokens), "labels": _t(labels)}
+    if cfg.frontend or cfg.kind == "encdec":
+        # not a constant: equal keys would leave the cross-attention's K/V
+        # weights a gradient of rounding noise alone
+        batch["frontend"] = _t(np.random.default_rng(2).normal(
+            0, 0.02, (4, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    opt = OptConfig(lr=5e-4, warmup_steps=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for dev in ("cpu", card):
+            p = tf.tree_map(lambda t: t.to(dev), params)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            (_, metrics), grads = value_and_grad(cfg)(p, b)
+            new, _, m = make_train_step(cfg, opt)(p, init_opt_state(p, opt), b)
+            outs.append(([float(metrics["loss"]), float(m["grad_norm"])],
+                         [g.cpu() for g in tf.tree_leaves(grads)],
+                         [t.cpu() for t in tf.tree_leaves(new)]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (want_v, want_g, want_p), (got_v, got_g, got_p) = outs
+    np.testing.assert_allclose(got_v, want_v, rtol=1e-4)
+    for w, g in zip(want_g, got_g):
+        assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max()) + 1e-12
+    for w, g in zip(want_p, got_p):
+        assert float((g - w).abs().max()) <= 2 * opt.lr + 1e-4 * float(w.abs().max())
