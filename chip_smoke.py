@@ -101,6 +101,22 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ``repro_torch.examples.train_smollm`` (``improved=yes``),
                  and 100 steps resumed to 200 against the straight run;
                  one ``{"train": ...}`` line;
+  shard          the sharding rules and the dry-run (no kernel on it): the
+                 dry-run's cells at full width and depth on fake ``cuda``
+                 tensors, each a ``python -m repro_torch.launch.dryrun``
+                 process, all started together (``smollm-360m`` train_4k,
+                 prefill_32k and decode_32k on (16, 16), train_4k on
+                 (2, 16, 16), ``mamba2-370m`` long_500k, the ANN cell):
+                 each ``ok``, collectives counted, useful FLOPs at most
+                 1.05 of the counted ones, no kernel launched, and each
+                 smollm cell's per-rank peak against the card's 80 GB
+                 (``fits_one_card``; one that does not fit holds its
+                 attention's float32 scores); meanwhile ``smollm-360m`` in
+                 float32 at full width and depth, placed by the rules on a
+                 (2, 2) mesh of four gloo ranks on the CPU, prefill's logits
+                 against the unsharded prefill on the card; one
+                 ``{"dryrun": ...}`` line and one ``{"shard_ranks": ...}``
+                 line;
   quality        the paper's protocol (``repro_torch.eval.QualityRun``) on
                  the same 1 M points and 256 queries at the JAX package's
                  full QualitySpec: the exact ground truth, 35 timed records
@@ -199,14 +215,16 @@ read just after, and must launch the kernels named in ``PATHS``):
                  ``cluster_oracle_process_launches``,
                  ``cluster_oracle_tcp_launches``, ``dist_launches``,
                  ``host_syncs_launches``, ``host_syncs_rw_hash_launches``,
-                 ``examples_launches``, ``lm_retrieval_launches`` and
-                 ``train_launches``, its launches on those paths.  The probe's library call is the
+                 ``examples_launches``, ``lm_retrieval_launches``,
+                 ``train_launches`` and ``shard_launches``, its launches on
+                 those paths.  The probe's library call is the
                  staged probe at the same cap (``stage_bucket_lookup``'s two
                  ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
                  whose valid candidates must equal the gather's.
 
 Prints one ``{"host_syncs": ...}`` line, one ``{"lm": ...}`` line, one
-``{"train": ...}`` line, one ``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
+``{"train": ...}`` line, one ``{"dryrun": ...}`` line, one
+``{"shard_ranks": ...}`` line, one ``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
 ``{"cluster": ...}`` line, one ``{"dist": ...}`` line (each run's mesh,
 merge, backend and exchange, each rank's boot, build seconds and bytes
 sent a call, the query's wall ms: the maximum over ranks, median of 5
@@ -277,7 +295,10 @@ PATHS = {"ground_truth": ("l1_distance",),
          # brute-force ground truth
          "lm_retrieval": (*PROBE, "fused_rerank", "l1_distance"),
          # language-model training: eager torch, no kernel of the repo
-         "train": ()}
+         "train": (),
+         # the dry-run (fake tensors: every wrapper takes its plain version)
+         # and the sharded forward: no kernel
+         "shard": ()}
 SYNC_BATCHES = 8            # drained batches before and after the compaction
 TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
@@ -323,6 +344,23 @@ LM_DECODE_STEPS = 8
 TRAIN_GRAD_SHARE, TRAIN_STEP_RTOL, TRAIN_REDUCED_STEPS = 1e-3, 1e-3, 3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 128, 20, 2
 TRAIN_REMAT_SHARE, TRAIN_RESUME_RTOL, TRAIN_RESUME_SHARE = 2e-2, 1e-4, 1e-3
+# sharding: the dry-run's cells at full width and depth, each a process of
+# its own (one fake world a process), all started together: (arch, shape,
+# multi_pod), and the ANN cell at the reference's defaults; a per-rank peak
+# above SHARD_HBM_BYTES does not fit one card; then the sharded forward of
+# SHARD_ARCH at full width and depth in float32 on a SHARD_MESH of four
+# gloo rank processes on the CPU against the unsharded prefill on the card,
+# within SHARD_SHARE of max |logit| (1.4e-6 measured on the first card call
+# of this phase).  The ranks do not share the card: gloo does not take
+# DTensor's collectives on CUDA tensors (on that call a rank of four died
+# with SIGSEGV); ``--dist-cards 4`` runs them under nccl, one rank a card.
+SHARD_CELLS = (("smollm-360m", "train_4k", False), ("smollm-360m", "prefill_32k", False),
+               ("smollm-360m", "decode_32k", False), ("smollm-360m", "train_4k", True),
+               ("mamba2-370m", "long_500k", False))
+SHARD_HBM_BYTES, SHARD_FRAC_MAX, SHARD_CELL_TIMEOUT_S = 80e9, 1.05, 600
+SHARD_ARCH, SHARD_MESH, SHARD_BATCH, SHARD_SEQ, SHARD_SHARE = \
+    "smollm_360m", (2, 2), 4, 128, 1e-5
+SHARD_RANKS_DEVICE = "cpu"
 
 
 def log(msg: str) -> None:
@@ -1406,7 +1444,9 @@ def dist_cards_main(cards: int) -> int:
     (N, 1) meshes under the three merges and (1, N), five timed calls each;
     every result equal across backends and merges, (1, N) equal to the flat
     index; then ``QualityRun.query_dist`` over the N cards (nccl ranks
-    spawned) equal to flat.  Prints one ``{"dist_cards": ...}`` line."""
+    spawned) equal to flat; on 4 cards also the shard phase's sharded
+    forward (``shard_ranks``) under nccl, one rank a card.  Prints one
+    ``{"dist_cards": ...}`` line."""
     from repro_torch.core.baselines import recall
     from repro_torch.core.index import IndexConfig, build_index, make_params, query_index
     from repro_torch.data import ann_synthetic as ds
@@ -1491,6 +1531,13 @@ def dist_cards_main(cards: int) -> int:
     check(oracle == {"devices": cards, "dist_matches_flat": True},
           f"dist_cards: check_distributed over {cards} cards: {oracle}")
     out["check_distributed"] = {**oracle, "seconds": time.perf_counter() - t0}
+    if cards == 4:      # the shard phase's sharded forward under nccl, one rank a card
+        out["shard_ranks"] = shard_ranks("nccl", "cuda")
+        check(out["shard_ranks"]["devices"] == [f"cuda:{r}" for r in range(4)],
+              f"dist_cards shard ranks: one card a rank ({out['shard_ranks']['devices']})")
+        log(f"dist_cards shard ranks (nccl): max abs err "
+            f"{max(out['shard_ranks']['max_abs_err']):.3g} of max |logit| "
+            f"{out['shard_ranks']['max_abs_logit']:.4g}, {out['shard_ranks']['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t_start
     log(json.dumps({"dist_cards": out}))
     log(nvidia_smi_line())
@@ -2106,6 +2153,129 @@ def train_phase() -> dict:
     return out
 
 
+def _dryrun_cells(out_dir: str) -> list:
+    """Start every dry-run cell (``SHARD_CELLS`` and the ANN cell) as a
+    process of its own, all together; returns (cell, json path, process)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started = []
+    for arch, shape, multi_pod in (*SHARD_CELLS, ("ann", None, False)):
+        path = os.path.join(out_dir, f"{arch}_{shape}_{int(multi_pod)}.json")
+        argv = ([sys.executable, "-m", "repro_torch.launch.dryrun", "--json", path]
+                + (["--ann"] if arch == "ann" else ["--arch", arch, "--shape", shape])
+                + (["--multi-pod"] if multi_pod else []))
+        started.append(((arch, shape, multi_pod), path, subprocess.Popen(
+            argv, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return started
+
+
+def _dryrun_results(started) -> list:
+    """Each started cell's record, checked: ``ok``; collective bytes above 0
+    (every cell has more than one rank); an LM cell's useful FLOPs at most
+    SHARD_FRAC_MAX of its counted FLOPs; each smollm cell's per-rank peak
+    against one card's memory (``fits_one_card``; a cell that does not fit
+    must hold at least its attention's float32 scores, which set it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    cells = []
+    for (arch, shape, multi_pod), path, proc in started:
+        try:
+            out, _ = proc.communicate(timeout=SHARD_CELL_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"dry-run cell {arch} {shape}: exit "
+              f"{proc.returncode}: {out[-2000:]}")
+        with open(path) as f:
+            (cell,) = json.load(f)
+        check(cell["status"] == "ok", f"dry-run cell {arch} {shape}: {cell}")
+        check(cell["coll_bytes"] > 0, f"dry-run cell {arch} {shape}: collectives counted")
+        if arch == "ann":
+            check(sum(cell["launches"].values()) == 0,
+                  f"dry-run ANN cell: no kernel launched on fake tensors ({cell['launches']})")
+        else:
+            check(cell["useful_flops_frac"] <= SHARD_FRAC_MAX,
+                  f"dry-run cell {arch} {shape}: useful FLOPs share "
+                  f"{cell['useful_flops_frac']} <= {SHARD_FRAC_MAX}")
+        if arch.startswith("smollm"):
+            cell["fits_one_card"] = cell["peak_bytes_device"] < SHARD_HBM_BYTES
+            if not cell["fits_one_card"]:
+                cfg, info = get_config(arch), dryrun.SHAPES[shape]
+                scores = (info["batch"] // (32 if multi_pod else 16) * cfg.n_heads
+                          * info["seq"] ** 2 * 4)
+                check(cell["peak_bytes_device"] >= scores,
+                      f"dry-run cell {arch} {shape}: a peak above one card's "
+                      f"{SHARD_HBM_BYTES:.3g} B holds the attention's scores ({scores} B)")
+        cells.append(cell)
+    return cells
+
+
+def shard_phase(launches: dict) -> dict:
+    """The ``shard`` path: the dry-run's cells on this machine (fake
+    tensors, started first, running while the ranks run), then the sharded
+    forward of SHARD_ARCH at full width on four rank processes against the
+    unsharded prefill on the card; returns the cells and the ranks' record,
+    and adds to ``launches`` those the processes made (the ANN cell's and
+    the ranks')."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        started = _dryrun_cells(tmp)
+        try:
+            ranks = shard_ranks("gloo", SHARD_RANKS_DEVICE)
+        finally:
+            cells = _dryrun_results(started)
+    for counts in (ranks.pop("launches"), *(c.get("launches", {}) for c in cells)):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    return {"dryrun": cells, "ranks": ranks, "seconds": time.perf_counter() - t_phase}
+
+
+def shard_ranks(backend: str, device: str) -> dict:
+    """SHARD_ARCH at full width and depth in float32 (TF32 off on the card),
+    its parameters and a B SHARD_BATCH x S SHARD_SEQ batch placed by the
+    sharding rules over a SHARD_MESH of four rank processes
+    (``sharding.run_sharded``), prefill's logits whole on every rank,
+    against the unsharded prefill of the same weights on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist_index as di
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as shd
+    cfg = dataclasses.replace(get_config(SHARD_ARCH), dtype="float32")
+    params = M.init_params(cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab, (SHARD_BATCH, SHARD_SEQ)).astype(np.int32))
+    runs = [{"shape": SHARD_MESH, "step": "prefill", "batch": {"tokens": toks}}]
+    t0 = time.perf_counter()
+    reports = di.spawn_ranks(4, shd.run_sharded, [(cfg, params, runs)], backend=backend,
+                             device=device, timeout_s=600)
+    seconds = time.perf_counter() - t0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = M.prefill({k: v for k, v in _on_card(params).items()}, cfg,
+                         {"tokens": toks.cuda()}).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    scale = float(want.abs().max())
+    errs = [float((rep["result"][0][0] - want).abs().max()) for rep in reports]
+    check(all(e <= SHARD_SHARE * scale for e in errs),
+          f"shard ranks ({backend}, {device}): sharded prefill within {SHARD_SHARE} of max "
+          f"|logit| {scale:.4g} of the unsharded one on the card: {errs}")
+    return {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "dtype": cfg.dtype}, "mesh": list(SHARD_MESH), "backend": backend,
+            "devices": [rep["device"] for rep in reports],
+            "batch": [SHARD_BATCH, SHARD_SEQ], "max_abs_logit": scale,
+            "max_abs_err": errs, "tolerance_share": SHARD_SHARE, "seconds": seconds,
+            "boot_s": [rep["boot_s"] for rep in reports],
+            "launches": {k: sum(rep["launches"][k] for rep in reports)
+                         for k in reports[0]["launches"]}}
+
+
+def _on_card(tree):
+    return {k: _on_card(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+
 def lm_retrieval_phase(ops, kernel_modules):
     """``retrieval_augmented_lm.main()`` on the card at its own sizes (the
     ``lm_retrieval`` path): its claims (near-duplicate queries find their
@@ -2662,6 +2832,25 @@ def main() -> int:
         f"{train['seconds']:.1f} s")
     train["card"] = smi
     log(json.dumps({"train": train}))
+    # -- shard: the dry-run's cells and a sharded forward (no kernel) ---------
+    sh_more = {}
+    shard, sh_launches = run_path("shard", ops, lambda: shard_phase(sh_more), more=sh_more)
+    check(sum(sh_launches.values()) == 0,
+          f"no kernel launched on the shard path ({json.dumps(sh_launches)})")
+    for cell in shard["dryrun"]:
+        log(f"phase shard dryrun {cell['arch']} {cell['shape']} {cell['mesh']}: flops "
+            f"{cell['flops']:.4g}, bytes {cell['bytes']:.4g}, collectives "
+            f"{json.dumps(cell['coll_breakdown'])}, peak {cell['peak_bytes_device']:.4g} B, "
+            f"terms {cell['t_compute_s']:.4g} / {cell['t_memory_s']:.4g} / "
+            f"{cell['t_collective_s']:.4g} s ({cell['bottleneck']})")
+    rk = shard["ranks"]
+    log(f"phase shard ranks ({rk['backend']} on {rk['devices']}, {rk['mesh']}): "
+        f"{rk['config']['name']} float32 prefill within {max(rk['max_abs_err']):.3g} of the "
+        f"unsharded card's (max |logit| {rk['max_abs_logit']:.4g}); {rk['seconds']:.1f} s; "
+        f"phase {shard['seconds']:.1f} s [{smi}]")
+    shard["card"] = smi
+    log(json.dumps({"dryrun": shard["dryrun"]}))
+    log(json.dumps({"shard_ranks": rk}))
     # why a compacted self-hit can miss: its epicenter buckets overflow the cap
     seg = engine.index.segments[0]
     _, _, occ_e, _ = probe_index(cfg, seg.state, q_c[:inserted_rows.size])
@@ -3108,7 +3297,7 @@ def main() -> int:
                          ("cluster", c_launches), ("cluster_process", p_launches),
                          *o_launches.items(), ("dist", d_launches), *s_launches.items(),
                          ("examples", e_launches), ("lm_retrieval", r_launches),
-                         ("train", tr_launches)):
+                         ("train", tr_launches), ("shard", sh_launches)):
         for row in rows:
             row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
                                        if row["name"] == "fused_probe" else counts[row["name"]])

@@ -31,7 +31,8 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             in torch vocabulary, the dead-code report) and the
             ``REPRO_SANITIZE`` race sanitizer
   models/   the language-model substrate (ten architectures) over
-            parameter trees, ``configs/`` their numbers
+            parameter trees, ``configs/`` their numbers; ``sharding``, the
+            per-(config, mesh) specs and their DTensor placements
   train/    AdamW and the train step (gradients by ``torch.autograd``)
   examples/ ``quickstart``, ``ann_serving``, ``cluster_serving``,
             ``generate``, ``retrieval_augmented_lm`` and ``train_smollm``
@@ -40,9 +41,13 @@ nothing of ``jax`` or ``repro``.  Layout mirrors the JAX package:
             the even-integer normalizer (numpy, same bits as ``repro``)
   launch/   ``python -m repro_torch.launch.serve``,
             ``python -m repro_torch.launch.cluster_serve``,
-            ``python -m repro_torch.launch.train`` and the
+            ``python -m repro_torch.launch.train``, the
             distributed index (``dist_index``: row shards and query blocks
-            over rank processes on ``torch.distributed``)
+            over rank processes on ``torch.distributed``), the production
+            meshes (``mesh``) and ``python -m repro_torch.launch.dryrun``
+            (one step of every cell traced on fake tensors on a rank of a
+            fake 256- or 512-rank world; ``roofline``, its terms on one
+            H100)
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); with no card they raise.  The package itself imports

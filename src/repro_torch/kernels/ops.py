@@ -2,13 +2,17 @@
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor runs the kernel's plain-torch version, a CUDA tensor launches the
-CUDA kernel — and raises if the kernel cannot be built or launched.  There
-is no switch and no fallback from a kernel to its plain version.
+CUDA kernel — and raises if the kernel cannot be built or launched.  A fake
+tensor (the dry-run's: a device but no memory) takes the plain version,
+which gives the result's shapes.  There is no switch and no fallback from a
+kernel to its plain version.
 
 ``LAUNCHES`` counts kernel launches per kernel (``reset_launches`` zeroes
 it), so a run can show that it went through the kernels.
 """
 from __future__ import annotations
+
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ._build import LAUNCHES, reset_launches
 from .fused_probe import (compact_gather, compact_gather_cuda, fused_probe_cuda,
@@ -26,7 +30,9 @@ __all__ = ["LAUNCHES", "reset_launches", "topk_merge", "fused_rerank",
 
 
 def _on_cuda(t) -> bool:
-    return t.is_cuda
+    """A card's tensor with memory behind it.  A fake tensor (the dry-run
+    traces on them) takes the plain version, which gives its shapes."""
+    return t.is_cuda and not isinstance(t, FakeTensor)
 
 
 def topk_merge(da, ia, db, ib):

@@ -74,7 +74,8 @@ def rank_device(backend: str, device, rank: int, world: int) -> torch.device:
     backend the device cannot take.  'nccl' takes one card a rank
     (``cuda:rank``); 'gloo' takes the device asked for (``None`` = the
     card), a bare 'cuda' meaning ``cuda:(rank mod cards)``, so that ranks
-    share cards when there are fewer cards than ranks."""
+    share cards when there are fewer cards than ranks; 'fake' (the
+    dry-run's group, no peer behind it) as 'gloo'."""
     if backend == "nccl":
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'nccl' needs a CUDA card, and none is "
@@ -88,8 +89,8 @@ def rank_device(backend: str, device, rank: int, world: int) -> torch.device:
                 "card(s) would put two ranks on one card, which NCCL refuses; pass "
                 "backend='gloo' (the exchanges then go through the host)")
         return torch.device("cuda", rank)
-    if backend != "gloo":
-        raise ValueError(f"unknown backend {backend!r}: 'nccl' or 'gloo'")
+    if backend not in ("gloo", "fake"):
+        raise ValueError(f"unknown backend {backend!r}: 'nccl', 'gloo' or 'fake'")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())

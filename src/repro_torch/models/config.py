@@ -10,9 +10,10 @@ MoE (llama4/granite), VLM backbone (phi-3-vision), encoder-decoder
 assignment-sheet numbers.
 
 ``remat`` and ``remat_policy`` checkpoint the stacks' layer groups while
-grad is enabled; the training launcher takes ``opt_moment_dtype``.
-``scan_unroll`` and ``fsdp`` shape the JAX package's compiled programs and
-its sharding; the port reads neither.
+grad is enabled; the training launcher takes ``opt_moment_dtype``;
+``fsdp`` adds the data axes to the sharding rules (``models.sharding``).
+``scan_unroll`` shapes the JAX package's compiled programs; the port does
+not read it.
 """
 from __future__ import annotations
 

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .sharding import is_dtensor, run_on_shards, weight_einsum, whole_unless_divides
 
 __all__ = ["NEG_INF", "rms_norm", "rope", "softcap", "attention",
            "attention_chunked", "attn_block", "cross_kv", "mlp_block",
@@ -83,6 +84,13 @@ def attention_chunked(q, k, v, *, q_pos, window: int, cap: float,
     every block entirely outside it; online softmax over the visible KV
     blocks with float32 statistics.
     """
+    if is_dtensor(q):
+        # by batch and head, each rank on its shards (heads whole where the
+        # KV heads do not divide over the ranks)
+        return run_on_shards(
+            lambda q, k, v, p: attention_chunked(q, k, v, q_pos=p, window=window, cap=cap,
+                                                 chunk=chunk),
+            whole_unless_divides(q, 2, k.shape[2]), k, v, q_pos, dims=(0, 2))
     b, s, nh, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     if s != t:
@@ -137,6 +145,15 @@ def attention(q, k, v, *, q_pos, kv_pos, kv_valid: Optional[torch.Tensor],
     float32 divided by sqrt(hd), the softcap before the mask, probabilities
     cast to v's dtype.
     """
+    if is_dtensor(q):
+        # by batch and head, each rank on its shards (heads whole where the
+        # KV heads do not divide over the ranks)
+        return run_on_shards(
+            lambda q, k, v, qp, kp, valid: attention(
+                q, k, v, q_pos=qp, kv_pos=kp, kv_valid=valid, causal=causal,
+                window=window, cap=cap),
+            whole_unless_divides(q, 2, k.shape[2]), k, v, q_pos, kv_pos, kv_valid,
+            dims=(0, 2))
     b, s, nh, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = nh // kv
@@ -178,9 +195,9 @@ def attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
     Python int.
     """
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = torch.einsum("bsd,dnh->bsnh", h, p["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", h, p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", h, p["wv"])
+    q = weight_einsum("bsd,dnh->bsnh", h, p["wq"])
+    k = weight_einsum("bsd,dnh->bsnh", h, p["wk"])
+    v = weight_einsum("bsd,dnh->bsnh", h, p["wv"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     new_cache = None
@@ -188,7 +205,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
         if causal and cfg.attn_chunk > 0 and x.shape[1] > cfg.attn_chunk:
             out = attention_chunked(q, k, v, q_pos=positions, window=window,
                                     cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
-            y = torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+            y = weight_einsum("bsnh,nhd->bsd", out, p["wo"])
             x = x + y
             if xattn_kv is not None:
                 raise NotImplementedError("chunked path: no cross-attn")
@@ -205,24 +222,24 @@ def attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
         new_cache = {"k": kk, "v": vv}
     out = attention(q, kk, vv, q_pos=positions, kv_pos=kv_pos, kv_valid=kv_valid,
                     causal=causal, window=window, cap=cfg.attn_softcap)
-    y = torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+    y = weight_einsum("bsnh,nhd->bsd", out, p["wo"])
     x = x + y
     if xattn_kv is not None:
         h = rms_norm(x, p["xln"], cfg.norm_eps)
-        cq = torch.einsum("bsd,dnh->bsnh", h, p["cwq"])
+        cq = weight_einsum("bsd,dnh->bsnh", h, p["cwq"])
         ck, cv = xattn_kv
         xpos = torch.arange(ck.shape[1], dtype=torch.int32,
                             device=x.device)[None].expand(x.shape[0], ck.shape[1])
         out = attention(cq, ck, cv, q_pos=positions, kv_pos=xpos,
                         kv_valid=xattn_valid, causal=False, window=0, cap=0.0)
-        x = x + torch.einsum("bsnh,nhd->bsd", out, p["cwo"])
+        x = x + weight_einsum("bsnh,nhd->bsd", out, p["cwo"])
     return x, new_cache
 
 
 def cross_kv(p: dict, enc_out: torch.Tensor):
     """Project encoder output to cross-attention K/V once per sequence."""
-    ck = torch.einsum("bsd,dnh->bsnh", enc_out, p["cwk"])
-    cv = torch.einsum("bsd,dnh->bsnh", enc_out, p["cwv"])
+    ck = weight_einsum("bsd,dnh->bsnh", enc_out, p["cwk"])
+    cv = weight_einsum("bsd,dnh->bsnh", enc_out, p["cwv"])
     return ck, cv
 
 
@@ -240,9 +257,9 @@ def _act(gate: torch.Tensor, up: torch.Tensor, kind: str) -> torch.Tensor:
 
 def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    gu = torch.einsum("bsd,dcf->bscf", h, p["wi"])          # (B, S, 2, F)
+    gu = weight_einsum("bsd,dcf->bscf", h, p["wi"])         # (B, S, 2, F)
     act = _act(gu[..., 0, :], gu[..., 1, :], cfg.act)
-    return x + torch.einsum("bsf,fd->bsd", act, p["wo"])
+    return x + weight_einsum("bsf,fd->bsd", act, p["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -280,8 +297,8 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ModelConfig) -> dict:
     cap = moe_capacity(cfg, g)
 
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    xt = h.reshape(ng, g, d)
-    logits = torch.einsum("ntd,de->nte", xt.float(), p["router"].float())
+    xt = whole_unless_divides(h, 0, ng).reshape(ng, g, d)
+    logits = weight_einsum("ntd,de->nte", xt.float(), p["router"].float())
     pad_mask = torch.arange(ep, device=x.device) >= cfg.n_experts
     logits = torch.where(pad_mask[None, None, :], NEG_INF, logits)
     # lax.top_k: ties go to the lower index (a stable descending sort)
@@ -316,10 +333,17 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
     combine = torch.einsum("ntke,ntkc,ntk->ntec", onehot, slot_oh, top_w)
 
     xe = torch.einsum("ntec,ntd->necd", dispatch.to(xt.dtype), xt)   # (N,E,C,D)
-    gu = torch.einsum("necd,eduf->necuf", xe, p["wi"])        # (N,E,C,2,F)
+    gu = weight_einsum("necd,eduf->necuf", xe, p["wi"])        # (N,E,C,2,F)
     act = _act(gu[..., 0, :], gu[..., 1, :], cfg.act)
-    ye = torch.einsum("necf,efd->necd", act, p["wo"])
-    y = torch.einsum("necd,ntec->ntd", ye, combine.to(xt.dtype))
+    ye = weight_einsum("necf,efd->necd", act, p["wo"])
+    if is_dtensor(ye):  # repro: allow[r1-host-sync] a type test, no device read
+        # the (E, C) contraction flattened expert-major: the einsum's own
+        # (C, E) order makes E on 'model' a strided shard, whose sizes
+        # DTensor cannot take on fake tensors
+        n, e, c, _ = ye.shape
+        y = torch.bmm(combine.to(xt.dtype).reshape(n, -1, e * c), ye.reshape(n, e * c, d))
+    else:
+        y = torch.einsum("necd,ntec->ntd", ye, combine.to(xt.dtype))
 
     # load-balance aux loss (Switch/GShard): E * sum(frac_tokens * frac_prob)
     probs = torch.softmax(r["logits"], dim=-1)

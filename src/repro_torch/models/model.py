@@ -21,12 +21,14 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
 
 from . import transformer as tf
 from .config import ModelConfig
+from .sharding import hold_to_batch, is_dtensor
 
 __all__ = ["init_params", "train_loss", "make_caches", "prefill", "decode_step",
            "LanguageModel"]
@@ -38,10 +40,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    """Embedding rows times sqrt(d_model) cast to the embedding dtype."""
+    """Embedding rows times sqrt(d_model) cast to the embedding dtype.
+    Sharded, the rows come from ``F.embedding`` (DTensor gathers a
+    vocab-sharded table's rows where they lie and sums them; indexing
+    would all-gather the table) and the result is held to the batch spec."""
     emb = params["embed"]
     scale = torch.full((), float(np.sqrt(np.float32(cfg.d_model))), dtype=emb.dtype,
                        device=emb.device)
+    if is_dtensor(emb):
+        return hold_to_batch(F.embedding(tokens, emb)) * scale
     return emb[tokens] * scale
 
 
@@ -96,13 +103,13 @@ def train_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     logits = tf.logits_from_hidden(params, cfg, x)
     # stable logsumexp with f32 accumulation (logits may be bf16)
     lmax = logits.amax(dim=-1, keepdim=True).detach()
-    expsum = torch.exp((logits - lmax).float()).sum(dim=-1)
+    expsum = hold_to_batch(torch.exp((logits - lmax).float()).sum(dim=-1))
     logz = torch.log(expsum) + lmax[..., 0].float()
     # the label logit by a masked reduction over the vocab axis, as the
     # reference computes it
     vocab_iota = torch.arange(cfg.vocab_padded, dtype=torch.int32, device=x.device)
     label_mask = vocab_iota[None, None, :] == labels[..., None].to(torch.int32)
-    lab_logit = torch.where(label_mask, logits, 0.0).sum(dim=-1).float()
+    lab_logit = hold_to_batch(torch.where(label_mask, logits, 0.0).sum(dim=-1).float())
     nll = (logz - lab_logit) * valid
     n_valid = valid.sum()
     loss = nll.sum() / torch.clamp(n_valid, min=1)

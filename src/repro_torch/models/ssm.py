@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .sharding import is_dtensor, run_on_shards, weight_einsum
 from .layers import rms_norm
 
 __all__ = ["ssd_chunked", "mamba_block"]
@@ -44,6 +45,27 @@ def _repeat(t: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
     shape = t.shape
     t = t.unsqueeze(dim + 1).expand(*shape[:dim + 1], rep, *shape[dim + 1:])
     return t.reshape(*shape[:dim], shape[dim] * rep, *shape[dim + 1:])
+
+
+def _recurrence(chunk_decay, states):
+    """The inter-chunk state recurrence from a zero state: (the state entering
+    each chunk (B,nc,H,N,P), the final state (B,H,N,P))."""
+    bsz, nc, h, n, p = states.shape
+    s = torch.zeros((bsz, h, n, p), dtype=states.dtype, device=states.device)
+    prev = []
+    for ci in range(nc):
+        prev.append(s)
+        s = s * chunk_decay[:, ci, :, None, None].to(s.dtype) + states[:, ci]
+    return torch.stack(prev, dim=1), s
+
+
+def _step(b1, c1, s, decay, x1):
+    """One token of the recurrence: s' = exp(dt*A) s + B dt x; y = C s'.
+    b1, c1 (B,H,N), s (B,H,N,P) float32, decay (B,H), x1 (B,H,P);
+    returns (y (B,H,P), s')."""
+    upd = torch.einsum("bhn,bhp->bhnp", b1.float(), x1.float())
+    s = s * decay[:, :, None, None] + upd
+    return torch.einsum("bhn,bhnp->bhp", c1.float(), s), s
 
 
 def ssd_chunked(x, dt_a, b, c, chunk: int):
@@ -78,12 +100,11 @@ def ssd_chunked(x, dt_a, b, c, chunk: int):
                           bc, decay_to_end.to(bc.dtype), xc.to(bc.dtype))
     # ---- inter-chunk recurrence ----
     chunk_decay = torch.exp(a_cum[:, :, -1, :])                 # (B,nc,H)
-    s = torch.zeros((bsz, h, n, p), dtype=states.dtype, device=x.device)
-    prev = []
-    for ci in range(nc):
-        prev.append(s)
-        s = s * chunk_decay[:, ci, :, None, None].to(s.dtype) + states[:, ci]
-    prev_states = torch.stack(prev, dim=1)                      # (B,nc,H,N,P)
+    if is_dtensor(states):  # repro: allow[r1-host-sync] a type test, no device read
+        # elementwise over the batch and the heads: each rank on its shards
+        prev_states, s = run_on_shards(_recurrence, chunk_decay, states, dims=(0, 2), ref=1)
+    else:
+        prev_states, s = _recurrence(chunk_decay, states)
     decay_from_start = torch.exp(a_cum)                         # (B,nc,Q,H)
     y_off = torch.einsum("bcihn,bcih,bchnp->bcihp",
                          cc, decay_from_start.to(cc.dtype), prev_states)
@@ -117,9 +138,9 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     din = cfg.d_inner
 
     hin = rms_norm(x, p["ln"], cfg.norm_eps)
-    xz = torch.einsum("bld,de->ble", hin, p["wxz"])             # (B,L,2*din)
+    xz = weight_einsum("bld,de->ble", hin, p["wxz"])             # (B,L,2*din)
     xin, z = xz[..., :din], xz[..., din:]
-    bcd = torch.einsum("bld,de->ble", hin, p["wbcdt"])          # (B,L,2GN+H)
+    bcd = weight_einsum("bld,de->ble", hin, p["wbcdt"])          # (B,L,2GN+H)
     bproj = bcd[..., : g * n]
     cproj = bcd[..., g * n: 2 * g * n]
     dt = bcd[..., 2 * g * n:]                                   # (B,L,H)
@@ -146,17 +167,18 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         rep = h_heads // g
         b1 = _repeat(bproj[:, 0], rep, 1)                       # (B,H,N)
         c1 = _repeat(cproj[:, 0], rep, 1)
-        s = cache["ssm"]
         decay = torch.exp(dt_a[:, 0])                           # (B,H)
-        upd = torch.einsum("bhn,bhp->bhnp", b1.float(), xdt[:, 0].float())
-        s = s * decay[:, :, None, None] + upd
-        y = torch.einsum("bhn,bhnp->bhp", c1.float(), s)
+        if is_dtensor(x):
+            # elementwise over the batch and the heads: each rank on its shards
+            y, new_ssm = run_on_shards(_step, b1, c1, cache["ssm"], decay, xdt[:, 0],
+                                       dims=(0, 1), ref=2)
+        else:
+            y, new_ssm = _step(b1, c1, cache["ssm"], decay, xdt[:, 0])
         y = y[:, None].to(x.dtype)                              # (B,1,H,P)
-        new_ssm = s
 
     y = y + xh * p["d_skip"][None, None, :, None].to(y.dtype)
     y = y.reshape(bsz, l, din)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["gate_norm"], cfg.norm_eps)
-    out = x + torch.einsum("ble,ed->bld", y, p["wout"])
+    out = x + weight_einsum("ble,ed->bld", y, p["wout"])
     new_cache = None if cache is None else {"conv": new_conv, "ssm": new_ssm}
     return out, new_cache

@@ -32,6 +32,7 @@ from repro_torch import resolve_device
 
 from .config import ModelConfig
 from .layers import attn_block, mlp_block, moe_block, rms_norm, softcap
+from .sharding import hold_to_batch, weight_einsum
 from .ssm import mamba_block
 
 __all__ = ["param_specs", "init_params", "decoder_stack", "hybrid_stack",
@@ -223,18 +224,20 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def _apply_sub(kind: str, p: dict, x, cfg: ModelConfig, *, positions, cache,
                cache_pos0, causal=True, xkv=None, xvalid=None):
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, aux_loss); a sharded x comes back held to the
+    batch spec after each block."""
     if kind == "mamba":
         x, nc = mamba_block(p["mamba"], x, cfg, cache=cache)
-        return x, nc, 0.0
+        return hold_to_batch(x), nc, 0.0
     window = cfg.sliding_window if kind == "attn_local" else 0
     x, nc = attn_block(p["attn"], x, cfg, positions=positions, cache=cache,
                        cache_pos0=cache_pos0, window=window, causal=causal,
                        xattn_kv=xkv, xattn_valid=xvalid)
+    x = hold_to_batch(x)
     if kind == "moe":
         x, aux = moe_block(p["moe"], x, cfg)
-        return x, nc, aux
-    return mlp_block(p["mlp"], x, cfg), nc, 0.0
+        return hold_to_batch(x), nc, aux
+    return hold_to_batch(mlp_block(p["mlp"], x, cfg)), nc, 0.0
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -371,8 +374,8 @@ def encdec_decoder_stack(params, cfg: ModelConfig, x, *, positions, enc_kv,
 def encode_cross_kv(params, cfg: ModelConfig, enc_out):
     """Precompute stacked per-decoder-layer cross K/V from encoder output."""
     attn = params["dec_blocks"]["attn"]
-    return {"ck": torch.einsum("bsd,ldnh->lbsnh", enc_out, attn["cwk"]),
-            "cv": torch.einsum("bsd,ldnh->lbsnh", enc_out, attn["cwv"])}
+    return {"ck": weight_einsum("bsd,ldnh->lbsnh", enc_out, attn["cwk"]),
+            "cv": weight_einsum("bsd,ldnh->lbsnh", enc_out, attn["cwv"])}
 
 
 def logits_from_hidden(params, cfg: ModelConfig, x):
@@ -380,9 +383,9 @@ def logits_from_hidden(params, cfg: ModelConfig, x):
     at -1e9 in that dtype."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+        logits = weight_einsum("bsd,vd->bsv", x, params["embed"])
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, params["unembed"])
+        logits = weight_einsum("bsd,dv->bsv", x, params["unembed"])
     out_dtype = getattr(torch, cfg.resolved_loss_dtype)
     logits = softcap(logits.to(out_dtype), cfg.final_softcap)
     pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab

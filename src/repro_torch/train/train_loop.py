@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
-
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.models.transformer import tree_leaves, tree_map
 
 from .optimizer import OptConfig, adamw_update
@@ -18,12 +18,21 @@ from .optimizer import OptConfig, adamw_update
 __all__ = ["make_train_step", "value_and_grad"]
 
 
+def _placed_as(g, leaf):
+    """A sharded leaf's gradient on the leaf's own placements (DTensor hands
+    it back on whatever the backward's last op chose; the reference's
+    gradients take their parameters' shardings); ``g`` itself otherwise."""
+    if not is_dtensor(g) or tuple(g.placements) == tuple(leaf.placements):
+        return g
+    return g.redistribute(leaf.device_mesh, leaf.placements)
+
+
 def value_and_grad(cfg: ModelConfig):
     """``jax.value_and_grad(train_loss, has_aux=True)``: returns
     fn(params, batch) -> ((total, metrics), grads), with the gradients
     taken by ``torch.autograd.grad`` over detached copies of the leaves (in
-    each leaf's dtype; a leaf the loss does not reach gets zeros).  The
-    values come back detached."""
+    each leaf's dtype; a leaf the loss does not reach gets zeros; a sharded
+    leaf's on its placements).  The values come back detached."""
 
     def fn(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -32,7 +41,7 @@ def value_and_grad(cfg: ModelConfig):
             total, metrics = model_lib.train_loss(leaves, cfg, batch)
             grads = torch.autograd.grad(total, flat, allow_unused=True,
                                         materialize_grads=True)
-        by_leaf = dict(zip(map(id, flat), grads))
+        by_leaf = dict(zip(map(id, flat), map(_placed_as, grads, flat)))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (total.detach(), metrics), tree_map(lambda p: by_leaf[id(p)], leaves)
 
