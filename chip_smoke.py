@@ -237,6 +237,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -256,6 +257,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+AMORTISED_CALLS = 50        # calls between one event pair (amortised_ms)
 INT32_OPS_PER_S = 67e12     # the data sheet's 32-bit non-tensor rate
 # instruction issue: 4 schedulers an SM, each one warp instruction (32
 # lanes) a clock; times the SM count and the card's clock gives
@@ -302,6 +304,7 @@ PATHS = {"ground_truth": ("l1_distance",),
 SYNC_BATCHES = 8            # drained batches before and after the compaction
 TUNED_TARGET, TUNED_CALIB = 0.9, 32
 QUALITY_QUERIES = 256
+SRS_ROWS_CHUNK = 512        # SRS's l1_distance_chunked step (core/baselines.py: min(t, 512))
 # the JAX package's full QualitySpec (benchmarks/quality_bench.py:42-47)
 QUALITY_SPEC = dict(k=10, table_sweep=(1, 2, 4, 8, 16, 32),
                     table_sweep_single=(8, 16, 32, 64, 128), probe_sweep=(50, 150),
@@ -415,42 +418,71 @@ def cuda_ms_pair(fa, fb, reps: int = 20, warm: int = 2):
     return float(np.median(ta)), float(np.median(tb))
 
 
+def amortised_ms(fn, n: int = AMORTISED_CALLS, warm: int = 3, windows: int = 3) -> float:
+    """Time of one call from one CUDA event pair around ``n`` calls issued
+    back to back, / n, after ``warm`` calls; the median of ``windows`` such
+    readings, with Python's collector paused so that no collection of this
+    process's large heap falls inside a window (host work there counts in
+    full: one window read 7x a call's own time).  The host's issue time of a
+    call hides behind the card's work of the calls before it, unless it is
+    the longer of the two."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        return float(np.median([event_ms(lambda: [fn() for _ in range(n)]) / n
+                                for _ in range(windows)]))
+    finally:
+        gc.enable()
+
+
 # the device times that came from CUDA events because every profiler window
 # of device_ms recorded nothing
 DEVICE_MS_FROM_EVENTS = []
 
 
 def device_ms(fn, reps: int = 10, tries: int = 3) -> float:
-    """Device time of one call: torch.profiler's device-side time over
-    ``reps`` calls (every kernel, memset and copy the call launches) / reps.
-    A window in which the profiler recorded no device event at all (seen
-    now and then on the H100) is profiled again, up to ``tries`` times.
-    Where every window was empty (seen once in a whole run, late in it),
-    the time is that of two CUDA events around ``reps`` calls issued back to
-    back, / reps: the host's issue time counts where it is the longer, so
-    this reads at or above the profiler's time.  Such a time is logged and
-    kept in DEVICE_MS_FROM_EVENTS."""
+    return device_profile(fn, reps, tries)[0]
+
+
+def device_profile(fn, reps: int = 10, tries: int = 3):
+    """Device time of one call and the device events recorded a call:
+    torch.profiler's device-side time over ``reps`` calls (every kernel,
+    memset and copy the call launches) / reps, from the fullest of
+    ``tries`` windows.  On the H100 a window may lose records (1 event in
+    10 calls of a two-launch call was seen) or record none at all,
+    and a window short of events reads short of the time; so every window
+    is profiled and the one with the most device events is kept, with its
+    events a call beside it.  Where every window was empty (seen once in a
+    whole run, late in it), the time is that of two CUDA events around
+    ``reps`` calls issued back to back, / reps: the host's issue time counts
+    where it is the longer, so this reads at or above the profiler's time.
+    Such a time is logged and kept in DEVICE_MS_FROM_EVENTS."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    best = (0, 0.0)                     # (device events, device us) of a window
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
+        total, events = 0.0, 0
         for e in prof.key_averages():
             if not str(getattr(e, "device_type", "")).endswith("CUDA"):
                 continue
             dev = getattr(e, "self_device_time_total", None)
             total += getattr(e, "self_cuda_time_total", 0.0) if dev is None else dev
-        if total > 0:
-            return total / 1e3 / reps
+            events += e.count
+        best = max(best, (events, total))
+    if best[1] > 0:
+        return best[1] / 1e3 / reps, best[0] / reps
     ms = event_ms(lambda: [fn() for _ in range(reps)]) / reps
     DEVICE_MS_FROM_EVENTS.append(ms)
     log(f"device_ms: the profiler recorded no device event in {tries} windows; "
         f"{ms:.6f} ms a call from CUDA events around {reps} calls")
-    return ms
+    return ms, None
 
 
 def sass_loops(lib: Path, kernel: str, updates_per_lds) -> list:
@@ -3083,18 +3115,26 @@ def main() -> int:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    def timed(kfn, pfn, lib, nbytes, nops, errs):
+    def timed(kfn, pfn, lib, nbytes, nops, errs, what=""):
         """The measured numbers of one kernel row; kernel == plain already
-        held."""
+        held.  A reading under the row's bound is a measurement fault to
+        explain: it is logged and the row says ``below_bound``."""
         b_ms, b_by = bound(nbytes, nops)
         # event times first, the kernel and the library call in turns; the
-        # profiler's device times after them
+        # amortised time; the profiler's device times after them
         ms, lib_ms = (cuda_ms(kfn), None) if lib is None else cuda_ms_pair(kfn, lib)
         row = {"max_abs_err": max_abs_err(errs), "ms": ms,
+               "amortised_ms": amortised_ms(kfn),
                "plain_ms": cuda_ms(pfn, reps=5), "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms}
-        row["device_ms"] = device_ms(kfn)
+        row["device_ms"], row["device_events_per_call"] = device_profile(kfn)
         row["library_device_ms"] = None if lib is None else device_ms(lib)
+        below = [k for k in ("ms", "amortised_ms", "device_ms") if row[k] < b_ms]
+        row["below_bound"] = bool(below)
+        if below:
+            log(f"below the bound {what}: {', '.join(f'{k} {row[k]:.6f}' for k in below)} "
+                f"< bound_ms {b_ms:.6f} ({b_by}); device events a call "
+                f"{row['device_events_per_call']}")
         return row
 
     rows = []
@@ -3113,7 +3153,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
             "replaces": repl, "equal_to_plain": True,
             "launches": sum(launches[k] for k in PROBE) if name == "fused_probe" else
-            launches[name], **timed(kfn, pfn, lib, nbytes, nops, errs)})
+            launches[name], **timed(kfn, pfn, lib, nbytes, nops, errs, name)})
     # the probe's row holds the one-pass route (the extents, then the
     # gather) and, apart, its two launches: the served route runs the
     # extents in phase A and the gather alone in phase B
@@ -3123,7 +3163,7 @@ def main() -> int:
             ("gather", gat_k, gat_p, sgat, gat_bytes, q_rows * lp,
              [(got[0], want[0]), (got[1], want[1])])]:
         rows[0][key] = {"launches": launches[f"fused_probe_{key}"],
-                        **timed(kfn, pfn, lib, nbytes, nops, errs)}
+                        **timed(kfn, pfn, lib, nbytes, nops, errs, f"fused_probe {key}")}
     rows[0]["gather"]["slices"] = gat_slices
     rows[1]["pair_bound_ms"] = bound(rr_pair_bytes, rr_pair_ops)[0]
     rows[1]["slices"] = rr_slices
@@ -3161,13 +3201,13 @@ def main() -> int:
     rw_batch, rw_batch_plain = rw_bk(), rw_bp()
     check(equal(rw_batch, rw_batch_plain), "rw_hash kernel == plain on the served batch")
     rw_row = timed(rw_k, rw_p, None, n_pts * DIM * 4 + wp.numel() + n_pts * n_fns * 4,
-                   n_pts * n_fns * DIM, [(rw_out[:RW_PLAIN_ROWS], rw_plain)])
+                   n_pts * n_fns * DIM, [(rw_out[:RW_PLAIN_ROWS], rw_plain)], "rw_hash")
     rw_batch_row = timed(rw_bk, rw_bp, None, batch.numel() * 4 + wp.numel()
                          + batch.shape[0] * n_fns * 4, batch.shape[0] * n_fns * DIM,
-                         [(rw_batch, rw_batch_plain)])
+                         [(rw_batch, rw_batch_plain)], "rw_hash batch")
     # the table: the steps read once, the table written once, an add a step
     tab_row = timed(tab_k, tab_p, None, wp.numel() + tab_want.numel() * 4, wp.numel(),
-                    [(tab_got, tab_want)])
+                    [(tab_got, tab_want)], "rw_hash table")
     resident = krw.resident_blocks(torch.cuda.current_device(), u2)
     rows.append({
         "name": "rw_hash", "route": "cuda", "source": "src/repro_torch/csrc/rw_hash.cu",
@@ -3204,7 +3244,8 @@ def main() -> int:
         windowed[f"rows_{rows_w}"] = {
             "plain_rows": plain_rows,
             **timed(wk, wp, None, rows_w * DIM * 4 + wpairs.numel() + rows_w * n_fns * 4,
-                    rows_w * n_fns * DIM, [(w_out[:plain_rows], w_plain)])}
+                    rows_w * n_fns * DIM, [(w_out[:plain_rows], w_plain)],
+                    f"rw_hash windowed {rows_w} rows")}
     rows[-1]["windowed"] = windowed
     del wpairs, wpts, w_out, w_plain
 
@@ -3221,7 +3262,8 @@ def main() -> int:
     check(equal(l1_lib().to(torch.int32), l1_out), "torch.cdist(p=1) agrees (exact)")
     l1_updates = batch.shape[0] * n_pts * DIM
     l1_row = timed(l1_k, l1_p, l1_lib, batch.numel() * 4 + data_c.numel() * 4
-                   + batch.shape[0] * n_pts * 4, l1_updates * 3, [(l1_out, l1_plain)])
+                   + batch.shape[0] * n_pts * 4, l1_updates * 3, [(l1_out, l1_plain)],
+                   "l1_distance")
     del l1_out, l1_plain, xf
     gen = torch.Generator(device=card).manual_seed(18)
     wq, wx = (torch.randint(-2 ** 30, 2 ** 30, t.shape, generator=gen, device=card,
@@ -3230,14 +3272,14 @@ def main() -> int:
     w_out, w_plain = w_k(), kl1.l1_distance_plain(wq, wx)
     check(equal(w_out, w_plain), "l1_distance kernel == plain on the wide input (int32 loop)")
     l1_row.update(wide_max_abs_err=max_abs_err([(w_out, w_plain)]), wide_ms=cuda_ms(w_k),
-                  wide_device_ms=device_ms(w_k))
+                  wide_amortised_ms=amortised_ms(w_k), wide_device_ms=device_ms(w_k))
     del w_out, w_plain, wq, wx
     hq, hx = batch.to(torch.int16), data_c.to(torch.int16)
     h_k = lambda: kl1.l1_distance_cuda(hq, hx)
     h_out, h_plain = h_k(), kl1.l1_distance_plain(hq, hx)
     check(equal(h_out, h_plain), "l1_distance kernel == plain in int16 at 64 x 1 M x 128")
     l1_row.update(int16_max_abs_err=max_abs_err([(h_out, h_plain)]), int16_ms=cuda_ms(h_k),
-                  int16_device_ms=device_ms(h_k))
+                  int16_amortised_ms=amortised_ms(h_k), int16_device_ms=device_ms(h_k))
     del h_out, h_plain, hq, hx
     # instruction issue floor: the inner loops' SASS instructions per update
     # x updates / lane-instructions a second
@@ -3271,28 +3313,79 @@ def main() -> int:
         "int16_issue_floor_ms": floor("float32_loop_int16_input"),
         "sm_clocks_max_now": nvidia_smi_line("clocks.max.sm,clocks.sm")})
 
-    # l1_distance_rows at one served batch's first 4096 candidates a query
+    # l1_distance_rows at one served batch's first 4,096 candidates a query
+    # (int32 and int16: the rows exceed the L2 cache) and at SRS's shape
+    # (QUALITY_QUERIES queries x its 512-row chunk, int32).  At each shape the
+    # kernel equals its plain version in all four input types through the
+    # vector path; SRS's rows one element into their storage (not 16-byte
+    # aligned) take the scalar path.  ``launch_amortised_ms`` times the C
+    # entry point alone (plan and output made once): no wrapper host work.
+    def rows_path(qd, rd):
+        before = dict(kl1.ROWS_PATHS)
+        got = kl1.l1_distance_rows_cuda(qd, rd)
+        path = [k for k, v in kl1.ROWS_PATHS.items() if v != before[k]]
+        check(len(path) == 1, "one l1_distance_rows launch, on one path")
+        return got, path[0]
+
+    def rows_launch_only(qd, rd, want):
+        q_n, c_n, m_n = rd.shape
+        plan = kl1.plan_rows(qd.dtype, m_n, c_n, q_n, rd.data_ptr(), qd.data_ptr())
+        out = torch.empty((q_n, c_n), dtype=want.dtype, device=card)
+        args = (qd.data_ptr(), rd.data_ptr(), out.data_ptr(), q_n, c_n, m_n, plan.slots,
+                plan.seg, plan.tile, plan.stage, torch.cuda.current_stream().cuda_stream)
+        fn = kl1._fn("rows", qd.dtype)
+        ms = amortised_ms(lambda: fn(*args))
+        check(fn(*args) == 0 and equal(out, want),
+              "l1_distance_rows C entry point == plain after its timed launches")
+        return ms
+
+    def rows_timed(qd, rd, what, path):
+        got, took = rows_path(qd, rd)
+        want = kl1.l1_distance_rows_plain(qd, rd)
+        check(equal(got, want) and took == path,
+              f"l1_distance_rows kernel == plain {what}, on the {path} path (took {took})")
+        qf_r, rf_r = qd.to(torch.float32), rd.to(torch.float32)
+        lib_r = lambda: torch.cdist(qf_r[:, None], rf_r, p=1)
+        check(equal(lib_r()[:, 0].to(got.dtype), got), f"batched cdist agrees {what} (exact)")
+        return {"shape": list(rd.shape), "path": took,
+                **timed(lambda: kl1.l1_distance_rows_cuda(qd, rd),
+                        lambda: kl1.l1_distance_rows_plain(qd, rd), lib_r,
+                        rd.numel() * rd.element_size() + qd.numel() * qd.element_size()
+                        + got.numel() * 4, rd.numel() * 3, [(got, want)],
+                        f"l1_distance_rows {what}"),
+                "launch_amortised_ms": rows_launch_only(qd, rd, want)}
+
     cand = ids[:, :4096].clamp(0, st.dataset.shape[0] - 1).long()
-    l1r = {}
-    for dtype in (torch.int32, torch.int16):
-        qd = batch.to(dtype)
-        rd = st.dataset[cand].to(dtype).contiguous()
-        rf = rd.to(torch.float32)
-        got_r = kl1.l1_distance_rows_cuda(qd, rd)
-        want_r = kl1.l1_distance_rows_plain(qd, rd)
-        check(equal(got_r, want_r), f"l1_distance_rows kernel == plain in {dtype}")
-        lib_r = lambda: torch.cdist(qf[:, None], rf, p=1)
-        check(equal(lib_r()[:, 0].to(torch.int32), got_r), "batched cdist agrees (exact)")
-        l1r[dtype] = timed(lambda: kl1.l1_distance_rows_cuda(qd, rd),
-                           lambda: kl1.l1_distance_rows_plain(qd, rd), lib_r,
-                           rd.numel() * rd.element_size() + qd.numel() * qd.element_size()
-                           + got_r.numel() * 4, rd.numel() * 3, [(got_r, want_r)])
+    srs_cand = torch.randint(0, st.dataset.shape[0], (QUALITY_QUERIES, SRS_ROWS_CHUNK),
+                             generator=torch.Generator(device=card).manual_seed(28),
+                             device=card)
+    rows_at = {"served": (batch, st.dataset[cand]),
+               "srs": (q_c[:QUALITY_QUERIES].contiguous(), st.dataset[srs_cand])}
+    for qd, rd in rows_at.values():
+        for dtype in (torch.int32, torch.int16, torch.float32, torch.bfloat16):
+            qt, rt = qd.to(dtype), rd.to(dtype).contiguous()
+            got, took = rows_path(qt, rt)
+            check(equal(got, kl1.l1_distance_rows_plain(qt, rt)) and took == "vector",
+                  f"l1_distance_rows kernel == plain in {dtype} at {list(rt.shape)}, "
+                  f"on the vector path (took {took})")
+    del qt, rt, got
+    l1r = {dtype: rows_timed(batch.to(dtype), rows_at["served"][1].to(dtype).contiguous(),
+                             f"in {dtype} at the served batch", "vector")
+           for dtype in (torch.int32, torch.int16)}
+    qs_srs, rs_srs = (t.to(torch.int32).contiguous() for t in rows_at["srs"])
+    srs_row = rows_timed(qs_srs, rs_srs, "at SRS's shape", "vector")
+    flat = torch.empty(rs_srs.numel() + 1, dtype=torch.int32, device=card)
+    mis = flat[1:].view(rs_srs.shape).copy_(rs_srs)
+    mis_row = rows_timed(qs_srs, mis, "at SRS's shape one element into its storage",
+                         "scalar")
+    del rows_at, flat, mis, qs_srs, rs_srs
     rows.append({
         "name": "l1_distance_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/l1_distance.cu",
         "replaces": "src/repro/kernels/l1_distance.py:103",
         "launches": check_launches["l1_distance_rows"], "equal_to_plain": True,
-        **l1r[torch.int32], "shape": list(rd.shape), "int16": l1r[torch.int16]})
+        **l1r[torch.int32], "int16": l1r[torch.int16], "srs": srs_row,
+        "misaligned": mis_row})
     for path, counts in (("quality", q_launches), ("tuned", t_launches),
                          ("cluster", c_launches), ("cluster_process", p_launches),
                          *o_launches.items(), ("dist", d_launches), *s_launches.items(),

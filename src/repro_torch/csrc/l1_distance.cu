@@ -50,10 +50,49 @@
 // loop, flushing every 8 full stages at worst.  float32 and bfloat16
 // inputs always take the float loop, with no uint32 sums.
 //
-// Per-query rows: every candidate row is read once against one query row,
-// so bytes bound it.  One warp per candidate row: lanes stride over the m
-// coordinates (neighbouring lanes on neighbouring addresses), accumulate,
-// and reduce with shuffles in a fixed order.
+// Per-query rows bound.  Every candidate row is read once against its one
+// query row: at the 'scan' rerank's and SRS's shapes (64 x 4,096 x 128 and
+// 256 x 512 x 128) a launch reads 67-134 MB and makes one |q - x| update a
+// value, so bytes bound it (0.020-0.040 ms at 3.35 TB/s), not operations.
+//
+// What the first design lacked: bytes in flight, and at 16 bits, issue.
+// One warp took one row, lanes strided over m with scalar loads (64 B a
+// warp-wide load at int16), each lane read the query again for every row,
+// and each sum was stored from lane 0.  Timed by events around 50 launches
+// (scripts/l1_rows_ab.py), it sat at 0.83 of the bound at int32 but 0.52 at
+// int16 and 0.55 at bfloat16: 2-byte loads and 5-7 integer instructions a
+// value left the card short of loads in flight.
+//
+// Design (l1_rows_vec_kernel, chosen by the wrapper's plan_rows when a row
+// is a whole number of 16-byte vectors and both pointers are 16-byte
+// aligned; V = m * sizeof(T) / 16 vectors a row):
+//  * A block of 8 warps takes one query and a tile of its rows, which lie
+//    in one contiguous span, in passes of kRowLoads (4) 16-byte loads a
+//    lane (8 int16 or bf16 values, or 4 int32 or float32, a load), a fixed
+//    trip, unrolled.  A warp issues its next pass's loads before it sums
+//    the current pass, so 8 loads a lane (4 KB a warp) are in flight; at
+//    4 blocks an SM that is 128 KB.  The loads skip L1 and ask L2 for the
+//    whole 256-byte line.
+//  * A row takes a segment of S lanes (S = V rounded up to a power of two
+//    when V <= 32, so one warp-wide load covers 32 / S whole rows), or,
+//    when V > 32, a whole warp over K slots of 32 vectors (K = ceil(V / 32)
+//    rounded up to 1, 2, 4 or 8; wider rows loop over chunks of 8 slots).
+//    A lane so always meets the same query vectors: it loads them once into
+//    registers (rows over 8 chunks' width reload them a chunk, from the
+//    query row staged in shared memory).  Lanes past V and rows past C
+//    load nothing and add nothing.
+//  * int16 sums |x - q| as max - min of each signed 16-bit pair (Hopper's
+//    VIMNMX.S16x2), summed by two-way dot products (IDP.2A) with (1, 1) and
+//    (-1, -1): four instructions for two values, in int32 arithmetic that
+//    wraps as the plain sums do.  bfloat16 widens by a shift.
+//  * Each row's lane sums are reduced with __shfl_xor_sync over the
+//    segment in a fixed order; the segment's first lane puts the sum in
+//    shared memory, and the block stores its tile's sums coalesced.
+// Otherwise (l1_rows_scalar_kernel) a warp takes a row and its lanes stride
+// over m with scalar loads, against the query staged once a block in
+// shared memory; the same tiles and stores.  Both paths sum integers in
+// uint32 (int32's wrap) and give the same integers bit for bit.  A query
+// row over kRowQueryMax bytes is read from global memory (L1) instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,7 +108,11 @@ constexpr int kPad = 4;        // words after each staged row (16-byte rows)
 constexpr int kThreads = 256;  // pairwise: 16 x 16 threads, 4 x 8 sums each
 constexpr uint64_t kExact = 1ull << 24;  // float32 holds integers up to here
 constexpr int kRowWarps = 8;   // l1_rows: warps per block
-constexpr int kRowsPerBlock = 32;
+constexpr int kRowLoads = 4;   // l1_rows: 16-byte loads a lane a pass (K > 4: K)
+constexpr int kRowMaxSlots = 8;           // l1_rows: 32-vector slots a row a chunk
+constexpr int kRowMaxTile = 2048;         // l1_rows: rows a block (sums in shared memory)
+constexpr int kRowQueryMax = 32 * 1024;   // l1_rows: query bytes staged in shared memory
+constexpr size_t kRowSmemMax = 48 * 1024; // l1_rows: without an opt-in attribute
 
 // Integer sums run in uint32, which wraps like int32 without undefined
 // behaviour; floats in float32.
@@ -268,25 +311,193 @@ l1_pairwise_kernel(const T* __restrict__ queries, const T* __restrict__ points,
   }
 }
 
+// ---- per-query rows: 16-byte vector loads, or scalar loads ----------------
+
+__host__ __device__ constexpr size_t round16(size_t bytes) { return (bytes + 15) & ~size_t(15); }
+
+// A row vector read once: not kept in L1, and L2 fetches the 256-byte
+// line around it (the next lanes' and passes' vectors)
+__device__ __forceinline__ uint4 load_stream(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// |x - q| of the values packed in one 32-bit word, added to acc (the tag
+// names the input type)
+__device__ __forceinline__ void add_word(uint32_t& acc, uint32_t x, uint32_t q, int32_t*) {
+  acc += absdiff(x, q);
+}
+__device__ __forceinline__ void add_word(uint32_t& acc, uint32_t x, uint32_t q, int16_t*) {
+  // |x - q| = max - min per signed half (Hopper's 16x2 min and max), the
+  // sums of the maxima and of the minima taken by two-way dot products
+  // with (1, 1) and (-1, -1): int32 arithmetic that wraps as the sums do
+  const int mx = static_cast<int>(__vmaxs2(x, q)), mn = static_cast<int>(__vmins2(x, q));
+  acc = static_cast<uint32_t>(__dp2a_lo(mx, 0x0101, static_cast<int>(acc)));
+  acc = static_cast<uint32_t>(__dp2a_lo(mn, 0xffff, static_cast<int>(acc)));
+}
+__device__ __forceinline__ void add_word(float& acc, uint32_t x, uint32_t q, float*) {
+  acc += fabsf(__uint_as_float(x) - __uint_as_float(q));
+}
+__device__ __forceinline__ void add_word(float& acc, uint32_t x, uint32_t q, __nv_bfloat16*) {
+  // a bfloat16 is the high half of the float32 it widens to
+  acc += fabsf(__uint_as_float(x << 16) - __uint_as_float(q << 16));
+  acc += fabsf(__uint_as_float(x & 0xffff0000u) - __uint_as_float(q & 0xffff0000u));
+}
+
+template <typename T, typename A>
+__device__ __forceinline__ void add_vec(A& acc, const uint4& x, const uint4& q) {
+  T* tag = nullptr;
+  add_word(acc, x.x, q.x, tag);
+  add_word(acc, x.y, q.y, tag);
+  add_word(acc, x.z, q.z, tag);
+  add_word(acc, x.w, q.w, tag);
+}
+
+// Block b takes query b / tiles and rows [t * tile, min(C, (t + 1) * tile))
+// of it, t = b % tiles.  Shared memory: the tile's sums, then the staged
+// query row.
+template <typename T, int K>
+__global__ void __launch_bounds__(kRowWarps * 32)
+l1_rows_vec_kernel(const T* __restrict__ queries, const T* __restrict__ rows,
+                   typename Acc<T>::out* __restrict__ out, int c, int m, int seg, int tile,
+                   int stage) {
+  using A = typename Acc<T>::type;
+  using Out = typename Acc<T>::out;
+  constexpr int kHeld = K < kRowLoads ? kRowLoads / K : 1;  // rows (segments) a lane a pass
+  extern __shared__ __align__(16) unsigned char l1_rows_smem[];
+  Out* sums = reinterpret_cast<Out*>(l1_rows_smem);
+  uint4* sq = reinterpret_cast<uint4*>(l1_rows_smem + round16(tile * sizeof(Out)));
+  const int nv = static_cast<int>(static_cast<size_t>(m) * sizeof(T) / 16);  // V
+  const int tiles = (c + tile - 1) / tile;
+  const int q = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x - q * tiles) * tile;
+  const int nrows = min(tile, c - r0);
+  const uint4* qg = reinterpret_cast<const uint4*>(queries) + static_cast<size_t>(q) * nv;
+  const uint4* xg =
+      reinterpret_cast<const uint4*>(rows) + (static_cast<size_t>(q) * c + r0) * nv;
+  if (stage) {        // only for rows of several chunks (V > 256)
+    for (int i = threadIdx.x; i < nv; i += blockDim.x) sq[i] = qg[i];
+    __syncthreads();
+  }
+  const uint4* qs = stage ? sq : qg;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane & (seg - 1);      // the lane's place in its row's segment
+  const int per = 32 / seg;              // rows one warp-wide load covers
+  const int lrow = lane / seg;           // the lane's row among them
+  const int group = per * kHeld;         // rows a warp takes a pass
+  const int span = 32 * K;               // vectors of a row a chunk
+  const int chunks = (nv + span - 1) / span;
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  uint4 qv[K];
+  auto load_query = [&](int v0) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int v = v0 + sub + 32 * j;
+      qv[j] = v < nv ? (stage ? qs[v] : __ldg(qs + v)) : zero4;
+    }
+  };
+  const int stride = kRowWarps * group;  // rows the block takes a pass
+  // the loads of one pass: kHeld rows (segments) x K vectors a lane
+  auto load_rows = [&](uint4 (&x)[kHeld][K], int base, int v0) {
+#pragma unroll
+    for (int p = 0; p < kHeld; ++p)
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int row = base + p * per + lrow;
+        const int v = v0 + sub + 32 * j;
+        x[p][j] = row < nrows && v < nv ? load_stream(xg + static_cast<size_t>(row) * nv + v)
+                                        : zero4;
+      }
+  };
+  auto add_rows = [&](A (&acc)[kHeld], const uint4 (&x)[kHeld][K]) {
+#pragma unroll
+    for (int p = 0; p < kHeld; ++p)
+#pragma unroll
+      for (int j = 0; j < K; ++j) add_vec<T>(acc[p], x[p][j], qv[j]);
+  };
+  auto put_sums = [&](A (&acc)[kHeld], int base) {
+#pragma unroll
+    for (int p = 0; p < kHeld; ++p) {
+      for (int off = seg >> 1; off > 0; off >>= 1)
+        acc[p] += __shfl_xor_sync(0xffffffffu, acc[p], off);
+      const int row = base + p * per + lrow;
+      if (sub == 0 && row < nrows) sums[row] = static_cast<Out>(acc[p]);
+    }
+  };
+  if (chunks == 1) {
+    // one chunk a row: the next pass's loads are in flight while this
+    // pass's values are summed
+    load_query(0);
+    uint4 x[kHeld][K];
+    load_rows(x, warp * group, 0);
+    for (int base = warp * group; base < nrows; base += stride) {
+      uint4 nx[kHeld][K];
+      load_rows(nx, base + stride, 0);
+      A acc[kHeld];
+#pragma unroll
+      for (int p = 0; p < kHeld; ++p) acc[p] = A(0);
+      add_rows(acc, x);
+      put_sums(acc, base);
+#pragma unroll
+      for (int p = 0; p < kHeld; ++p)
+#pragma unroll
+        for (int j = 0; j < K; ++j) x[p][j] = nx[p][j];
+    }
+  } else {
+    for (int base = warp * group; base < nrows; base += stride) {
+      A acc[kHeld];
+#pragma unroll
+      for (int p = 0; p < kHeld; ++p) acc[p] = A(0);
+      for (int ch = 0; ch < chunks; ++ch) {
+        load_query(ch * span);
+        uint4 x[kHeld][K];
+        load_rows(x, base, ch * span);
+        add_rows(acc, x);
+      }
+      put_sums(acc, base);
+    }
+  }
+  __syncthreads();
+  Out* dst = out + static_cast<size_t>(q) * c + r0;
+  for (int i = threadIdx.x; i < nrows; i += blockDim.x) dst[i] = sums[i];
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kRowWarps * 32)
-l1_rows_kernel(const T* __restrict__ queries, const T* __restrict__ rows,
-               typename Acc<T>::out* __restrict__ out, int c, int m, int chunks) {
+l1_rows_scalar_kernel(const T* __restrict__ queries, const T* __restrict__ rows,
+                      typename Acc<T>::out* __restrict__ out, int c, int m, int tile,
+                      int stage) {
   using A = typename Acc<T>::type;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q = blockIdx.x / chunks;
-  const int c0 = (blockIdx.x % chunks) * kRowsPerBlock;
-  const int c1 = min(c, c0 + kRowsPerBlock);
-  const T* qrow = queries + static_cast<size_t>(q) * m;
-  for (int j = c0 + warp; j < c1; j += kRowWarps) {
-    const T* row = rows + (static_cast<size_t>(q) * c + j) * m;
-    A acc = A(0);
-    for (int k = lane; k < m; k += 32) acc += absdiff(widen(row[k]), widen(qrow[k]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[static_cast<size_t>(q) * c + j] = static_cast<typename Acc<T>::out>(acc);
+  using Out = typename Acc<T>::out;
+  extern __shared__ __align__(16) unsigned char l1_rows_smem[];
+  Out* sums = reinterpret_cast<Out*>(l1_rows_smem);
+  T* sq = reinterpret_cast<T*>(l1_rows_smem + round16(tile * sizeof(Out)));
+  const int tiles = (c + tile - 1) / tile;
+  const int q = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x - q * tiles) * tile;
+  const int nrows = min(tile, c - r0);
+  const T* qg = queries + static_cast<size_t>(q) * m;
+  if (stage) {
+    for (int i = threadIdx.x; i < m; i += blockDim.x) sq[i] = qg[i];
+    __syncthreads();
   }
+  const T* qs = stage ? sq : qg;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int j = warp; j < nrows; j += kRowWarps) {
+    const T* row = rows + (static_cast<size_t>(q) * c + r0 + j) * m;
+    A acc = A(0);
+#pragma unroll 4
+    for (int k = lane; k < m; k += 32) acc += absdiff(widen(row[k]), widen(qs[k]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) sums[j] = static_cast<Out>(acc);
+  }
+  __syncthreads();
+  Out* dst = out + static_cast<size_t>(q) * c + r0;
+  for (int i = threadIdx.x; i < nrows; i += blockDim.x) dst[i] = sums[i];
 }
 
 template <typename T>
@@ -300,15 +511,54 @@ int launch_pairwise(const void* queries, const void* points, void* out, int nq, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The plan (slots, seg, tile, stage) is the wrapper's plan_rows: slots 0
+// takes the scalar path, slots K > 0 the vector path with K 32-vector slots
+// a row (seg lanes a row when K is 1, else 32).  A plan this kernel family
+// cannot take returns cudaErrorInvalidValue and launches nothing.
 template <typename T>
 int launch_rows(const void* queries, const void* rows, void* out, int nq, int c, int m,
-                void* stream) {
-  const int chunks = (c + kRowsPerBlock - 1) / kRowsPerBlock;
-  const long long blocks = static_cast<long long>(nq) * chunks;
-  l1_rows_kernel<T><<<static_cast<unsigned>(blocks), kRowWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(queries), static_cast<const T*>(rows),
-      static_cast<typename Acc<T>::out*>(out), c, m, chunks);
+                int slots, int seg, int tile, int stage, void* stream) {
+  using Out = typename Acc<T>::out;
+  const size_t row_bytes = static_cast<size_t>(m) * sizeof(T);
+  const bool aligned = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(queries) % 16 == 0
+                       && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
+  const long long blocks = static_cast<long long>(nq) * ((c + tile - 1) / tile);
+  const size_t smem = round16(static_cast<size_t>(tile) * sizeof(Out))
+                      + (stage ? round16(row_bytes) : 0);
+  const bool seg_ok = seg >= 1 && seg <= 32 && (seg & (seg - 1)) == 0
+                      && (slots <= 1 || seg == 32);
+  if (tile < 1 || tile > kRowMaxTile || !seg_ok || (slots > 0 && !aligned)
+      || (stage && row_bytes > kRowQueryMax) || smem > kRowSmemMax || blocks >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* qp = static_cast<const T*>(queries);
+  const T* rp = static_cast<const T*>(rows);
+  Out* op = static_cast<Out*>(out);
+  switch (slots) {
+    case 0:
+      l1_rows_scalar_kernel<T><<<grid, kRowWarps * 32, smem, st>>>(qp, rp, op, c, m, tile,
+                                                                    stage);
+      break;
+    case 1:
+      l1_rows_vec_kernel<T, 1><<<grid, kRowWarps * 32, smem, st>>>(qp, rp, op, c, m, seg,
+                                                                    tile, stage);
+      break;
+    case 2:
+      l1_rows_vec_kernel<T, 2><<<grid, kRowWarps * 32, smem, st>>>(qp, rp, op, c, m, seg,
+                                                                    tile, stage);
+      break;
+    case 4:
+      l1_rows_vec_kernel<T, 4><<<grid, kRowWarps * 32, smem, st>>>(qp, rp, op, c, m, seg,
+                                                                    tile, stage);
+      break;
+    case kRowMaxSlots:
+      l1_rows_vec_kernel<T, kRowMaxSlots><<<grid, kRowWarps * 32, smem, st>>>(
+          qp, rp, op, c, m, seg, tile, stage);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -321,8 +571,9 @@ int launch_rows(const void* queries, const void* rows, void* out, int nq, int c,
     return launch_pairwise<T>(queries, points, out, nq, n, m, stream);                   \
   }                                                                                      \
   extern "C" int l1_rows_##SUFFIX(const void* queries, const void* rows, void* out,      \
-                                  int nq, int c, int m, void* stream) {                  \
-    return launch_rows<T>(queries, rows, out, nq, c, m, stream);                         \
+                                  int nq, int c, int m, int slots, int seg, int tile,    \
+                                  int stage, void* stream) {                             \
+    return launch_rows<T>(queries, rows, out, nq, c, m, slots, seg, tile, stage, stream); \
   }
 
 L1_ENTRIES(i32, int32_t)

@@ -299,6 +299,17 @@ def _l1_cases():
                                    rng.integers(0, 200, (q, c, m)))
     rows["signed"] = (rng.integers(-1000, 1000, (5, 40)),
                       rng.integers(-1000, 1000, (5, 33, 40)))
+    # the per-row kernel's paths (csrc/l1_distance.cu, plan_rows): m = 8 is one
+    # 16-byte vector an int16 row; C = 1,000 ends in a part tile; 256 and 960
+    # give rows of 32, 64, 120 and 240 vectors (not all powers of two); 1,040
+    # and 8,200 rows of several 256-vector chunks (the query in shared memory,
+    # and at 8,200 int32 past its 32 KB, from global memory); 8,199 the scalar
+    # path past 32 KB
+    for q, c, m in [(3, 70, 8), (2, 1000, 128), (2, 45, 256), (3, 37, 960), (2, 9, 1040),
+                    (2, 3, 8200), (2, 3, 8199)]:
+        gen = np.random.default_rng(c + m)
+        rows[f"q{q}_c{c}_m{m}"] = (gen.integers(-200, 200, (q, m)),
+                                   gen.integers(-200, 200, (q, c, m)))
     rows["c0"] = (rng.integers(0, 9, (3, 8)), np.zeros((3, 0, 8), np.int64))
     pair["n0"] = (rng.integers(0, 9, (3, 8)), np.zeros((0, 8), np.int64))
     return pair, rows
@@ -354,6 +365,19 @@ def _l1_int_cases():
     return out
 
 
+def _l1_rows_wrap_case():
+    """int32 rows near +-2^31 whose |q - x| and sums wrap (INT_MIN and
+    INT_MAX among them), at m = 64: the vector path, 16 lanes a row."""
+    rng = np.random.default_rng(28)
+    top = 1 << 30
+    q = top - rng.integers(0, 1000, (3, 64))
+    x = rng.integers(0, 1000, (3, 50, 64)) - top
+    full = np.iinfo(np.int32)
+    q[0, :2], x[0, 0, :2] = (full.min, full.max), (full.max, full.min)
+    return {"wrap_q3_c50_m64_int32": (q.astype(np.int32), x.astype(np.int32), "int32")}
+
+
 L1_INT_CASES = _l1_int_cases()
 L1_CASES, L1_ROWS_CASES = (_typed(c) for c in _l1_cases())
 L1_CASES.update(L1_INT_CASES)
+L1_ROWS_CASES.update(_l1_rows_wrap_case())

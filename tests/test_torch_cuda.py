@@ -337,6 +337,29 @@ def test_l1_distance_rows_kernel_matches_plain(card, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int32", "int16", "float32", "bfloat16"])
+def test_l1_distance_rows_kernel_misaligned(card, dtype):
+    """Contiguous views one element into their storage (rows, then queries):
+    not 16-byte aligned, so the kernel takes the scalar path, and still
+    equals the plain version; the aligned tensors take the vector path."""
+    rng = np.random.default_rng(28)
+    queries, rows = rng.integers(-200, 200, (4, 128)), rng.integers(-200, 200, (4, 300, 128))
+    q, r = _typed(queries, dtype, card), _typed(rows, dtype, card)
+    flat_r = torch.empty(r.numel() + 1, dtype=r.dtype, device=card)
+    flat_q = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+    r1 = flat_r[1:].view(r.shape).copy_(r)
+    q1 = flat_q[1:].view(q.shape).copy_(q)
+    want = tl1.l1_distance_rows_plain(q, r)
+    for args, path in (((q, r), "vector"), ((q, r1), "scalar"), ((q1, r), "scalar")):
+        assert args[0].is_contiguous() and args[1].is_contiguous()
+        before = dict(tl1.ROWS_PATHS)
+        got = tl1.l1_distance_rows_cuda(*args)
+        torch.cuda.synchronize()
+        assert tl1.ROWS_PATHS[path] == before[path] + 1
+        _eq(want.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
 def test_staged_probe_and_concat_fold_on_the_card(card):
     """``probe_impl='staged'`` (plain searches and gather, then the rerank
     kernel) equals the fused probe's kernels, and the concat fold of a
