@@ -1,0 +1,49 @@
+"""The inputs a seed makes."""
+import torch
+
+import portbench_tiny as tiny
+from portbench.harness import datagen
+
+
+def _make(seed):
+    return datagen.make_inputs(tiny.CONFIG, seed, "cpu")
+
+
+def _rows(x):
+    """The rows of x as a sorted list (a multiset of points)."""
+    return sorted(map(tuple, x.tolist()))
+
+
+def test_one_seed_gives_the_same_inputs_and_another_seed_the_same_work_reordered():
+    a, b, c = _make(2 ** 31 + 11), _make(2 ** 31 + 11), _make(2 ** 31 + 12)
+    for key in ("points", "queries"):
+        assert torch.equal(a[key], b[key])
+        assert not torch.equal(a[key], c[key])
+        assert _rows(a[key]) == _rows(c[key])
+    for key in a["params"]:
+        assert torch.equal(a["params"][key], b["params"][key])
+        assert torch.equal(a["params"][key], c["params"][key])
+
+
+def test_the_base_draw_is_seed_zeros_unpermuted_draw():
+    d = tiny.CONFIG["data"]
+    base = datagen.make_points(d, datagen.BASE_SEED, "cpu")
+    got = _make(5)
+    assert _rows(got["points"]) == _rows(base)
+    assert _rows(got["queries"]) == _rows(datagen.make_queries(d, base, datagen.BASE_SEED))
+
+
+def test_inputs_keep_to_the_configuration():
+    d, ix = tiny.CONFIG["data"], tiny.CONFIG["index"]
+    got = _make(-5)                                       # any integer seed
+    for key, rows in (("points", d["n"]), ("queries", d["num_queries"])):
+        x = got[key]
+        assert x.shape == (rows, d["dim"]) and x.dtype == torch.int32
+        assert int(x.min()) >= 0 and int(x.max()) <= d["universe"] and (x % 2 == 0).all()
+    p = got["params"]
+    lm = ix["num_tables"] * ix["num_hashes"]
+    assert p["pairs"].shape == (lm, d["dim"], ix["universe"] // 2)
+    assert set(p["pairs"].unique().tolist()) <= {-2, 0, 2}
+    assert ((p["offsets"] >= 0) & (p["offsets"] < ix["width"])).all()
+    assert (p["mix_a"] % 2 == 1).all() and int(p["mix_a"].max()) < 2 ** 32
+    assert int(p["mix_c"].max()) < 2 ** 32
