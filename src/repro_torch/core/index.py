@@ -16,6 +16,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs import trace as obs_trace
+
 from . import hashes as hashes_lib
 from . import multiprobe as mp_lib
 from . import pipeline as pipe
@@ -196,11 +198,14 @@ def query_index(cfg: IndexConfig, state: IndexState, queries: torch.Tensor):
 
 def probe_index(cfg: IndexConfig, state: IndexState, queries: torch.Tensor):
     """Phase A: (probe_keys (Q, L, P), lo (Q, L*P), occ (Q, L*P), counts (Q,))."""
-    bucket, x_neg = pipe.stage_hash(cfg, state.params, queries)
-    probe_keys = pipe.stage_probe_keys(cfg, state.params, state.template,
-                                       bucket, x_neg)
-    lo, occ, counts = pipe.stage_probe_extents(cfg, state.sorted_keys,
-                                               probe_keys, state.occ_from)
+    with obs_trace.span("stage_hash"):
+        bucket, x_neg = pipe.stage_hash(cfg, state.params, queries)
+    with obs_trace.span("stage_probe_keys"):
+        probe_keys = pipe.stage_probe_keys(cfg, state.params, state.template,
+                                           bucket, x_neg)
+    with obs_trace.span("stage_probe_extents"):
+        lo, occ, counts = pipe.stage_probe_extents(cfg, state.sorted_keys,
+                                                   probe_keys, state.occ_from)
     return probe_keys, lo, occ, counts
 
 

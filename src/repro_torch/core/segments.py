@@ -13,6 +13,11 @@ With ``REPRO_TRACE=1`` the compacted query records the spans ``phase_a``,
 ``phase_b_rerank``, ``delta_scan`` and ``merge`` and synchronizes the card
 at the end of each, so that a span's time is the device's time for that
 phase; with tracing off no span object exists and nothing synchronizes.
+Inside the phases the stage spans (``stage_hash``, ``stage_probe_keys``,
+``stage_probe_extents``, ``rung_read``; ``stage_fused_probe``,
+``stage_dedup``, ``stage_tombstone``, ``stage_rerank``, ``gid_map``) never
+synchronize: under a torch profiler their ``repro.*`` ranges name the host
+work that launched each device record.
 """
 from __future__ import annotations
 
@@ -87,16 +92,21 @@ def _finish_segment(cfg, cbucket: int, c_cap: Optional[int], state: IndexState,
     """Phase B over one segment: compacted gather at the rung -> [dedup ->]
     tombstone -> rerank -> gid map."""
     n = state.dataset.shape[0]
-    ids, _ = pipe.stage_fused_probe(
-        cfg, state.sorted_keys, state.sorted_ids, probe_keys, n, cbucket,
-        extents=(lo, occ), c_cap=c_cap, occ_from=state.occ_from)
+    with obs_trace.span("stage_fused_probe"):
+        ids, _ = pipe.stage_fused_probe(
+            cfg, state.sorted_keys, state.sorted_ids, probe_keys, n, cbucket,
+            extents=(lo, occ), c_cap=c_cap, occ_from=state.occ_from)
     if not pipe.rerank_handles_duplicates(cfg):
-        ids = pipe.stage_dedup(ids, n)
-    ids = pipe.stage_tombstone(ids, gids, tombstones, n)
-    d, i = pipe.stage_rerank(cfg, state.dataset, queries, ids)
+        with obs_trace.span("stage_dedup"):
+            ids = pipe.stage_dedup(ids, n)
+    with obs_trace.span("stage_tombstone"):
+        ids = pipe.stage_tombstone(ids, gids, tombstones, n)
+    with obs_trace.span("stage_rerank", slots=queries.shape[0] * cbucket):
+        d, i = pipe.stage_rerank(cfg, state.dataset, queries, ids)
     if n == 0:
         return d, i
-    return d, _gid_map(i, gids, n)
+    with obs_trace.span("gid_map"):
+        return d, _gid_map(i, gids, n)
 
 
 def _query_delta(cfg, buffer, gids, count: int, tombstones, queries):
@@ -480,9 +490,11 @@ class SegmentedIndex:
                 probe_keys, lo, occ, counts = probe_index(self.cfg, seg.state,
                                                           queries)
                 # the host read of the count synchronizes the card
-                cb, c_cap, over = pipe.pick_rung(
-                    int(counts.max()), seg.ctot_cap, floor, seg.ctot_norm,  # repro: allow[r1-host-sync] THE sanctioned phase-A rung-pick read (DESIGN.md §8)
-                    seg.c_norm, overflow)
+                with obs_trace.span("rung_read"):
+                    top = int(counts.max())  # repro: allow[r1-host-sync] THE sanctioned phase-A rung-pick read (DESIGN.md §8)
+                cb, c_cap, over = pipe.pick_rung(top, seg.ctot_cap, floor,
+                                                 seg.ctot_norm, seg.c_norm,
+                                                 overflow)
             with obs_trace.span("phase_b_rerank", segment=int(seg.size),
                                 cbucket=int(cb),
                                 c_cap=None if c_cap is None else int(c_cap)):

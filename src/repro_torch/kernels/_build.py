@@ -13,7 +13,9 @@ is imported; ``library`` binds them once, when it loads the library, and
 stream last, launches on it and returns ``cudaGetLastError()``; ``launch``
 appends the device's current stream, raises when the status is not 0 and
 counts the launch in ``LAUNCHES`` (through ``count``, under the module's lock,
-since the cluster router launches from several threads at once).
+since the cluster router launches from several threads at once).  ``SLOTS``
+counts, beside it and under the same lock, the work a call site hands its
+launches.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "count", "build_all", "library", "declare",
-           "entry", "launch", "CSRC", "BUILD_ROOT"]
+__all__ = ["LAUNCHES", "SLOTS", "reset_launches", "count", "count_slots", "build_all",
+           "library", "declare", "entry", "launch", "CSRC", "BUILD_ROOT"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -42,6 +44,12 @@ LAUNCHES: Dict[str, int] = {"fused_probe_extents": 0, "fused_probe_gather": 0,
                             "rw_prefix_table": 0, "l1_distance": 0,
                             "l1_distance_rows": 0}
 
+# Work a launch was given, by call site: ``fused_rerank`` counts the
+# candidate slots of each launch from ``ops.fused_rerank`` (its ``ids``,
+# the padded rung included), so that the valid slots of a window over its
+# count is the rerank's fill.
+SLOTS: Dict[str, int] = {"fused_rerank": 0}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SIGNATURES: Dict[str, Dict[str, Sequence]] = {}   # library -> entry -> argtypes
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
@@ -49,9 +57,18 @@ _LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
+    """Zero ``LAUNCHES`` and ``SLOTS``."""
     with _LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        for name in SLOTS:
+            SLOTS[name] = 0
+
+
+def count_slots(site: str, n: int) -> None:
+    """Add ``n`` to ``SLOTS[site]``, under the lock ``count`` takes."""
+    with _LOCK:
+        SLOTS[site] += n
 
 
 def count(kernel: str, n: int = 1) -> None:

@@ -8,13 +8,14 @@ which gives the result's shapes.  There is no switch and no fallback from a
 kernel to its plain version.
 
 ``LAUNCHES`` counts kernel launches per kernel (``reset_launches`` zeroes
-it), so a run can show that it went through the kernels.
+it), so a run can show that it went through the kernels; ``_build.SLOTS``
+counts the candidate slots handed to ``fused_rerank``'s launches.
 """
 from __future__ import annotations
 
 from torch._subclasses.fake_tensor import FakeTensor
 
-from ._build import LAUNCHES, reset_launches
+from ._build import LAUNCHES, count_slots, reset_launches
 from .fused_probe import (compact_gather, compact_gather_cuda, fused_probe_cuda,
                           fused_probe_plain, probe_extents_cuda)
 from .fused_probe import probe_extents as probe_extents_plain
@@ -46,7 +47,9 @@ def fused_rerank(dataset, queries, ids, k: int, chunk: int = 512):
     """Gather + exact L1 + top-k over unique valid candidates (``chunk`` sizes
     the plain version's candidate steps; the kernel needs none)."""
     if _on_cuda(ids):
-        return fused_rerank_cuda(dataset, queries, ids, k)
+        out = fused_rerank_cuda(dataset, queries, ids, k)
+        count_slots("fused_rerank", ids.numel())
+        return out
     return fused_rerank_plain(dataset, queries, ids, k, chunk=chunk)
 
 

@@ -1,9 +1,10 @@
 """Distributed per-query tracing (DESIGN.md §12), the port's copy.
 
 Inert unless ``REPRO_TRACE=1`` — the ``REPRO_SANITIZE`` pattern: every
-``span()`` call with tracing off returns one shared no-op context manager
-(no span object, no id, no clock read), so the serving hot path pays a
-dict lookup and nothing else.  With tracing on:
+``span()`` call with tracing off (and no torch profiler collecting, see
+below) returns one shared no-op context manager (no span object, no id, no
+clock read), so the serving hot path pays two dict lookups and a flag read
+and nothing else.  With tracing on:
 
   * a **trace id** is born at the root span (the router's per-batch
     ``cluster_batch``) and every child span carries it, across threads via
@@ -24,6 +25,16 @@ dict lookup and nothing else.  With tracing on:
 thread's spans into a thread-local list — the flight recorder uses this
 to attach the full span tree to slow-query exemplars without re-reading
 the files.
+
+A second sink, independent of ``REPRO_TRACE``: while a torch profiler is
+collecting, ``span(name)`` also opens a host range ``repro.<name>`` in the
+profile (``torch._C._profiler._RecordFunctionFast``, a plain host range:
+never a user annotation, which the profiler would copy onto the device's
+timeline), on the same wall clock as the JSONL spans.  The device records
+launched inside a range can then be put down to the span, and the card's
+idle gaps to the host work around them.  The profiler is found through
+``sys.modules``, so this module never imports torch; a torch without
+``_RecordFunctionFast`` gets no ranges.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import atexit
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 
@@ -77,8 +89,21 @@ def set_process_label(label: str) -> None:
     _label = label
 
 
+# The pid, read once a process: ``os.getpid()`` is a system call, which on a
+# virtualised host costs microseconds, and a traced span read it twice.
+_pid = os.getpid()
+
+
+def _reset_pid() -> None:
+    global _pid
+    _pid = os.getpid()
+
+
+os.register_at_fork(after_in_child=_reset_pid)
+
+
 def _proc_label() -> str:
-    return _label or f"pid{os.getpid()}"
+    return _label or f"pid{_pid}"
 
 
 def _now_us() -> int:
@@ -92,7 +117,7 @@ def _new_trace_id() -> str:
 
 def _new_span_id() -> int:
     # pid in the high bits: ids stay unique across the router + W workers
-    return (os.getpid() << 24) | (next(_span_seq) & 0xFFFFFF)
+    return (_pid << 24) | (next(_span_seq) & 0xFFFFFF)
 
 
 def _emit(rec: dict) -> None:
@@ -117,7 +142,7 @@ def flush() -> None:
         recs, _buffer[:] = list(_buffer), []
     d = trace_dir()
     os.makedirs(d, exist_ok=True)
-    path = os.path.join(d, f"spans-{_proc_label()}-{os.getpid()}.jsonl")
+    path = os.path.join(d, f"spans-{_proc_label()}-{_pid}.jsonl")
     with open(path, "a", encoding="utf-8") as f:
         for r in recs:
             f.write(json.dumps(r) + "\n")
@@ -139,17 +164,51 @@ class _NullSpan:
 
 _NULL = _NullSpan()
 
+RANGE_PREFIX = "repro."          # the profiler sink's range names
+
+
+def _profiler_range(name: str):
+    """A ``repro.<name>`` host range while a torch profiler collects, else
+    None: one ``sys.modules`` lookup and a flag read when none does."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    fast = getattr(sys.modules["torch"]._C._profiler, "_RecordFunctionFast", None)
+    return None if fast is None else fast(RANGE_PREFIX + name)
+
+
+class _Range:
+    """The profiler sink alone (tracing off): the host range and nothing
+    else, with ``Span``'s ``set`` as a no-op."""
+    __slots__ = ("_range",)
+
+    def __init__(self, rng):
+        self._range = rng
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+    def set(self, **attrs):
+        return self
+
 
 class Span:
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "attrs",
-                 "_ts", "_t0")
+                 "_ts", "_t0", "_range")
 
-    def __init__(self, name: str, trace_id: str, parent_id, attrs: dict):
+    def __init__(self, name: str, trace_id: str, parent_id, attrs: dict,
+                 rng=None):
         self.name = name
         self.trace_id = trace_id
         self.span_id = _new_span_id()
         self.parent_id = parent_id
         self.attrs = attrs
+        self._range = rng
 
     def set(self, **attrs):
         self.attrs.update(attrs)
@@ -160,12 +219,16 @@ class Span:
         if stack is None:
             stack = _tls.stack = []
         stack.append(self)
+        if self._range is not None:
+            self._range.__enter__()
         self._ts = _now_us()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         dur = (time.perf_counter_ns() - self._t0) // 1000
+        if self._range is not None:
+            self._range.__exit__(*exc)
         _tls.stack.pop()
         _emit({"ph": "X", "name": self.name, "tid": self.trace_id,
                "sid": self.span_id, "psid": self.parent_id,
@@ -193,15 +256,17 @@ def span(name: str, parent=None, **attrs):
 
     ``parent`` is an explicit ``(trace_id, span_id)`` (cross-thread /
     cross-process); otherwise the thread's current span is the parent and
-    a parentless span starts a fresh trace.
+    a parentless span starts a fresh trace.  While a torch profiler
+    collects, the span is also a ``repro.<name>`` range of the profile.
     """
+    rng = _profiler_range(name)
     if _ENV.get(_KEY) != _ON:         # enabled(), inlined: §12.4 hot path
-        return _NULL
+        return _NULL if rng is None else _Range(rng)
     if parent is None:
         parent = current()
     if parent is None:
-        return Span(name, _new_trace_id(), None, attrs)
-    return Span(name, parent[0], parent[1], attrs)
+        return Span(name, _new_trace_id(), None, attrs, rng)
+    return Span(name, parent[0], parent[1], attrs, rng)
 
 
 def record_span(name: str, dur_ms: float, parent=None, **attrs) -> None:

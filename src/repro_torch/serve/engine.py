@@ -12,7 +12,8 @@ seeds its index from the tuner's validated state.  Metrics live in a typed
 registry (``obs.MetricsRegistry``, which doubles as ``stats``), batch
 latency in its log2 histogram, recent batches in a flight recorder; with
 ``REPRO_TRACE=1`` each batch is an ``engine_batch`` span over the index's
-phase spans, and with ``REPRO_SANITIZE=1`` the entry points carry race
+phase spans (``query_batch`` an ``engine_request`` span over its
+validation, batches and answers' copies), and with ``REPRO_SANITIZE=1`` the entry points carry race
 tokens (``analysis.racecheck``).  The JAX package's persistent compile cache
 (``persistent_cache``, ``cache_dir``) has no counterpart: the port builds
 its kernels once per build directory.
@@ -277,18 +278,20 @@ class AnnServingEngine:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Run one padded batch; returns PADDED (B, k) results on the
         engine's device."""
-        self.index.admit_queries(batch[:n_real])
-        sig = self._index_signature()
-        key = (batch.shape[0], sig)
-        if key not in self._warm:
-            self.stats["bucket_cold_hits"] += 1
-            self._warm.add(key)
+        with obs_trace.span("engine_validate"):
+            self.index.admit_queries(batch[:n_real])
+            sig = self._index_signature()
+            key = (batch.shape[0], sig)
+            if key not in self._warm:
+                self.stats["bucket_cold_hits"] += 1
+                self._warm.add(key)
         used = ()
         obs_trace.capture_begin()
         t0 = time.perf_counter()
         with obs_trace.span("engine_batch", bucket=int(batch.shape[0]),
                             n_real=int(n_real)):
-            queries = torch.from_numpy(batch).to(self.device)
+            with obs_trace.span("engine_h2d"):
+                queries = torch.from_numpy(batch).to(self.device)
             if self.serve_cfg.compact_probe:
                 d, i, used = self.index.query_compact(
                     queries, floor=self.serve_cfg.cand_bucket_min,
@@ -301,7 +304,8 @@ class AnnServingEngine:
                         self._warm.add(ck)
             else:
                 d, i = self.index.query(queries)
-            self._sync()
+            with obs_trace.span("engine_sync"):
+                self._sync()
         ms = (time.perf_counter() - t0) * 1e3
         if ms > self.serve_cfg.hedge_ms:
             self.stats["hedges"] += 1
@@ -327,20 +331,26 @@ class AnnServingEngine:
 
     def query_batch(self, queries) -> Tuple[np.ndarray, np.ndarray]:
         """Synchronous query: chunk to ``batch_size``, pad each chunk to its
-        bucket, return unpadded (Q, k) dists/gids."""
-        q = validate_queries(queries, self._dim)
-        if q.shape[0] == 0:
-            return (np.zeros((0, self.cfg.k), np.int32),
-                    np.zeros((0, self.cfg.k), np.int32))
-        if self.serve_cfg.warm_buckets:
-            self.warmup()
-        out_d, out_i = [], []
-        for lo in range(0, q.shape[0], self.serve_cfg.batch_size):
-            chunk = q[lo: lo + self.serve_cfg.batch_size]
-            d, i = self._run_batch(self._pad(chunk), chunk.shape[0])
-            out_d.append(d[:chunk.shape[0]].cpu().numpy())  # repro: allow[r1-host-sync] batch-boundary result conversion after torch.cuda.synchronize
-            out_i.append(i[:chunk.shape[0]].cpu().numpy())  # repro: allow[r1-host-sync] batch-boundary result conversion after torch.cuda.synchronize
-        return np.concatenate(out_d), np.concatenate(out_i)
+        bucket, return unpadded (Q, k) dists/gids.  The whole call is the
+        ``engine_request`` span."""
+        with obs_trace.span("engine_request"):
+            with obs_trace.span("engine_validate"):
+                q = validate_queries(queries, self._dim)
+                if q.shape[0] == 0:
+                    return (np.zeros((0, self.cfg.k), np.int32),
+                            np.zeros((0, self.cfg.k), np.int32))
+                if self.serve_cfg.warm_buckets:
+                    self.warmup()
+            out_d, out_i = [], []
+            for lo in range(0, q.shape[0], self.serve_cfg.batch_size):
+                chunk = q[lo: lo + self.serve_cfg.batch_size]
+                with obs_trace.span("engine_validate"):
+                    padded = self._pad(chunk)
+                d, i = self._run_batch(padded, chunk.shape[0])
+                with obs_trace.span("engine_answers"):
+                    out_d.append(d[:chunk.shape[0]].cpu().numpy())  # repro: allow[r1-host-sync] batch-boundary result conversion after torch.cuda.synchronize
+                    out_i.append(i[:chunk.shape[0]].cpu().numpy())  # repro: allow[r1-host-sync] batch-boundary result conversion after torch.cuda.synchronize
+            return np.concatenate(out_d), np.concatenate(out_i)
 
     def drain(self) -> Tuple[np.ndarray, np.ndarray]:
         """Process all pending requests; returns (dists (B,k) int32 asc,

@@ -388,6 +388,32 @@ def test_staged_probe_and_concat_fold_on_the_card(card):
 
 
 @pytest.mark.cuda
+def test_rerank_slots_count_one_compacted_batch(card):
+    """``SLOTS['fused_rerank']`` grows by Q x the rung for one compacted
+    batch of a one-segment index with no delta (one rerank launch), and
+    ``reset_launches`` zeroes it with the launch counts."""
+    from repro_torch.core.segments import SegmentedIndex
+    from repro_torch.data import ann_synthetic as ds
+    from repro_torch.kernels import _build
+    spec = ds.DatasetSpec("slots", n=2000, dim=16, universe=64, num_clusters=8)
+    data = ds.make_dataset(spec)
+    q = _t(ds.make_queries(spec, data, 12)).to(card)
+    cfg = IndexConfig(num_tables=3, num_hashes=8, width=24, num_probes=20,
+                      candidate_cap=16, universe=64, k=8)
+    index = SegmentedIndex.from_dataset(cfg, data, device=card)
+    assert index.num_segments == 1 and index.delta_fill == 0
+    _build.reset_launches()
+    assert _build.SLOTS == {"fused_rerank": 0}
+    _, _, used = index.query_compact(q, 64)
+    torch.cuda.synchronize()
+    (_, rung, _), = used
+    assert _build.LAUNCHES["fused_rerank"] == 1
+    assert _build.SLOTS["fused_rerank"] == q.shape[0] * rung
+    _build.reset_launches()
+    assert _build.SLOTS["fused_rerank"] == 0 and _build.LAUNCHES["fused_rerank"] == 0
+
+
+@pytest.mark.cuda
 def test_cluster_router_on_the_card(card, tmp_path):
     """The in-process router with its replicas on the card, the kernels
     launched from its pool's threads, equals the same router on the CPU bit

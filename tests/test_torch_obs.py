@@ -5,6 +5,7 @@ writes rendering and checking with both packages, the phase spans of a
 served batch, the flight recorder, and the sanitizer cases of
 ``tests/test_racecheck.py`` on ``repro_torch.analysis.racecheck`` and the
 port's engine."""
+import dataclasses
 import json
 import subprocess
 import sys
@@ -344,3 +345,138 @@ def test_engine_mutation_during_another_threads_query_raises(small, monkeypatch)
         release.set()
         t.join(5)
     assert not t.is_alive()
+
+
+# ------------------------------------------------------------- stage spans
+
+# Each stage span of a served request and the span it runs under.
+STAGE_PARENT = {
+    "engine_validate": "engine_request", "engine_batch": "engine_request",
+    "engine_answers": "engine_request",
+    "engine_h2d": "engine_batch", "phase_a": "engine_batch",
+    "phase_b_rerank": "engine_batch", "delta_scan": "engine_batch",
+    "merge": "engine_batch", "engine_sync": "engine_batch",
+    "stage_hash": "phase_a", "stage_probe_keys": "phase_a",
+    "stage_probe_extents": "phase_a", "rung_read": "phase_a",
+    "stage_fused_probe": "phase_b_rerank", "stage_dedup": "phase_b_rerank",
+    "stage_tombstone": "phase_b_rerank", "stage_rerank": "phase_b_rerank",
+    "gid_map": "phase_b_rerank",
+}
+
+
+def _profiled_request(eng, queries):
+    """One ``query_batch`` under a CPU profiler -> its ``repro.*`` events
+    (the engine warmed first: a warm-up runs inside ``engine_validate``)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng.warmup()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.query_batch(queries)
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.name().startswith(obs_trace.RANGE_PREFIX)]
+
+
+def _range_parents(events):
+    """Range name -> names of the innermost ranges around it."""
+    spans = [(e.name()[len(obs_trace.RANGE_PREFIX):], e.start_ns(),
+              e.start_ns() + e.duration_ns()) for e in events]
+    parents = {}
+    for name, a, b in spans:
+        around = [(b2 - a2, n2) for n2, a2, b2 in spans
+                  if a2 <= a and b <= b2 and (a2, b2) != (a, b)]
+        parents.setdefault(name, set()).add(min(around)[1] if around else None)
+    return parents
+
+
+@pytest.mark.parametrize("rerank_impl", ["fused", "scan"])
+def test_profiler_records_every_stage_range_nested(small, monkeypatch, rerank_impl):
+    """Under a torch profiler, with tracing off, one request records every
+    stage as a ``repro.*`` host range inside the range of its parent span;
+    ``stage_dedup`` runs (and is recorded) only before the 'scan' rerank."""
+    data, queries = small
+    monkeypatch.delenv("REPRO_TRACE", raising=False)
+    cfg = dataclasses.replace(CFG, rerank_impl=rerank_impl)
+    eng = AnnServingEngine(cfg, ServeConfig(batch_size=8, bucket_min=4, delta_cap=32),
+                           data, device="cpu")
+    eng.insert(data[:3] + 2)                        # a delta: all four phases
+    parents = _range_parents(_profiled_request(eng, queries[:8]))
+    want = set(STAGE_PARENT) | {"engine_request"}
+    if rerank_impl == "fused":
+        want.discard("stage_dedup")
+    assert set(parents) == want
+    assert parents.pop("engine_request") == {None}
+    assert parents == {name: {STAGE_PARENT[name]} for name in parents}
+
+
+def test_stage_ranges_are_host_ranges_not_user_annotations(small, monkeypatch):
+    """The ranges are plain host ranges: a user annotation would be copied
+    onto the device's timeline, where it would read as a kernel."""
+    data, queries = small
+    monkeypatch.delenv("REPRO_TRACE", raising=False)
+    events = _profiled_request(_engine(data), queries[:8])
+    assert len(events) >= len(STAGE_PARENT) - 2
+    assert not any(e.is_user_annotation() for e in events)
+    assert {str(e.device_type()) for e in events} == {"DeviceType.CPU"}
+
+
+def test_new_stage_span_is_shared_null_without_tracing_or_profiler(monkeypatch):
+    monkeypatch.delenv("REPRO_TRACE", raising=False)
+    for name in ("engine_request", "stage_tombstone", "rung_read", "gid_map"):
+        assert obs_trace.span(name, slots=4) is obs_trace.span("phase_a")
+
+
+def test_profiler_ranges_without_fast_ranges_record_nothing(small, monkeypatch):
+    """A torch without ``_RecordFunctionFast`` gets no ranges (and never a
+    ``record_function`` in their place)."""
+    data, queries = small
+    monkeypatch.delenv("REPRO_TRACE", raising=False)
+    monkeypatch.delattr(torch._C._profiler, "_RecordFunctionFast")
+    from torch.profiler import ProfilerActivity, profile
+    eng = _engine(data)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert obs_trace.span("engine_request") is obs_trace._NULL
+        eng.query_batch(queries[:8])
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert not any(n.startswith(obs_trace.RANGE_PREFIX) for n in names)
+
+
+def test_spans_and_profiler_ranges_share_one_clock(small, monkeypatch, tmp_path):
+    """With ``REPRO_TRACE=1`` and a profiler both on, a JSONL
+    ``engine_batch`` span and its ``repro.engine_batch`` range start within
+    1 ms of each other."""
+    data, queries = small
+    eng = _engine(data)
+    monkeypatch.setenv("REPRO_TRACE", "1")
+    monkeypatch.setenv("REPRO_TRACE_DIR", str(tmp_path))
+    events = _profiled_request(eng, queries[:8])
+    obs_trace.flush()
+    spans = [r for r in trender.load_spans(str(tmp_path)) if r["name"] == "engine_batch"]
+    ranges = [e for e in events if e.name() == "repro.engine_batch"]
+    assert len(spans) == len(ranges) == 1
+    assert abs(spans[0]["ts"] - ranges[0].start_ns() / 1e3) < 1000
+
+
+def test_traced_jsonl_holds_the_stage_spans_and_syncs_only_the_phases(
+        small, monkeypatch, tmp_path):
+    """With ``REPRO_TRACE=1`` each stage span is in the JSONL tree under its
+    phase, and a traced batch with a delta still synchronises three times
+    (phase B, the delta scan, the merge): the stage spans add none."""
+    data, queries = small
+    calls = []
+    monkeypatch.setattr(SegmentedIndex, "_sync", lambda self: calls.append(1))
+    eng = _engine(data)
+    eng.insert(data[:3] + 2)
+    eng.warmup()
+    monkeypatch.setenv("REPRO_TRACE", "1")
+    monkeypatch.setenv("REPRO_TRACE_DIR", str(tmp_path))
+    eng.query_batch(queries[:8])
+    obs_trace.flush()
+    assert len(calls) == 3
+    spans = trender.load_spans(str(tmp_path))
+    by_sid = {r["sid"]: r["name"] for r in spans}
+    got = {}
+    for r in spans:
+        got.setdefault(r["name"], set()).add(by_sid.get(r["psid"]))
+    assert got.pop("engine_request") == {None}
+    assert set(got) == set(STAGE_PARENT) - {"stage_dedup"}
+    assert got == {name: {STAGE_PARENT[name]} for name in got}
+    assert trender.check_spans(spans)["ok"]
