@@ -247,9 +247,11 @@ def stage_dedup(ids, n: int):
 def stage_tombstone(ids, gids, tombstones, n: int):
     """Mask deleted points out of a (Q, Ctot) candidate list (sentinel n).
 
-    ``tombstones`` is ascending int32, padded with INT32_MAX.
+    ``tombstones`` is ascending int32, padded with INT32_MAX, or ``None``
+    when nothing is deleted: then ``ids`` itself comes back and nothing is
+    launched (the padded single ``INT32_MAX`` matches no gid either).
     """
-    if n == 0:
+    if n == 0 or tombstones is None:
         return ids
     gid = gids[ids.clamp(0, n - 1).to(torch.int64)]
     pos = torch.searchsorted(tombstones, gid)

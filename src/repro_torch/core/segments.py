@@ -3,7 +3,8 @@
 
 LSM-style: immutable sorted segments (each an ``IndexState`` plus a gid
 vector), a fixed-capacity delta buffer of fresh inserts scanned exactly by
-the rerank stage, a tombstone set applied at the candidate stage, and
+the rerank stage, a tombstone set applied at the candidate stage (skipped,
+with nothing launched, while the set is empty), and
 ``compact()`` folding everything back into one segment.  Per-source top-k
 lists are folded with the bitonic ``topk_merge`` kernel (or, with
 ``use_merge_kernel=False``, the concat sort).  Every segment shares one
@@ -99,7 +100,7 @@ def _finish_segment(cfg, cbucket: int, c_cap: Optional[int], state: IndexState,
     if not pipe.rerank_handles_duplicates(cfg):
         with obs_trace.span("stage_dedup"):
             ids = pipe.stage_dedup(ids, n)
-    with obs_trace.span("stage_tombstone"):
+    with obs_trace.span("stage_tombstone", masked=tombstones is not None):
         ids = pipe.stage_tombstone(ids, gids, tombstones, n)
     with obs_trace.span("stage_rerank", slots=queries.shape[0] * cbucket):
         d, i = pipe.stage_rerank(cfg, state.dataset, queries, ids)
@@ -125,7 +126,9 @@ class SegmentedIndex:
 
     Host-side orchestrator; not thread-safe (the serving engine serializes
     mutations against queries).  Tensors live on ``device`` (``None`` means
-    the card).
+    the card).  ``tombstone_passes`` counts the segment and delta passes
+    that ran the tombstone mask (``masked``) and those that skipped it with
+    no tombstone held (``skipped``).
     """
 
     def __init__(self, cfg: IndexConfig, dim: int, delta_cap: int = 1024,
@@ -152,6 +155,7 @@ class SegmentedIndex:
         self.compactions = 0
         self._delta_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._tomb_cache: Optional[torch.Tensor] = None
+        self.tombstone_passes = {"masked": 0, "skipped": 0}
         self._coord_range: Optional[Tuple[int, int]] = None  # of every point held
 
     def _within_reach(self, lo: int, hi: int, what: str) -> Tuple[int, int]:
@@ -351,12 +355,15 @@ class SegmentedIndex:
         return (tuple(s.size for s in self.segments),
                 self._delta_count > 0 or not self.segments, tomb_cap)
 
-    def _tombstone_array(self) -> torch.Tensor:
+    def _tombstone_array(self) -> Optional[torch.Tensor]:
         """Ascending int32 tensor padded to a power of two with INT32_MAX,
-        cached between mutations."""
+        cached between mutations; ``None`` while nothing is deleted, which
+        ``stage_tombstone`` skips (the host's own count: no device read)."""
+        if not self._tombstones:
+            return None
         if self._tomb_cache is None:
             dead = sorted(self._tombstones)
-            cap = 1 << (len(dead) - 1).bit_length() if dead else 1
+            cap = 1 << (len(dead) - 1).bit_length()
             out = np.full((cap,), _INT32_MAX, np.int32)
             out[:len(dead)] = dead
             self._tomb_cache = torch.from_numpy(out).to(self.device)  # repro: allow[r1-host-sync] cached between mutations: one copy on the first batch after a delete
@@ -370,6 +377,12 @@ class SegmentedIndex:
                 torch.from_numpy(self._delta_gids.copy()).to(self.device))  # repro: allow[r1-host-sync] cached between mutations: one copy on the first batch after an insert
         return self._delta_cache
 
+    def _tombstone_pass(self, tomb: Optional[torch.Tensor]):
+        """``tomb`` for one segment or delta pass, counted in
+        ``tombstone_passes``."""
+        self.tombstone_passes["skipped" if tomb is None else "masked"] += 1
+        return tomb
+
     def _as_queries(self, queries) -> torch.Tensor:
         return torch.as_tensor(queries).to(device=self.device, dtype=torch.int32)
 
@@ -377,7 +390,8 @@ class SegmentedIndex:
         if self._delta_count or not results:
             delta_pts, delta_gids = self._delta_arrays()
             results.append(_query_delta(self.cfg, delta_pts, delta_gids,
-                                        self._delta_count, tomb, queries))
+                                        self._delta_count,
+                                        self._tombstone_pass(tomb), queries))
 
     @staticmethod
     def _fold(results, use_kernel: bool = True):
@@ -398,7 +412,8 @@ class SegmentedIndex:
         Returns (dists (Q, k) int32 ascending, gids (Q, k) int32, -1 pad)."""
         queries = self._as_queries(queries)
         tomb = self._tombstone_array()
-        results = [_query_segment(self.cfg, seg.state, seg.gids, tomb, queries)
+        results = [_query_segment(self.cfg, seg.state, seg.gids,
+                                  self._tombstone_pass(tomb), queries)
                    for seg in self.segments]
         self._query_delta_if_any(results, tomb, queries)
         return self._fold(results, use_merge_kernel)
@@ -483,7 +498,8 @@ class SegmentedIndex:
         for seg in self.segments:
             if seg.size == 0:
                 results.append(_query_segment(
-                    self.cfg, seg.state, seg.gids, tomb, queries))
+                    self.cfg, seg.state, seg.gids, self._tombstone_pass(tomb),
+                    queries))
                 continue
             self._ensure_caps(seg)
             with obs_trace.span("phase_a", segment=int(seg.size)):
@@ -499,8 +515,8 @@ class SegmentedIndex:
                                 cbucket=int(cb),
                                 c_cap=None if c_cap is None else int(c_cap)):
                 results.append(_finish_segment(
-                    self.cfg, cb, c_cap, seg.state, seg.gids, tomb, probe_keys,
-                    lo, occ, queries))
+                    self.cfg, cb, c_cap, seg.state, seg.gids,
+                    self._tombstone_pass(tomb), probe_keys, lo, occ, queries))
                 if traced:
                     self._sync()
             used.append((seg.size, cb, c_cap))
@@ -534,8 +550,9 @@ class SegmentedIndex:
                 continue
             probe_keys, lo, occ, _ = probe_index(self.cfg, seg.state, queries)
             for cb, c_cap in ladder:
-                _finish_segment(self.cfg, cb, c_cap, seg.state, seg.gids, tomb,
-                                probe_keys, lo, occ, queries)
+                _finish_segment(self.cfg, cb, c_cap, seg.state, seg.gids,
+                                self._tombstone_pass(tomb), probe_keys, lo, occ,
+                                queries)
                 warmed.append((seg.size, cb, c_cap))
         _, _, used = self.query_compact(queries, floor, overflow=overflow)
         return tuple(warmed) + used

@@ -414,6 +414,36 @@ def test_rerank_slots_count_one_compacted_batch(card):
 
 
 @pytest.mark.cuda
+def test_tombstone_skip_on_the_card_matches_cpu(card):
+    """A one-segment index on the card answers ``query_compact`` as the same
+    index on the CPU, before and after a delete of each query's nearest
+    point, and ``tombstone_passes`` counts one skipped pass (nothing
+    deleted) and then one masked pass."""
+    from repro_torch.core.segments import SegmentedIndex
+    from repro_torch.data import ann_synthetic as ds
+    spec = ds.DatasetSpec("tomb", n=2000, dim=16, universe=64, num_clusters=8)
+    data = ds.make_dataset(spec)
+    q = _t(ds.make_queries(spec, data, 12))
+    cfg = IndexConfig(num_tables=3, num_hashes=8, width=24, num_probes=20,
+                      candidate_cap=16, universe=64, k=8)
+    on_cpu = SegmentedIndex.from_dataset(cfg, data, device="cpu")
+    on_card = SegmentedIndex.from_dataset(cfg, data, params=on_cpu.params, device=card)
+    for when in ("fresh", "after a delete"):
+        want = on_cpu.query_compact(q, 64)
+        got = on_card.query_compact(q.to(card), 64)
+        torch.cuda.synchronize()
+        _eq(want[0], got[0].cpu(), f"dists, {when}")
+        _eq(want[1], got[1].cpu(), f"gids, {when}")
+        assert got[2] == want[2]
+        if when == "fresh":
+            assert on_card.tombstone_passes == {"masked": 0, "skipped": 1}
+            nearest = np.unique(want[1][:, 0].numpy())
+            assert on_cpu.delete(nearest) == on_card.delete(nearest) == len(nearest)
+    assert on_card.tombstone_passes == {"masked": 1, "skipped": 1}
+    assert not set(got[1].cpu().numpy().ravel().tolist()) & set(nearest.tolist())
+
+
+@pytest.mark.cuda
 def test_cluster_router_on_the_card(card, tmp_path):
     """The in-process router with its replicas on the card, the kernels
     launched from its pool's threads, equals the same router on the CPU bit

@@ -407,6 +407,39 @@ def test_profiler_records_every_stage_range_nested(small, monkeypatch, rerank_im
     assert parents == {name: {STAGE_PARENT[name]} for name in parents}
 
 
+def test_skipped_tombstone_mask_keeps_its_range(small, monkeypatch):
+    """With no delete and no delta the mask launches nothing, yet a profiled
+    request still records ``repro.stage_tombstone`` under
+    ``repro.phase_b_rerank``, so its device time reads 0 and not nothing."""
+    data, queries = small
+    monkeypatch.delenv("REPRO_TRACE", raising=False)
+    eng = _engine(data)
+    assert eng.index.num_tombstones == 0 and eng.index.delta_fill == 0
+    parents = _range_parents(_profiled_request(eng, queries[:8]))
+    assert parents["stage_tombstone"] == {"phase_b_rerank"}
+    passes = eng.index.tombstone_passes
+    assert passes["masked"] == 0 and passes["skipped"] > 0
+
+
+def test_traced_tombstone_span_says_whether_it_masked(small, monkeypatch, tmp_path):
+    """The JSONL ``stage_tombstone`` span carries ``masked``: false on every
+    pass before the first delete, true on every pass after it."""
+    data, queries = small
+    eng = _engine(data)
+    eng.warmup()
+    monkeypatch.setenv("REPRO_TRACE", "1")
+    monkeypatch.setenv("REPRO_TRACE_DIR", str(tmp_path))
+    eng.query_batch(queries[:8])
+    assert eng.delete([0, 1]) == 2
+    eng.query_batch(queries[:8])
+    obs_trace.flush()
+    spans = sorted((r for r in trender.load_spans(str(tmp_path))
+                    if r["name"] == "stage_tombstone"), key=lambda r: r["ts"])
+    masked = [r["args"]["masked"] for r in spans]
+    assert masked[0] is False and masked[-1] is True
+    assert masked == sorted(masked)
+
+
 def test_stage_ranges_are_host_ranges_not_user_annotations(small, monkeypatch):
     """The ranges are plain host ranges: a user annotation would be copied
     onto the device's timeline, where it would read as a kernel."""
