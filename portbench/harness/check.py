@@ -10,11 +10,15 @@ control):
 * ``mismatched_queries``: drawn queries whose k (distance, id) pairs differ
   from the reference's anywhere, or that got no answer (their request
   raised).  The comparison is exact, so the limit is 0.
+
+On several cards the answers judged are rank 0's, and the reference is the
+per-shard reference merged (``reference.lsh.merge``); a drawn query that
+another rank answered otherwise than rank 0 counts as mismatched too.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -34,26 +38,35 @@ def draw(requests: List, request_queries: int, seed: int) -> List:
     return [requests[i] for i in pick]
 
 
+def _differs(got_d, got_i, want_d, want_i) -> np.ndarray:
+    """Per query: whether its k (distance, id) pairs differ anywhere."""
+    got_d, got_i = np.asarray(got_d), np.asarray(got_i)
+    want_d, want_i = np.asarray(want_d), np.asarray(want_i)
+    if got_d.shape != want_d.shape or got_i.shape != want_i.shape:
+        return np.ones(want_d.shape[0], bool)
+    return ((got_d != want_d) | (got_i != want_i)).any(axis=-1)
+
+
 def mismatched(got_d, got_i, want_d, want_i) -> int:
     """Queries whose k (distance, id) pairs differ anywhere."""
-    return int(((np.asarray(got_d) != want_d) | (np.asarray(got_i) != want_i))
-               .any(axis=-1).sum())
+    return int(_differs(got_d, got_i, want_d, want_i).sum())
 
 
-def judge(drawn: List, answer) -> Dict[str, Dict[str, int]]:
+def judge(drawn: List, answer, peers: Sequence[Sequence] = ()) -> Dict[str, Dict[str, int]]:
     """``answer(request) -> (dists, ids)`` the reference's (Q, k) numpy
-    answers for a request's queries; returns each number with its limit."""
+    answers for a request's queries; ``peers``, one list a further rank, its
+    (dists, ids) answer to each drawn request.  Returns each number with its
+    limit."""
     wrong = 0
-    for req in drawn:
+    for n, req in enumerate(drawn):
         want_d, want_i = answer(req)
         if req.error is not None or req.dists is None:
             wrong += want_d.shape[0]
             continue
-        got_d, got_i = np.asarray(req.dists), np.asarray(req.ids)
-        if got_d.shape != want_d.shape or got_i.shape != want_i.shape:
-            wrong += want_d.shape[0]
-            continue
-        wrong += mismatched(got_d, got_i, want_d, want_i)
+        bad = _differs(req.dists, req.ids, want_d, want_i)
+        for peer in peers:
+            bad |= _differs(peer[n][0], peer[n][1], req.dists, req.ids)
+        wrong += int(bad.sum())
     return {"mismatched_queries": {"value": int(wrong), "limit": LIMITS["mismatched_queries"]}}
 
 

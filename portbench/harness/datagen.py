@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["substream", "make_points", "make_queries", "make_hash_params",
-           "make_inputs", "STEP_ELEMS"]
+           "make_inputs", "make_shard_inputs", "STEP_ELEMS"]
 
 STEP_ELEMS = 1 << 26     # values of one block of rows (its float32 temporaries)
 BASE_SEED = 0            # the data, queries and parameters of every run
@@ -50,26 +50,48 @@ def _even(x: torch.Tensor, universe: int) -> torch.Tensor:
     return (2.0 * torch.round(x / 2.0)).clamp(0, universe).to(torch.int32)
 
 
-def make_points(d: Dict, seed: int, device, order: torch.Tensor = None) -> torch.Tensor:
-    """(n, m) int32: Laplacian clusters around uniform centres in the middle
-    half of [0, 1], scaled to [0, U] and rounded to even integers; drawn
-    point i is stored at row ``order[i]`` when an order is given."""
+def _point_blocks(d: Dict, seed: int, device):
+    """The drawn points in blocks of ``STEP_ELEMS`` values: (first drawn
+    index, (rows, m) int32), in drawing order."""
     n, m, u = int(d["n"]), int(d["dim"]), int(d["universe"])
     gen = substream(seed, 0, device)
     centres = 0.25 + 0.5 * torch.rand((int(d["num_clusters"]), m), generator=gen,
                                       device=device)
-    out = torch.empty((n, m), dtype=torch.int32, device=device)
     step = max(1, STEP_ELEMS // m)
     for lo in range(0, n, step):
         rows = min(step, n - lo)
         which = torch.randint(0, centres.shape[0], (rows,), generator=gen, device=device)
         x = centres[which] + _laplace((rows, m), float(d["cluster_spread"]), gen, device)
-        x = _even(x.clamp(0.0, 1.0) * u, u)
+        yield lo, _even(x.clamp(0.0, 1.0) * u, u)
+
+
+def make_points(d: Dict, seed: int, device, order: torch.Tensor = None) -> torch.Tensor:
+    """(n, m) int32: Laplacian clusters around uniform centres in the middle
+    half of [0, 1], scaled to [0, U] and rounded to even integers; drawn
+    point i is stored at row ``order[i]`` when an order is given."""
+    out = torch.empty((int(d["n"]), int(d["dim"])), dtype=torch.int32, device=device)
+    for lo, x in _point_blocks(d, seed, device):
         if order is None:
-            out[lo:lo + rows] = x
+            out[lo:lo + x.shape[0]] = x
         else:
-            out[order[lo:lo + rows]] = x
+            out[order[lo:lo + x.shape[0]]] = x
     return out
+
+
+def _query_picks(d: Dict, n: int, gen, device) -> torch.Tensor:
+    """The drawn points the queries start from."""
+    return torch.randint(0, n, (int(d["num_queries"]),), generator=gen, device=device)
+
+
+def _queries_from(d: Dict, sources: torch.Tensor, gen) -> torch.Tensor:
+    """The queries from their source points: Laplace noise, and strays."""
+    u = int(d["universe"])
+    device = sources.device
+    x = sources.to(torch.float32)
+    x = x + _laplace(x.shape, float(d["perturb_frac"]) * u, gen, device)
+    stray = torch.rand((x.shape[0],), generator=gen, device=device) < float(d["stray_frac"])
+    uniform = torch.rand(x.shape, generator=gen, device=device) * u
+    return _even(torch.where(stray[:, None], uniform, x), u)
 
 
 def make_queries(d: Dict, points: torch.Tensor, seed: int,
@@ -77,15 +99,9 @@ def make_queries(d: Dict, points: torch.Tensor, seed: int,
     """(num_queries, m) int32: drawn points (at rows ``order`` of them, when
     ``points`` were stored in that order) perturbed by Laplace noise of scale
     ``perturb_frac * U``, and a ``stray_frac`` share drawn uniformly."""
-    nq, u = int(d["num_queries"]), int(d["universe"])
-    device = points.device
-    gen = substream(seed, 1, device)
-    pick = torch.randint(0, points.shape[0], (nq,), generator=gen, device=device)
-    x = points[pick if order is None else order[pick]].to(torch.float32)
-    x = x + _laplace(x.shape, float(d["perturb_frac"]) * u, gen, device)
-    stray = torch.rand((nq,), generator=gen, device=device) < float(d["stray_frac"])
-    uniform = torch.rand(x.shape, generator=gen, device=device) * u
-    return _even(torch.where(stray[:, None], uniform, x), u)
+    gen = substream(seed, 1, points.device)
+    pick = _query_picks(d, points.shape[0], gen, points.device)
+    return _queries_from(d, points[pick if order is None else order[pick]], gen)
 
 
 def make_hash_params(ix: Dict, dim: int, seed: int, device) -> Dict[str, torch.Tensor]:
@@ -116,3 +132,37 @@ def make_inputs(config: Dict, seed: int, device) -> Dict[str, object]:
     queries = queries[torch.randperm(queries.shape[0], generator=gen, device=device)]
     params = make_hash_params(config["index"], int(d["dim"]), BASE_SEED, device)
     return {"points": points, "queries": queries, "params": params}
+
+
+def make_shard_inputs(config: Dict, seed: int, device, shard: int,
+                      shards: int) -> Dict[str, object]:
+    """Rows ``[shard * n/R, (shard + 1) * n/R)`` of the points ``make_inputs``
+    makes for ``seed`` (R = ``shards``), with the same queries and hash
+    parameters, bit for bit; ``first_row`` is the shard's first row.
+
+    Every point is drawn as ``make_points`` draws it, a block at a time, and
+    a block keeps the points that the seed's order stores in the shard, so
+    the card holds the shard's rows, the order (n int64) and one block.  The
+    queries' source points are taken from the blocks as they pass."""
+    d = config["data"]
+    n = int(d["n"])
+    if shards < 1 or n % shards or not 0 <= shard < shards:
+        raise ValueError(f"{n} rows do not split into {shards} shards with a shard {shard}")
+    lo_row, rows = shard * (n // shards), n // shards
+    gen = substream(seed, 3, device)
+    order = torch.randperm(n, generator=gen, device=device)
+    qgen = substream(BASE_SEED, 1, device)
+    pick = _query_picks(d, n, qgen, device)
+    sources = torch.empty((pick.shape[0], int(d["dim"])), dtype=torch.int32, device=device)
+    points = torch.empty((rows, int(d["dim"])), dtype=torch.int32, device=device)
+    for lo, x in _point_blocks(d, BASE_SEED, device):
+        dest = order[lo:lo + x.shape[0]] - lo_row
+        keep = (dest >= 0) & (dest < rows)
+        points[dest[keep]] = x[keep]
+        here = (pick >= lo) & (pick < lo + x.shape[0])
+        sources[here] = x[pick[here] - lo]
+    del order
+    queries = _queries_from(d, sources, qgen)
+    queries = queries[torch.randperm(queries.shape[0], generator=gen, device=device)]
+    params = make_hash_params(config["index"], int(d["dim"]), BASE_SEED, device)
+    return {"points": points, "queries": queries, "params": params, "first_row": lo_row}

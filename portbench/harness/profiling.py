@@ -31,6 +31,7 @@ class Record:
     kind: str           # 'kernel', 'gpu_memcpy', 'gpu_memset' or 'cpu'
     start_us: float
     end_us: float
+    correlation: int = 0    # the profiler's correlation id: a device record's and its launch call's
 
 
 @dataclass
@@ -152,20 +153,28 @@ def _device_kind(name: str) -> str:
 
 def records_from_profiler(prof) -> List[Record]:
     """The records of a finished profile, in microseconds on the profiler's
-    clock: each host event (operations, runtime calls, the harness's
-    annotations) as a ``cpu`` record, and each device event but the
-    device-side copies of the harness's annotations (``portbench.*``) by its
-    kind.  The kind is read from the name alone: torch 2.11's events have no
-    ``activity_type()``, and the port records no annotations of its own."""
+    clock, each with its correlation id: each host event (operations,
+    runtime calls, the harness's annotations, the program's ``repro.*``
+    ranges) as a ``cpu`` record, and each device event by its kind, but for
+    the device-side copies of host ranges: the harness's annotations
+    (``portbench.*``) and torch.distributed's (``nccl:all_gather`` spans the
+    collective's kernel on the card), which bear their host range's name and
+    are no work of their own.  The kind is read from the name alone: torch
+    2.11's events have no ``activity_type()``; the program's ranges are
+    never user annotations, so they have no device-side copy."""
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [str(e.device_type()).endswith("CUDA") for e in events]
+    host_names = {e.name() for e, card in zip(events, on_card) if not card}
     out = []
-    for e in prof.profiler.kineto_results.events():
+    for e, card in zip(events, on_card):
         name = e.name()
         start = e.start_ns() / 1e3
         end = start + e.duration_ns() / 1e3
-        if not str(e.device_type()).endswith("CUDA"):
-            out.append(Record(name, "cpu", start, end))
-        elif not name.startswith(ANNOTATION_PREFIX):
-            out.append(Record(name, _device_kind(name), start, end))
+        corr = int(e.correlation_id())
+        if not card:
+            out.append(Record(name, "cpu", start, end, corr))
+        elif not name.startswith(ANNOTATION_PREFIX) and name not in host_names:
+            out.append(Record(name, _device_kind(name), start, end, corr))
     return out
 
 

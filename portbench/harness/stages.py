@@ -8,15 +8,21 @@ device time and idle gaps down to those ranges.
 
 **Device records, by their launch.**  A device record belongs to the host
 call that launched it, never to the host work at its own time: at bulk the
-host runs a batch ahead of the card.  A window's records carry no link
-between the two, so the launch is found by order: the engine's work runs on
-one stream, so the card's n-th device record (kernel, copy or set, by
-start) is the work of the host's n-th launch call (``LAUNCH_CALLS``, by
-start).  Where the two counts differ, order proves nothing and every record
-is unattributed; so is a window with no device record (a run on the CPU).
-A record's stack is the ``repro.*`` ranges around its launch call,
-outermost first; its stage is the innermost, and a record launched outside
-every range is ``UNATTRIBUTED``.
+host runs a batch ahead of the card.  The profiler links the two: a device
+record and the launch call (``LAUNCH_CALLS``) that put it on the card share
+a correlation id, and a record is put down to the call with its id; one
+whose id names no launch call in the window is unattributed.  This holds on
+any number of streams, as on a rank under NCCL, whose collectives run on a
+stream of their own.  Records without ids (made by hand) are linked by
+order instead, which holds on one stream only: the card's n-th device
+record (kernel, copy or set, by start) is the work of the host's n-th
+launch call, by start; where the two counts differ, order proves nothing
+and every record is unattributed.  Where both links exist, the share of
+device time on which they agree is kept as a cross-check (``order_agrees``,
+in the log's table).  A window with no device record (a run on the CPU) is
+unattributed.  A record's stack is the ``repro.*`` ranges around its launch
+call, outermost first; its stage is the innermost, and a record launched
+outside every range is ``UNATTRIBUTED``.
 
 **Idle gaps, by the host around them.**  A gap with no device record is
 named by the stack of ranges around its middle: the program's host work
@@ -84,11 +90,25 @@ class Stages:
                        key=lambda r: r.start_us)
         self.device = sorted(window.device, key=lambda r: r.start_us)
         self.launch_calls = len(calls)
-        self.linked = bool(self.device) and len(calls) == len(self.device)
-        if self.linked:
-            self.stacks = _stacks(self.ranges, [c.start_us for c in calls])
+        by_order = None
+        if self.device and len(calls) == len(self.device):
+            by_order = _stacks(self.ranges, [c.start_us for c in calls])
+        self.by_id = bool(self.device) and all(r.correlation for r in self.device)
+        self.unmatched = 0
+        self.order_agrees: Optional[float] = None
+        if self.by_id:
+            call_of = {c.correlation: c for c in calls}
+            found = [call_of.get(r.correlation) for r in self.device]
+            self.unmatched = sum(c is None for c in found)
+            linked = _stacks(self.ranges, [c.start_us if c else -1.0 for c in found])
+            self.stacks = [s if c else () for s, c in zip(linked, found)]
+            if by_order is not None:
+                us = [r.end_us - r.start_us for r in self.device]
+                same = sum(u for u, a, b in zip(us, self.stacks, by_order) if a == b)
+                self.order_agrees = 100.0 * same / max(sum(us), 1e-9)
         else:
-            self.stacks = [()] * len(self.device)
+            self.stacks = by_order or [()] * len(self.device)
+        self.linked = self.by_id or by_order is not None
         self.gaps = _gaps(self.device, window.t0_us, window.t1_us)
         self.gap_stacks = _stacks(self.ranges, [(a + b) / 2 for a, b in self.gaps])
 
@@ -130,9 +150,14 @@ class Stages:
         dev, idle = self.device_by_stage(), self.idle_by_stage()
         dev.setdefault(UNATTRIBUTED, 0.0)
         total = sum(dev.values())
+        if self.by_id:
+            how = (f", linked by correlation id ({self.unmatched} unmatched); launch order "
+                   + ("unchecked (counts differ)" if self.order_agrees is None else
+                      f"agrees on {self.order_agrees:.2f}% of device time"))
+        else:
+            how = "" if self.linked else " (counts differ: unattributed)"
         lines = [f"stages: {len(self.ranges)} ranges, {len(self.device)} device records, "
-                 f"{self.launch_calls} launch calls" + ("" if self.linked else
-                                                       " (counts differ: unattributed)")]
+                 f"{self.launch_calls} launch calls" + how]
         for name, us in sorted(dev.items(), key=lambda kv: -kv[1]):
             lines.append(f"stage device {name}: {us / per:.4f} ms a batch "
                          f"({100 * us / max(total, 1e-9):.2f}%)")

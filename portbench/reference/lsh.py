@@ -21,6 +21,11 @@ Semantics held here (the configuration's ``guarantees``):
 * a probed bucket gives its first C points in id order;
 * the answer is the k (distance, id)-smallest distinct candidates by exact
   L1 distance, padded with (BIG_DIST, -1).
+
+A row-sharded index (rows split into R contiguous shards, each with tables
+of its own) answers each shard as above over its own rows, ids offset by
+the shard's first row, and keeps the k (distance, id)-smallest of the R
+lists (``merge``), the pads last.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch
 __all__ = ["BIG_DIST", "HashParams", "Tables", "expected_score", "probe_sets",
            "template", "prefix_weights", "raw_hash", "quantize", "mix", "build",
            "probe_keys", "extents", "candidates", "topk", "answer", "work",
-           "work_of_probes", "as_params"]
+           "work_of_probes", "as_params", "answer_shard", "merge"]
 
 BIG_DIST = (2 ** 31 - 1) // 2
 MASK32 = 0xFFFFFFFF
@@ -280,6 +285,26 @@ def answer(params: HashParams, tables: Tables, data: torch.Tensor,
         out_d.append(d)
         out_i.append(i)
     return torch.cat(out_d), torch.cat(out_i)
+
+
+def answer_shard(params: HashParams, tables: Tables, rows: torch.Tensor,
+                 queries: torch.Tensor, cap: int, k: int, first_row: int):
+    """``answer`` over one shard's rows, its ids made global by adding the
+    shard's first row (pads stay -1)."""
+    d, i = answer(params, tables, rows, queries, cap, k)
+    return d, torch.where(i >= 0, i + int(first_row), -1)
+
+
+def merge(lists: List[Tuple[torch.Tensor, torch.Tensor]], k: int):
+    """The k (distance, id)-smallest entries of each query over R (dists,
+    ids) (Q, k) lists, ascending, the pads (BIG_DIST, -1) last."""
+    d = torch.cat([x[0] for x in lists], dim=1).to(torch.int64)
+    i = torch.cat([x[1] for x in lists], dim=1).to(torch.int64)
+    key = d * (1 << 32) + torch.where(i < 0, MASK32, i)
+    best = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    pad = (best & MASK32) == MASK32
+    return ((best >> 32).to(torch.int32),
+            torch.where(pad, -1, best & MASK32).to(torch.int32))
 
 
 def work(params: HashParams, tables: Tables, queries: torch.Tensor, cap: int) -> Dict[str, int]:

@@ -4,13 +4,19 @@
 
 from the root of a checkout.  The cell is found by name in BENCHMARK.json;
 its configuration, traffic and metrics in the files beside it.  The run
-needs a CUDA card (never the CPU); a cell that asks for more than one card
-is refused, since the harness drives one engine on one card.  It
-builds or loads the port's kernels in the checkout, makes its inputs on the
-card from the seed, measures for ``--seconds``, checks a drawn sample of the
-answers against the plain reference, and prints one JSON object as the last
-line of standard output.  The numbers compared, each beside its limit, are
-the last lines of standard error and the result's last key.
+needs as many CUDA cards as the cell asks for (never the CPU), and is
+refused on fewer.  It builds or loads the port's kernels in the checkout,
+makes its inputs on the card from the seed, measures for ``--seconds``,
+checks a drawn sample of the answers against the plain reference, and
+prints one JSON object as the last line of standard output.  The numbers
+compared, each beside its limit, are the last lines of standard error and
+the result's last key.
+
+A cell on one card serves the engine in this process.  A cell on R > 1
+cards needs a configuration whose ``index`` block declares ``"row_shards":
+R``: it runs one process a card under NCCL (``harness/ranks.py``), the
+row-sharded index served in lockstep (``harness/cell.run_sharded``), and
+this process prints rank 0's result.
 """
 from __future__ import annotations
 
@@ -51,26 +57,35 @@ def main(argv=None) -> int:
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-    from portbench.harness import spec
+    from portbench.harness import program, spec
     cell = spec.load_cell(ROOT, args.workload)
-    if cell.chips != 1:
-        log(f"portbench: {args.workload} asks for {cell.chips} cards; the harness drives "
-            "one engine on one card, and has no loop for more yet")
+    shards = program.row_shards(cell.config)
+    if shards != cell.chips:
+        log(f"portbench: {args.workload} asks for {cell.chips} cards and its configuration "
+            f"declares {shards} row shards; a cell on R cards serves R row shards")
         return 2
 
     import torch
     torch.set_num_threads(1)          # one process, few threads: the host's work is serial
-    if not torch.cuda.is_available():
-        log("portbench: no CUDA device is available; the benchmark never runs on the CPU")
-        return 2
-    if torch.cuda.device_count() < cell.chips:
-        log(f"portbench: {args.workload} needs {cell.chips} cards, "
-            f"{torch.cuda.device_count()} found")
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if found < cell.chips:
+        log(f"portbench: {args.workload} needs {cell.chips} card{'s' * (cell.chips > 1)}, "
+            f"{found} found" + ("" if found else ": no CUDA device is available; the "
+                                "benchmark never runs on the CPU"))
         return 2
 
     from portbench.harness import cell as cell_run
-    result = cell_run.run(cell, args.seed, args.seconds, bool(args.trace), "cuda",
-                          T_START, log)
+    if cell.chips == 1:
+        result = cell_run.run(cell, args.seed, args.seconds, bool(args.trace), "cuda",
+                              T_START, log)
+    else:
+        from portbench.harness.ranks import RankFailure
+        try:
+            result = cell_run.run_sharded(cell, args.seed, args.seconds, bool(args.trace),
+                                          "nccl", "cuda", T_START, log, FORBIDDEN)
+        except RankFailure as err:
+            log(f"portbench: {args.workload}: {err}")
+            return 3
     found = forbidden_modules()
     if found:
         log(f"portbench: JAX or the JAX package was loaded: {', '.join(found)}")

@@ -43,3 +43,73 @@ def run(c=None, seed: int = 2 ** 31 + 5, seconds: float = 0.3, trace: bool = Fal
     log = (lambda m: lines.append(m)) if lines is not None else (lambda m: None)
     return cell_run.run(c or cell(), seed, seconds, trace, "cpu", time.perf_counter(), log)
 
+
+
+def sharded_cell(shards: int = 4) -> spec.Cell:
+    """The tiny cell on ``shards`` ranks: its configuration declares as many
+    row shards."""
+    config = copy.deepcopy(CONFIG)
+    config["index"]["row_shards"] = shards
+    return spec.Cell(f"tiny.dist{shards}", shards, config, copy.deepcopy(TRAFFIC), E2E,
+                     PER_LAYER, ROOT)
+
+
+def run_sharded(c=None, seed: int = 2 ** 31 + 7, seconds: float = 0.3, trace: bool = False,
+                lines=None, limit_s: float = 150.0, fault=None) -> dict:
+    """A run of a sharded tiny cell, one gloo rank a shard on the CPU."""
+    from portbench.harness import cell as cell_run
+    log = (lambda m: lines.append(m)) if lines is not None else (lambda m: None)
+    return cell_run.run_sharded(c or sharded_cell(), seed, seconds, trace, "gloo", "cpu",
+                                time.perf_counter(), log, {"jax", "jaxlib", "flax", "repro"},
+                                limit_s=limit_s, fault=fault)
+
+
+def _rerank_ids(change, rank: int, broken: int) -> None:
+    """On rank ``broken``, pass each shard-local rerank's ids through
+    ``change(ids, calls)`` (``calls`` counts the reranks so far)."""
+    if rank != broken:
+        return
+    from repro_torch.core import pipeline as pipe
+    real, calls = pipe.stage_rerank, [0]
+
+    def rerank(cfg, dataset, queries, ids, impl=None):
+        d, i = real(cfg, dataset, queries, ids, impl)
+        calls[0] += 1
+        return d, change(i, calls[0])
+
+    pipe.stage_rerank = rerank
+
+
+def _shifted(i, calls):
+    import torch
+    return torch.where(i >= 0, i + 1, i)
+
+
+def _raises_second(i, calls):
+    if calls >= 2:
+        raise RuntimeError("the card went away")
+    return i
+
+
+def shift_ids(rank: int, broken: int = 1) -> None:
+    """A fault for ``run_sharded``: rank ``broken``'s own top-k ids shifted
+    by one where they are produced, before the ranks exchange them."""
+    _rerank_ids(_shifted, rank, broken)
+
+
+def raise_on_second_request(rank: int, broken: int = 2) -> None:
+    """A fault for ``run_sharded``: rank ``broken`` raises in its second
+    request, while its peers wait in that request's exchange."""
+    _rerank_ids(_raises_second, rank, broken)
+
+
+def _own_list_only(self, t):
+    return t[None].expand(self.mesh.num_row_shards, *t.shape).contiguous()
+
+
+def leave_out_exchange(rank: int) -> None:
+    """A fault for ``run_sharded``: every rank's all-gather of the per-shard
+    top-k lists left out, each rank folding its own list in every shard's
+    place."""
+    from repro_torch.launch import dist_index
+    dist_index.Exchange.all_gather = _own_list_only

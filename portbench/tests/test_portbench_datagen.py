@@ -1,4 +1,7 @@
 """The inputs a seed makes."""
+import hashlib
+
+import pytest
 import torch
 
 import portbench_tiny as tiny
@@ -47,3 +50,41 @@ def test_inputs_keep_to_the_configuration():
     assert ((p["offsets"] >= 0) & (p["offsets"] < ix["width"])).all()
     assert (p["mix_a"] % 2 == 1).all() and int(p["mix_a"].max()) < 2 ** 32
     assert int(p["mix_c"].max()) < 2 ** 32
+
+
+# sha256 of the tiny configuration's points, queries and parameters on the
+# CPU, as the draw stood before the shards' block loop was shared with it
+PINNED = {2 ** 31 + 11: "7e3f2a365ae6531d760893820bbb22ae",
+          -5: "b0db843868d21ead642a77e7695ff05d",
+          7: "dedcf95bd2503d9967ac114e0cc7201e"}
+
+
+@pytest.mark.parametrize("seed", sorted(PINNED))
+def test_the_draw_stays_bit_for_bit(seed):
+    got = _make(seed)
+    h = hashlib.sha256()
+    for t in (got["points"], got["queries"], *got["params"].values()):
+        h.update(t.contiguous().numpy().tobytes())
+    assert h.hexdigest()[:32] == PINNED[seed]
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_the_shards_concatenated_are_make_inputs_bit_for_bit(shards):
+    seed = 2 ** 31 + 13
+    whole = _make(seed)
+    parts = [datagen.make_shard_inputs(tiny.CONFIG, seed, "cpu", s, shards)
+             for s in range(shards)]
+    assert torch.equal(torch.cat([p["points"] for p in parts]), whole["points"])
+    n = tiny.CONFIG["data"]["n"]
+    assert [p["first_row"] for p in parts] == [s * n // shards for s in range(shards)]
+    for p in parts:
+        assert torch.equal(p["queries"], whole["queries"])
+        for key in whole["params"]:
+            assert torch.equal(p["params"][key], whole["params"][key])
+
+
+def test_rows_that_do_not_split_into_the_shards_are_refused():
+    with pytest.raises(ValueError):
+        datagen.make_shard_inputs(tiny.CONFIG, 1, "cpu", 0, 7)       # 6,000 rows
+    with pytest.raises(ValueError):
+        datagen.make_shard_inputs(tiny.CONFIG, 1, "cpu", 4, 4)

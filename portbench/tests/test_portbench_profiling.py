@@ -73,9 +73,10 @@ class _Event:
     """Shaped as torch's ``_KinetoEvent``: what the reader calls, and no
     ``activity_type()`` (torch 2.11 has none)."""
 
-    def __init__(self, name, device, start_ns, duration_ns):
+    def __init__(self, name, device, start_ns, duration_ns, correlation=0):
         self._name, self._device = name, device
         self._start, self._dur = start_ns, duration_ns
+        self._corr = correlation
 
     def name(self):
         return self._name
@@ -89,13 +90,16 @@ class _Event:
     def duration_ns(self):
         return self._dur
 
+    def correlation_id(self):
+        return self._corr
+
 
 def test_profiler_events_are_read_by_where_they_ran_and_their_name():
     events = [_Event("portbench.request", "CPU", 0, 100_000),
               _Event("portbench.request", "CUDA", 1_000, 90_000),
               _Event("aten::sort", "CPU", 2_000, 3_000),
-              _Event("cudaLaunchKernel", "CPU", 5_000, 1_000),
-              _Event(RERANK, "CUDA", 10_000, 20_000),
+              _Event("cudaLaunchKernel", "CPU", 5_000, 1_000, correlation=7),
+              _Event(RERANK, "CUDA", 10_000, 20_000, correlation=7),
               _Event("Memcpy HtoD (Pageable -> Device)", "CUDA", 40_000, 2_000),
               _Event("Memset (Device)", "CUDA", 50_000, 500)]
     prof = type("P", (), {})()
@@ -107,7 +111,25 @@ def test_profiler_events_are_read_by_where_they_ran_and_their_name():
         (RERANK, "kernel"), ("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy"),
         ("Memset (Device)", "gpu_memset")]
     assert (got[3].start_us, got[3].end_us) == (10.0, 30.0)
+    assert (got[2].correlation, got[3].correlation, got[1].correlation) == (7, 7, 0)
     assert pf.window_bounds(got, "portbench.request") == (0.0, 100.0)
+
+
+def test_a_device_copy_of_a_host_range_is_no_device_work():
+    """torch.distributed's ``nccl:all_gather`` range on the host has a copy
+    on the card spanning the collective's kernel: only the kernel counts."""
+    events = [_Event("nccl:all_gather", "CPU", 0, 5_000, correlation=3),
+              _Event("cudaLaunchKernelExC", "CPU", 1_000, 1_000, correlation=4),
+              _Event("nccl:all_gather", "CUDA", 9_000, 12_000, correlation=3),
+              _Event("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)",
+                     "CUDA", 10_000, 10_000, correlation=4)]
+    prof = type("P", (), {})()
+    prof.profiler = type("Q", (), {})()
+    prof.profiler.kineto_results = type("R", (), {"events": lambda self: events})()
+    got = pf.records_from_profiler(prof)
+    assert [(r.name[:22], r.kind, r.correlation) for r in got] == [
+        ("nccl:all_gather", "cpu", 3), ("cudaLaunchKernelExC", "cpu", 4),
+        ("ncclDevKernel_AllGathe", "kernel", 4)]
 
 
 def test_the_readers_kernel_names_come_from_the_programs_table():

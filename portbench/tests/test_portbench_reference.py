@@ -94,3 +94,40 @@ def test_candidates_take_each_buckets_first_ids_once():
     ids, used = ref.candidates(tables, lo, occ, cap=2)
     assert sorted(i for i in ids[0].tolist() if i >= 0) == [0, 1, 2, 3]
     assert used.tolist() == [6]
+
+
+def _shard_answers(points, queries, params, shards, cap, k, num_probes=2):
+    n = points.shape[0] // shards
+    lists = []
+    for s in range(shards):
+        rows = points[s * n:(s + 1) * n]
+        tables = ref.build(params, rows, num_probes)
+        lists.append(ref.answer_shard(params, tables, rows, queries, cap, k, s * n))
+    return ref.merge(lists, k)
+
+
+def test_the_per_shard_reference_at_one_shard_is_the_answer():
+    points, queries, params = _inputs(n=600, width=24.0, tables=3, hashes=2)
+    tables = ref.build(params, points, num_probes=6)
+    want = ref.answer(params, tables, points, queries, cap=4, k=10)
+    got = _shard_answers(points, queries, params, 1, cap=4, k=10, num_probes=6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_the_per_shard_reference_with_every_point_a_candidate_is_the_brute_force():
+    points, queries, params = _inputs(n=600, width=1e6, hashes=1)
+    got = _shard_answers(points, queries, params, 4, cap=600, k=10)
+    want = _brute(points, queries, 10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_merge_orders_by_distance_then_id_with_the_pads_last():
+    pad = (ref.BIG_DIST, -1)
+    a = (torch.tensor([[3, 5, pad[0]]], dtype=torch.int32),
+         torch.tensor([[40, 2, pad[1]]], dtype=torch.int32))
+    b = (torch.tensor([[3, pad[0], pad[0]]], dtype=torch.int32),
+         torch.tensor([[7, pad[1], pad[1]]], dtype=torch.int32))
+    d, i = ref.merge([a, b], 3)
+    assert d.tolist() == [[3, 3, 5]] and i.tolist() == [[7, 40, 2]]
+    d, i = ref.merge([(a[0][:, 1:], a[1][:, 1:]), (b[0][:, 1:], b[1][:, 1:])], 3)
+    assert d.tolist() == [[5, pad[0], pad[0]]] and i.tolist() == [[2, -1, -1]]

@@ -184,3 +184,51 @@ def test_records_from_the_profiler_keep_the_programs_ranges_on_the_host():
     assert {r.name for r in mine} == {"repro.engine_batch", "repro.stage_tombstone"}
     assert {r.kind for r in mine} == {"cpu"}
     assert not any(r.kind != "cpu" and r.name.startswith(stages.PREFIX) for r in recs)
+
+
+def _with_ids(records):
+    """The records with the profiler's correlation ids: the n-th launch call
+    and the n-th device record (by start) share id 100 + n."""
+    calls = sorted((r for r in records if r.kind == "cpu"
+                    and r.name.startswith(stages.LAUNCH_CALLS)), key=lambda r: r.start_us)
+    dev = sorted((r for r in records if r.kind != "cpu"), key=lambda r: r.start_us)
+    for n, (c, d) in enumerate(zip(calls, dev)):
+        c.correlation = d.correlation = 100 + n
+    return records
+
+
+def test_correlation_ids_give_the_stacks_launch_order_gives_on_one_stream():
+    by_order = stages.Stages(_window(_bulk_batch()))
+    st = stages.Stages(_window(_with_ids(_bulk_batch()), batches=2))
+    assert st.by_id and st.linked and st.unmatched == 0
+    assert st.stacks == by_order.stacks
+    assert st.order_agrees == pytest.approx(100.0)
+    assert st.table()[0] == ("stages: 10 ranges, 6 device records, 6 launch calls, linked by "
+                             "correlation id (0 unmatched); launch order agrees on 100.00% of "
+                             "device time")
+
+
+def test_a_second_stream_runs_out_of_launch_order_and_the_ids_still_link():
+    """A collective on a stream of its own (NCCL's) starts before work
+    launched earlier on the compute stream: order would swap the two."""
+    recs = [_range("query", 0, 300),
+            _range("stage_rerank", 10, 30), _host("cudaLaunchKernel", 20, 21),
+            _range("exchange", 40, 60), _host("cudaLaunchKernelExC", 50, 51),
+            _dev(RERANK, 120, 200), _dev("ncclDevKernel_AllGather_RING_LL", 60, 110)]
+    recs[2].correlation, recs[5].correlation = 1, 1
+    recs[4].correlation, recs[6].correlation = 2, 2
+    st = stages.Stages(_window(recs))
+    assert st.device_by_stage() == {"stage_rerank": 80.0, "exchange": 50.0}
+    assert st.order_agrees == pytest.approx(0.0)
+
+
+def test_a_device_record_whose_id_names_no_launch_call_is_unattributed():
+    recs = _with_ids(_bulk_batch())
+    rerank = next(r for r in recs if r.name == RERANK)
+    rerank.correlation = 999
+    st = stages.Stages(_window(recs))
+    assert st.linked and st.unmatched == 1
+    assert st.device_by_stage()[stages.UNATTRIBUTED] == 390.0
+    assert "(1 unmatched)" in st.table()[0]
+    # one unmatched record does not void the others, as unequal counts do by order
+    assert st.device_us("phase_a") == 155.0
