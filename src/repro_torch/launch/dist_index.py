@@ -28,6 +28,15 @@ Nothing picks or switches the backend by itself: 'nccl' with no card, or
 with more ranks than cards, raises before any collective.  Hash parameters
 and the probing template are replicated (the paper's fixed cost, Sect.
 3.2), so every shard buckets alike.
+
+Spans (``obs.trace``; each also a ``repro.<name>`` profiler range): a query
+is ``dist_query`` (attribute ``index_bytes``, the shard's index on its
+device) > ``dist_probe``, ``dist_rerank`` (``slots``, queries x slab width,
+and ``queries``), ``dist_exchange`` (one a collective: ``collective`` and
+the ``bytes`` it sent) and ``dist_fold`` (the concat sort, or each
+``topk_merge`` step); a build is ``dist_build`` > its histogram's
+``dist_exchange``.  None synchronizes the card, and with tracing off and no
+profiler collecting each is the shared no-op.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ from repro_torch.core import pipeline as pipe
 from repro_torch.core.index import IndexConfig, IndexState, build_index
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["Mesh", "Exchange", "make_mesh", "state_specs", "dist_build_fn",
            "dist_query_fn", "cover_bucket", "spawn_ranks", "run_meshes", "assemble",
@@ -214,13 +224,20 @@ class Exchange:
     (``mesh.exchange == 'host'``).  A group of one rank exchanges nothing.
     ``sent_bytes`` counts each point-to-point payload once and an
     all-gather's or all-reduce's payload once a peer, as a direct exchange
-    sends it (gloo may route otherwise).
+    sends it (gloo may route otherwise).  Each collective is a
+    ``dist_exchange`` span whose ``collective`` is its kind
+    (``'all_reduce'``, ``'all_gather'``, ``'shift'``) and whose ``bytes``
+    are what it added to ``sent_bytes``.
     """
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.host = mesh.exchange == "host"
         self.sent_bytes = 0
+
+    def _sent(self, span, nbytes: int) -> None:
+        self.sent_bytes += nbytes
+        span.set(bytes=nbytes)
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         return t.cpu() if self.host else t.contiguous()
@@ -234,34 +251,37 @@ class Exchange:
                        (self.mesh.row_group, self.mesh.num_row_shards))
         if size == 1:
             return t
-        w = self._wire(t).clone()
-        dist.all_reduce(w, op=op, group=group)
-        self.sent_bytes += (size - 1) * w.numel() * w.element_size()
-        return self._home(w)
+        with obs_trace.span("dist_exchange", collective="all_reduce") as span:
+            w = self._wire(t).clone()
+            dist.all_reduce(w, op=op, group=group)
+            self._sent(span, (size - 1) * w.numel() * w.element_size())
+            return self._home(w)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(R, *t.shape): every row shard's ``t``, by row-shard index."""
         r = self.mesh.num_row_shards
         if r == 1:
             return t[None]
-        w = self._wire(t)
-        out = [torch.empty_like(w) for _ in range(r)]
-        dist.all_gather(out, w, group=self.mesh.row_group)
-        self.sent_bytes += (r - 1) * w.numel() * w.element_size()
-        return self._home(torch.stack(out))
+        with obs_trace.span("dist_exchange", collective="all_gather") as span:
+            w = self._wire(t)
+            out = [torch.empty_like(w) for _ in range(r)]
+            dist.all_gather(out, w, group=self.mesh.row_group)
+            self._sent(span, (r - 1) * w.numel() * w.element_size())
+            return self._home(torch.stack(out))
 
     def shift(self, t: torch.Tensor, to: int, frm: int) -> torch.Tensor:
         """Send ``t`` to row shard ``to`` and receive its like from row
         shard ``frm``, in one ``batch_isend_irecv``."""
-        w = self._wire(t)
-        buf = torch.empty_like(w)
-        ranks, group = self.mesh.row_ranks, self.mesh.row_group
-        for req in dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, w, ranks[to], group),
-                dist.P2POp(dist.irecv, buf, ranks[frm], group)]):
-            req.wait()
-        self.sent_bytes += w.numel() * w.element_size()
-        return self._home(buf)
+        with obs_trace.span("dist_exchange", collective="shift") as span:
+            w = self._wire(t)
+            buf = torch.empty_like(w)
+            ranks, group = self.mesh.row_ranks, self.mesh.row_group
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, w, ranks[to], group),
+                    dist.P2POp(dist.irecv, buf, ranks[frm], group)]):
+                req.wait()
+            self._sent(span, w.numel() * w.element_size())
+            return self._home(buf)
 
 
 def _rows_on(x, device) -> torch.Tensor:
@@ -270,6 +290,14 @@ def _rows_on(x, device) -> torch.Tensor:
     if not torch.is_tensor(x):
         x = torch.from_numpy(np.array(x, np.int32))
     return x.to(device=device, dtype=torch.int32)
+
+
+def _index_bytes(state: IndexState) -> int:
+    """Bytes of a shard's index on its device: rows, tables, occupancy runs,
+    histogram and template (the replicated hash parameters aside)."""
+    return sum(t.numel() * t.element_size()
+               for t in (state.dataset, state.sorted_keys, state.sorted_ids,
+                         state.occ_from, state.occ_hist, state.template) if t is not None)
 
 
 def dist_build_fn(cfg: IndexConfig, mesh: Mesh):
@@ -287,11 +315,12 @@ def dist_build_fn(cfg: IndexConfig, mesh: Mesh):
     exchange = Exchange(mesh)
 
     def build(dataset, params) -> IndexState:
-        rows = mesh.row_slice(int(dataset.shape[0]))
-        state = build_index(cfg, _rows_on(dataset[rows], mesh.device),
-                            row_offset=rows.start, params=params.to(mesh.device))
-        state.occ_hist = exchange.all_reduce(state.occ_hist)
-        return state
+        with obs_trace.span("dist_build"):
+            rows = mesh.row_slice(int(dataset.shape[0]))
+            state = build_index(cfg, _rows_on(dataset[rows], mesh.device),
+                                row_offset=rows.start, params=params.to(mesh.device))
+            state.occ_hist = exchange.all_reduce(state.occ_hist)
+            return state
 
     build.exchange = exchange
     return build
@@ -324,36 +353,45 @@ def dist_query_fn(cfg: IndexConfig, mesh: Mesh, merge: str = "allgather",
     j = mesh.row_index
 
     def query(state: IndexState, queries):
-        q = _rows_on(queries[mesh.query_slice(int(queries.shape[0]))], mesh.device)
-        ids = pipe.probe_candidates(
-            cfg, state.params, state.template, state.sorted_keys, state.sorted_ids,
-            state.dataset.shape[0], q, cbucket=cand_bucket, c_cap=cand_cap,
-            occ_from=state.occ_from)
-        d, i = pipe.stage_rerank(cfg, state.dataset, q, ids)          # local top-k
-        # global ids; lex-(dist, id) order survives the shift, as the
-        # ring and tree folds need
-        i = torch.where(i >= 0, i + state.row_offset, -1)
-        d = torch.where(i < 0, pipe.BIG_DIST, d)
-        if merge == "allgather":
-            g = exchange.all_gather(torch.stack([d, i]))              # (R, 2, Q, k)
-            g = g.permute(1, 2, 0, 3).reshape(2, d.shape[0], size * cfg.k)
-            return pipe.stage_merge_concat(g[0], g[1], cfg.k)
-        if merge == "ring":
-            # R-1 steps; each shard's own list travels the ring and is
-            # folded into every accumulator it passes
-            trav, acc = torch.stack([d, i]), (d, i)
-            for _ in range(size - 1):
-                trav = exchange.shift(trav, (j + 1) % size, (j - 1) % size)
-                acc = kops.topk_merge(*acc, trav[0], trav[1])
+        with obs_trace.span("dist_query") as span:
+            if obs_trace.enabled():
+                span.set(index_bytes=_index_bytes(state))
+            q = _rows_on(queries[mesh.query_slice(int(queries.shape[0]))], mesh.device)
+            with obs_trace.span("dist_probe"):
+                ids = pipe.probe_candidates(
+                    cfg, state.params, state.template, state.sorted_keys, state.sorted_ids,
+                    state.dataset.shape[0], q, cbucket=cand_bucket, c_cap=cand_cap,
+                    occ_from=state.occ_from)
+            with obs_trace.span("dist_rerank", slots=ids.shape[0] * ids.shape[1],
+                                queries=ids.shape[0]):
+                d, i = pipe.stage_rerank(cfg, state.dataset, q, ids)  # local top-k
+            # global ids; lex-(dist, id) order survives the shift, as the
+            # ring and tree folds need
+            i = torch.where(i >= 0, i + state.row_offset, -1)
+            d = torch.where(i < 0, pipe.BIG_DIST, d)
+            if merge == "allgather":
+                g = exchange.all_gather(torch.stack([d, i]))          # (R, 2, Q, k)
+                with obs_trace.span("dist_fold"):
+                    g = g.permute(1, 2, 0, 3).reshape(2, d.shape[0], size * cfg.k)
+                    return pipe.stage_merge_concat(g[0], g[1], cfg.k)
+            if merge == "ring":
+                # R-1 steps; each shard's own list travels the ring and is
+                # folded into every accumulator it passes
+                trav, acc = torch.stack([d, i]), (d, i)
+                for _ in range(size - 1):
+                    trav = exchange.shift(trav, (j + 1) % size, (j - 1) % size)
+                    with obs_trace.span("dist_fold"):
+                        acc = kops.topk_merge(*acc, trav[0], trav[1])
+                return acc
+            # 'tree': the recursive-doubling butterfly, log2(R) exchange and
+            # merge steps; log2(R)/(R-1) of the ring's bytes
+            acc, bit = (d, i), 1
+            while bit < size:
+                peer = exchange.shift(torch.stack(acc), j ^ bit, j ^ bit)
+                with obs_trace.span("dist_fold"):
+                    acc = kops.topk_merge(*acc, peer[0], peer[1])
+                bit <<= 1
             return acc
-        # 'tree': the recursive-doubling butterfly, log2(R) exchange and
-        # merge steps; log2(R)/(R-1) of the ring's bytes
-        acc, bit = (d, i), 1
-        while bit < size:
-            peer = exchange.shift(torch.stack(acc), j ^ bit, j ^ bit)
-            acc = kops.topk_merge(*acc, peer[0], peer[1])
-            bit <<= 1
-        return acc
 
     query.exchange = exchange
     return query
