@@ -6,6 +6,7 @@ those paths against its plain-torch version.
 
   python3 chip_smoke.py          # from the repository root; needs one card
   python3 chip_smoke.py --dist-cards 4   # the distributed index on 4 cards only
+  python3 chip_smoke.py --rerank-paths   # fused_rerank's two paths at the cells' batches only
 
 Phases (each path runs with the launch counters zeroed just before it and
 read just after, and must launch the kernels named in ``PATHS``):
@@ -21,7 +22,9 @@ read just after, and must launch the kernels named in ``PATHS``):
                  C, m with m = 300 and m = 1 in four input types; the
                  probe's extents with and without the run-length table, its
                  gather at every cap, the rerank and the gather at their
-                 planned split and at 1, 2, 3, 7 and 32 slices; wrapped
+                 planned split and at 1, 2, 3, 7 and 32 slices, the
+                 rerank's windowed path at 1-, 4- and 64-row windows and
+                 one window of every row; wrapped
                  int32 sums; l1_distance's two loops, a block mixing them and
                  float sums flushed; rw_hash's table kernel and its hash
                  kernel at the planned split and at 1, 2, 3, 7 and m
@@ -1579,6 +1582,79 @@ def dist_cards_main(cards: int) -> int:
     return 0
 
 
+# fused_rerank's two paths at the bulk cells' batches: (name, rows n, width
+# m, universe, queries Q, rung ctot, valid slots a query), the valid ids
+# uniform over the rows and packed to the front, the tail the sentinel n
+RERANK_SHAPES = (("gist1m", 1_000_000, 960, 256, 1024, 131_072, 50_600),
+                 ("sift50m", 50_000_000, 128, 510, 1024, 262_144, 139_773))
+RERANK_REPS = 10
+
+
+def rerank_paths_main() -> int:
+    """``python3 chip_smoke.py --rerank-paths``: ``fused_rerank``'s sliced
+    and windowed paths at ``RERANK_SHAPES``, each call on a fresh copy of the
+    ids (the windowed path reorders them), timed alone between CUDA events
+    (median of ``RERANK_REPS``), the two equal bit for bit, beside the
+    bounds: the distinct rows' bytes once, and every valid slot's row once
+    (the sliced path's reads).  Prints one ``{"rerank_paths": ...}`` line."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_rerank as kfr
+
+    log(nvidia_smi_line())
+    for name in _build.build_all():
+        _build.library(name)
+    card = torch.device("cuda")
+    dev = torch.cuda.current_device()
+    out = []
+    for name, n, m, universe, q, ctot, valid in RERANK_SHAPES:
+        gen = torch.Generator(device=card).manual_seed(35)
+        data = torch.randint(0, universe + 1, (n, m), dtype=torch.int32, device=card,
+                             generator=gen)
+        queries = torch.randint(0, universe + 1, (q, m), dtype=torch.int32, device=card,
+                                generator=gen)
+        fresh = torch.full((q, ctot), n, dtype=torch.int32, device=card)
+        fresh[:, :valid] = torch.randint(0, n, (q, valid), dtype=torch.int32, device=card,
+                                         generator=gen)
+        ids = fresh.clone()
+        plan = kfr.plan_windows(q, n, m, 4, ctot, K, kfr.l2_bytes(dev),
+                                kfr.resident_blocks(dev, torch.int32, m, K, 1, windowed=True))
+        check(plan is not None, f"the rule takes the windowed path at {name}'s batch")
+        slices = kfr.plan_slices(q, ctot, kfr.resident_blocks(dev, torch.int32, m, K, 1))
+        calls = {"sliced": lambda: kfr.fused_rerank_cuda(data, queries, ids, K, slices=slices),
+                 "windowed": lambda: kfr.fused_rerank_cuda(data, queries, ids, K)}
+        ms, res = {}, {}
+        for path, fn in calls.items():
+            times = []
+            for _ in range(RERANK_REPS + 1):
+                ids.copy_(fresh)
+                times.append(event_ms(fn))
+            ms[path] = float(np.median(times[1:]))
+            ids.copy_(fresh)
+            res[path] = fn()
+        check(equal(res["sliced"][0], res["windowed"][0])
+              and equal(res["sliced"][1], res["windowed"][1]),
+              f"fused_rerank windowed == sliced at {name}'s batch")
+        distinct = int(torch.unique(fresh[:, :valid]).numel())
+        pairs = q * valid
+        base = q * ctot * 4 + q * m * 4 + 2 * q * K * 4
+        row_bytes = m * 4
+        ops_ms = pairs * m * 3 / INT32_OPS_PER_S * 1e3
+        rec = {"shape": name, "n": n, "m": m, "q": q, "ctot": ctot, "valid": valid,
+               "distinct_rows": distinct, "slots_a_row": q * ctot / n,
+               "windows": plan.windows, "window_rows": plan.rows,
+               "workspace_bytes": plan.workspace_bytes, "slices": slices,
+               "sliced_ms": ms["sliced"], "windowed_ms": ms["windowed"],
+               "bound_ms": max((base + distinct * row_bytes) / HBM_BYTES_PER_S * 1e3, ops_ms),
+               "pair_bound_ms": max((base + pairs * row_bytes) / HBM_BYTES_PER_S * 1e3, ops_ms)}
+        log(f"rerank paths at {name}: {json.dumps(rec)}")
+        out.append(rec)
+        del data, queries, fresh, ids, res
+        torch.cuda.empty_cache()
+    log(json.dumps({"rerank_paths": out, "device": torch.cuda.get_device_name(0)}))
+    log(nvidia_smi_line())
+    return 0
+
+
 def lint_phase() -> dict:
     """The port's lint gate, ``python -m repro_torch.analysis --check
     --json``, in a subprocess on this machine's Python; its report (the
@@ -2521,6 +2597,8 @@ def main() -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-cards":
         return dist_cards_main(int(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--rerank-paths":
+        return rerank_paths_main()
     from repro_torch.core import pipeline as pipe
     from repro_torch.core.baselines import recall
     from repro_torch.core.index import IndexConfig, probe_index
@@ -2609,6 +2687,14 @@ def main() -> int:
             got = kfr.fused_rerank_cuda(*args, k, slices=slices)
             check(equal(got[0], want[0]) and equal(got[1], want[1]),
                   f"fused_rerank kernel at {slices} slices == plain on {name}")
+            n_cases += 1
+        n_rows = args[0].shape[0]
+        for rows in sorted({1, 4, 64, 1 << max(n_rows - 1, 0).bit_length()}):
+            if -(-n_rows // rows) > kfr.MAX_WINDOWS:
+                continue
+            got = kfr.fused_rerank_cuda(args[0], args[1], args[2].clone(), k, window_rows=rows)
+            check(equal(got[0], want[0]) and equal(got[1], want[1]),
+                  f"fused_rerank windowed kernel at {rows}-row windows == plain on {name}")
             n_cases += 1
     for name in sorted(set(RERANK_CASES) - set(KERNEL_RERANK_CASES)):
         data, queries, _, k = RERANK_CASES[name]    # a distance reaches BIG_DIST
@@ -3057,11 +3143,22 @@ def main() -> int:
     gat_slices = kfr.plan_slices(pk.shape[0], cb, kfp.gather_resident_blocks(
         torch.cuda.current_device(), lo.shape[1]))
     ids = pipe.stage_tombstone(got[0], seg.gids, tomb, st.dataset.shape[0])
+    # the windowed path reorders ids in place (same answer, same work): the
+    # plain version, and the sliced path's timings, take a copy in the
+    # gather's order, as served
+    ids_fresh = ids.clone()
     rr_k = lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids, K)
-    rr_p = lambda: kfr.fused_rerank_plain(st.dataset, batch, ids, K, chunk=cfg.rerank_chunk)
+    rr_p = lambda: kfr.fused_rerank_plain(st.dataset, batch, ids_fresh, K,
+                                          chunk=cfg.rerank_chunk)
+    _build.take_path("fused_rerank")
     sd, si = rr_k()
+    rr_path = _build.take_path("fused_rerank")
     wd, wi = rr_p()
     check(equal(sd, wd) and equal(si, wi), "fused_rerank kernel == plain on the served batch")
+    in_rows = lambda x: torch.sort(torch.where((x >= 0) & (x < st.dataset.shape[0]), x, -1),
+                                   dim=1).values
+    check(equal(in_rows(ids), in_rows(ids_fresh)),
+          f"fused_rerank's {rr_path[0]} path keeps each row's valid ids on the served batch")
     rr_slices = kfr.plan_slices(ids.shape[0], ids.shape[1], kfr.resident_blocks(
         torch.cuda.current_device(), st.dataset.dtype, DIM, K,
         int(st.dataset.data_ptr() % 16 == 0)))
@@ -3096,11 +3193,11 @@ def main() -> int:
     # extents: those reads, lo and occ written; gather: lo and occ read
     ext_bytes = q_rows * lp * (8 + 8 + 4 + 4 + 4) + q_rows * 4
     gat_bytes = q_rows * lp * (4 + 4) + gathered * 4 + q_rows * (cb + 1) * 4
-    valid = ids[(ids >= 0) & (ids < st.dataset.shape[0])]
+    valid = ids_fresh[(ids_fresh >= 0) & (ids_fresh < st.dataset.shape[0])]
     uniq_rows = int(torch.unique(valid).numel())
     pairs = sum(int(torch.unique(r[(r >= 0) & (r < st.dataset.shape[0])]).numel())
-                for r in ids)
-    rr_bytes = (ids.numel() * 4 + uniq_rows * DIM * st.dataset.element_size()
+                for r in ids_fresh)
+    rr_bytes = (ids_fresh.numel() * 4 + uniq_rows * DIM * st.dataset.element_size()
                 + batch.numel() * 4 + 2 * q_rows * K * 4)
     rr_ops = pairs * DIM * 3
     # the per-pair bound: each valid (query, slot) row read once, as a kernel
@@ -3167,9 +3264,10 @@ def main() -> int:
     rows[0]["gather"]["slices"] = gat_slices
     rows[1]["pair_bound_ms"] = bound(rr_pair_bytes, rr_pair_ops)[0]
     rows[1]["slices"] = rr_slices
+    rows[1]["path"], rows[1]["windows"] = rr_path
     rows[1]["ms_by_slices"] = {
-        s: cuda_ms(lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids, K, slices=s))
-        for s in (4, 8, 12, 16, 24, 32)}
+        s: cuda_ms(lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids_fresh, K, slices=s))
+        for s in (rr_slices, 4, 8, 12, 16, 24, 32)}
     rows[1]["delta_scan_ms"] = cuda_ms(lambda: kfr.fused_rerank_cuda(delta_pts, batch, dids, K))
     rows[1]["delta_scan_device_ms"] = device_ms(
         lambda: kfr.fused_rerank_cuda(delta_pts, batch, dids, K))

@@ -340,7 +340,9 @@ def l1_distance_chunked(dataset, queries, ids, k: int, chunk: int):
 def stage_rerank(cfg, dataset, queries, ids, impl: Optional[str] = None):
     """Exact rerank: the k lex-(dist, id)-smallest unique candidates,
     ascending; invalid -> (BIG_DIST, -1).  'fused' (``cfg.rerank_impl``'s
-    default) takes the raw gather, 'scan' deduplicated ids."""
+    default) takes the raw gather, 'scan' deduplicated ids.  The fused
+    kernel may reorder ``ids`` in place (``kops.fused_rerank``): every
+    caller hands it ids it does not read again."""
     impl = impl or getattr(cfg, "rerank_impl", "fused")
     if dataset.shape[0] == 0:
         q = ids.shape[0]

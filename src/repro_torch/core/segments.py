@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import _build as kbuild
 from repro_torch.obs import trace as obs_trace
 
 from . import hashes as hashes_lib
@@ -102,8 +103,14 @@ def _finish_segment(cfg, cbucket: int, c_cap: Optional[int], state: IndexState,
             ids = pipe.stage_dedup(ids, n)
     with obs_trace.span("stage_tombstone", masked=tombstones is not None):
         ids = pipe.stage_tombstone(ids, gids, tombstones, n)
-    with obs_trace.span("stage_rerank", slots=queries.shape[0] * cbucket):
+    with obs_trace.span("stage_rerank", slots=queries.shape[0] * cbucket) as span:
+        traced = obs_trace.enabled()
+        if traced:       # forget a path no traced span took
+            kbuild.take_path("fused_rerank")
         d, i = pipe.stage_rerank(cfg, state.dataset, queries, ids)
+        if traced:       # the kernel's path and windows, "none" off it
+            path, windows = kbuild.take_path("fused_rerank") or ("none", 0)
+            span.set(path=path, windows=windows)
     if n == 0:
         return d, i
     with obs_trace.span("gid_map"):

@@ -66,6 +66,55 @@
 // holds it, so it is in that slice's list.  Equal keys are the same id (the
 // id is the key's low word).  So the union of the slice lists, equal keys
 // skipped, first k, equals the top-k of the whole row.
+//
+// The windowed path (one cooperative launch, rerank_slice_kernel<T, MODE,
+// kWindowed>).  The sliced grid above reads a dataset row from device
+// memory once for every (query, slot) pair that names it: at a batch of
+// 1,024 queries over 1 M rows of 3,840 bytes each row is named ~52 times,
+// and the blocks walk their own queries' slots in probe order, so a row's
+// next read comes ~1 M row reads later, long after the 50 MB L2 has let it
+// go.  That path runs at the card's HBM rate over the pairs' bytes.  The
+// windowed path cuts the row ids into windows of R = 2^shift rows whose
+// bytes fit a share of L2, and has the whole batch read window w's rows
+// while they are there, in three phases split by grid-wide barriers:
+//  1. partition in place: each (query, chunk of kPart slots) is loaded into
+//     shared memory and counting-sorted by window (id >> shift); the valid
+//     ids are written back to the chunk's front grouped by window, a slot
+//     past them that held a valid id gets -1, so each row keeps its
+//     multiset of valid ids (the caller's ids are reordered: the served
+//     path's last use of them), and the (q, chunks, windows + 1) uint16
+//     bin offsets go to the workspace; the same pass empties each query's
+//     running list;
+//  2. (query, window) items by an atomic ticket in window-major order, so
+//     the resident blocks work on at most about two adjacent windows
+//     whatever the dispatch order: a block gathers its item's ids from the
+//     chunks' segments into shared memory and runs the sliced path's
+//     device code over them (partial_l1, reduce4, the per-warp lists with
+//     insert_key's exact dedup), with the query's running list's worst key
+//     as the starting bound; then, under the query's lock, warp 0 merges
+//     its 8 lists and the running list into the running list (warp_merge);
+//  3. each query's running list becomes its (dist, id) pairs.
+// Exactness: an id lies in one window, so every copy of it meets in one
+// item, where the sliced path's dedup holds; a key of the global top-k is
+// below any k unique keys' worst, so no bound drops it; the merges take
+// the first k unique keys of a union, in any order, so the lock orders the
+// work but decides nothing, and the result is the sliced path's bit for
+// bit.  Bound: the HBM bytes of the distinct rows (each read about once a
+// batch) and the L2 bytes of the pairs (every pair's row from L2), with
+// the INT32 issue of |x - q| below both.  At 1,024 queries x 50,600 valid
+// slots over 1 M rows of 3,840 bytes it takes 26.4 ms against the sliced
+// path's 63.6 (the pairs' 199 GB at 7.5 TB/s, the distinct rows' 3.8 GB
+// once); over 50 M rows of 512 bytes, 139,773 valid slots a query, 16.7
+// ms against 26.1, where a row is named only ~3 times a batch and the
+// gain is mostly the window's locality in device memory.  The rule that
+// picks it (fused_rerank.plan_windows): the batch's expected reuse, Q x
+// ctot / n slots a row, at or above WINDOW_REUSE_MIN (the sliced path won
+// at 0.17-0.34, the windowed one from 0.67 up; the rule keeps a margin);
+// windows of the largest power of two of rows within Q / 2G of
+// the L2 for G resident blocks (they work on about G / Q windows at once),
+// between an eighth and half of it, doubled while the offsets pass the
+// workspace limit; and at least two windows.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +128,14 @@ constexpr int kMergeWarps = 4;     // queries a block of the slice merge takes
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kEmpty = ~0ull;
 constexpr int kBigDist = 0x7FFFFFFF / 2;
+// The windowed path: kPart slots a partition chunk (sorted in shared
+// memory; a bin offset fits 16 bits), at most kMaxWindows windows and
+// kMaxChunks chunks a row.  fused_rerank.py's WINDOW_PART, MAX_WINDOWS and
+// MAX_WINDOW_CHUNKS are these.
+constexpr int kWindowed = 2;
+constexpr int kPart = 8192;
+constexpr int kMaxWindows = 2048;
+constexpr int kMaxChunks = 64;
 
 // How a block reads a row: kRegVec, one aligned 16-byte vector a lane with
 // the lane's slice of the query in registers; kSharedVec, aligned vectors
@@ -339,6 +396,267 @@ merge_slices_kernel(const unsigned long long* __restrict__ work, int* __restrict
              nullptr, dout + out, iout + out);
 }
 
+// The windowed path's arguments; the workspace holds lists, locks, ticket
+// and offsets in that order (fused_rerank.window_workspace_bytes).
+template <typename T>
+struct Window {
+  const T* dataset;
+  const int* queries;
+  int* ids;                    // (q, ctot), reordered in place
+  int* dout;
+  int* iout;
+  unsigned long long* lists;   // (q, k) running lists of keys
+  int* locks;                  // (q) 1 while a block merges into the list
+  unsigned* ticket;            // the next (query, window) item
+  unsigned short* offsets;     // (q, chunks, windows + 1) bin starts
+  int q, n, m, ctot, k, shift, windows, chunks;
+};
+
+// Exclusive prefix sums of v[0, count) in place (count <= kThreads * 8);
+// returns the total.  Ends with a barrier.
+__device__ int block_exclusive_scan(int* v, int count, int* wsum) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int per = (count + kThreads - 1) / kThreads;
+  const int lo = threadIdx.x * per;
+  int own = 0;
+  for (int j = 0; j < per; ++j) own += lo + j < count ? v[lo + j] : 0;
+  int inc = own;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += o;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  int run = inc - own, total = 0;
+#pragma unroll
+  for (int j = 0; j < kWarps; ++j) {
+    run += j < warp ? wsum[j] : 0;
+    total += wsum[j];
+  }
+  for (int j = 0; j < per && lo + j < count; ++j) {
+    const int x = v[lo + j];
+    v[lo + j] = run;
+    run += x;
+  }
+  __syncthreads();
+  return total;
+}
+
+// Phase 1 for one (row, chunk): counting sort of the chunk's valid ids by
+// window, in place; the bin starts and the valid count to the offsets.
+template <typename T>
+__device__ void partition_chunk(const Window<T>& a, int row, int c, int* buf, int* hist,
+                                int* wsum) {
+  int* ids = a.ids + static_cast<size_t>(row) * a.ctot + static_cast<size_t>(c) * kPart;
+  const int len = min(kPart, a.ctot - c * kPart);
+  for (int i = threadIdx.x; i < len; i += kThreads) buf[i] = ids[i];
+  for (int b = threadIdx.x; b < a.windows; b += kThreads) hist[b] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    const int id = buf[i];
+    if (id >= 0 && id < a.n) atomicAdd(hist + (id >> a.shift), 1);
+  }
+  __syncthreads();
+  const int total = block_exclusive_scan(hist, a.windows, wsum);
+  unsigned short* off =
+      a.offsets + (static_cast<size_t>(row) * a.chunks + c) * (a.windows + 1);
+  for (int b = threadIdx.x; b < a.windows; b += kThreads) off[b] = static_cast<unsigned short>(hist[b]);
+  if (threadIdx.x == 0) off[a.windows] = static_cast<unsigned short>(total);
+  __syncthreads();  // the offsets are read from hist before it turns into cursors
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    const int id = buf[i];
+    if (id >= 0 && id < a.n) {
+      ids[atomicAdd(hist + (id >> a.shift), 1)] = id;  // a slot below total
+      if (i >= total) ids[i] = -1;                      // a slot past them
+    }
+  }
+  __syncthreads();  // buf and hist serve the next chunk
+}
+
+// Phase 2 for one (row, window) item; see the note at the top.
+template <typename T, int MODE>
+__device__ void rerank_item(const Window<T>& a, int row, int w, unsigned long long* smem,
+                            int* qs, int* sid, int* seg_start, int* seg_pre, int* s_total) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int k = a.k;
+  if (warp == 0) {
+    // the item's segment in each chunk, the empty ones dropped: its start
+    // in the row and its first position in the item's concatenated ids
+    const unsigned short* off =
+        a.offsets + static_cast<size_t>(row) * a.chunks * (a.windows + 1) + w;
+    int run = 0, nseg = 0;
+    for (int c0 = 0; c0 < a.chunks; c0 += 32) {
+      const int c = c0 + lane;
+      int lo = 0, len = 0;
+      if (c < a.chunks) {
+        const unsigned short* o = off + static_cast<size_t>(c) * (a.windows + 1);
+        lo = __ldcg(o);
+        len = static_cast<int>(__ldcg(o + 1)) - lo;
+      }
+      int inc = len;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(kFull, inc, d);
+        if (lane >= d) inc += o;
+      }
+      const unsigned busy = __ballot_sync(kFull, len > 0);
+      if (len > 0) {
+        const int slot = nseg + __popc(busy & ((1u << lane) - 1u));
+        seg_start[slot] = c * kPart + lo;
+        seg_pre[slot] = run + inc - len;
+      }
+      run += __shfl_sync(kFull, inc, 31);
+      nseg += __popc(busy);
+    }
+    if (lane == 0) {
+      seg_pre[nseg] = run;
+      s_total[0] = nseg;
+      s_total[1] = run;
+    }
+  }
+  const unsigned long long bound = __ldcg(a.lists + static_cast<size_t>(row) * k + k - 1);
+  const int* qrow = a.queries + static_cast<size_t>(row) * a.m;
+  int qr[kPer];
+  if constexpr (MODE == kRegVec) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) qr[e] = lane * kPer + e < a.m ? __ldg(qrow + lane * kPer + e) : 0;
+  } else {
+    for (int e = threadIdx.x; e < a.m; e += kThreads) qs[e] = __ldg(qrow + e);
+  }
+  unsigned long long* list = smem + warp * k;
+  for (int j = lane; j < k; j += 32) list[j] = kEmpty;
+  __syncthreads();
+  const int nseg = s_total[0];
+  const int total = s_total[1];
+  const int* row_ids = a.ids + static_cast<size_t>(row) * a.ctot;
+  unsigned long long worst = bound;
+  for (int b0 = 0; b0 < total; b0 += kPart) {
+    const int nb = min(kPart, total - b0);
+    for (int p = threadIdx.x; p < nb; p += kThreads) {
+      const int at = b0 + p;
+      int lo = 0, hi = nseg - 1;  // the last segment starting at or before at
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (seg_pre[mid] <= at) lo = mid; else hi = mid - 1;
+      }
+      sid[p] = __ldcg(row_ids + seg_start[lo] + (at - seg_pre[lo]));
+    }
+    __syncthreads();
+    // round r: warp w takes the item's ids 32r + 4w .. 32r + 4w + 3
+    for (int base = kUnroll * warp; base < nb; base += kUnroll * kWarps) {
+      int cid[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) cid[u] = base + u < nb ? sid[base + u] : -1;
+      int acc[kUnroll];
+      partial_l1<T, MODE>(a.dataset, cid, qr, qs, a.m, lane, acc);
+      const int d = reduce4(acc, lane);
+      const int g = lane >> 3;
+      const int my_id = g == 0 ? cid[0] : g == 1 ? cid[1] : g == 2 ? cid[2] : cid[3];
+      const unsigned long long key = make_key(d, my_id);
+      unsigned pass = __ballot_sync(kFull, (lane & 7) == 0 && my_id >= 0 && key < worst);
+      while (pass) {
+        const int src = __ffs(pass) - 1;
+        pass &= pass - 1;
+        const unsigned long long kb = __shfl_sync(kFull, key, src);
+        if (kb < worst) {
+          const unsigned long long last = insert_key(list, k, kb, lane, worst);
+          worst = last < bound ? last : bound;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (warp == 0) {
+    const bool found = lane < kWarps && smem[lane * k] != kEmpty;
+    if (__any_sync(kFull, found)) {
+      unsigned long long* run_list = a.lists + static_cast<size_t>(row) * k;
+      if (lane == 0) {
+        while (atomicCAS(a.locks + row, 0, 1) != 0) __nanosleep(64);
+      }
+      __syncwarp();
+      __threadfence();
+      for (int j = lane; j < k; j += 32) smem[kWarps * k + j] = __ldcg(run_list + j);
+      __syncwarp();
+      warp_merge(smem, kWarps + 1, k, lane, run_list, nullptr, nullptr);
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) atomicExch(a.locks + row, 0);
+    }
+  }
+}
+
+// Dynamic shared memory of the windowed kernel: phase 1's chunk, bins and
+// warp sums, or phase 2's lists (8 warps' and the running one), query,
+// gathered ids and segments, whichever is larger.
+size_t window_smem_bytes(int m, int k) {
+  const size_t part = sizeof(int) * (kPart + kMaxWindows + kWarps);
+  const size_t item = sizeof(unsigned long long) * (kWarps + 1) * k +
+                      sizeof(int) * (static_cast<size_t>(m) + kPart + 2 * kMaxChunks + 1);
+  return part > item ? part : item;
+}
+
+template <typename T, int MODE, int PATH>
+__global__ void __launch_bounds__(kThreads) rerank_slice_kernel(const Window<T> a) {
+  static_assert(PATH == kWindowed, "the sliced path has its own kernel above");
+  extern __shared__ unsigned long long smem[];
+  __shared__ int s_item[3];  // ticket, then segments and ids of the item
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const size_t at = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
+  for (size_t i = at; i < static_cast<size_t>(a.q) * a.k; i += stride) a.lists[i] = kEmpty;
+  for (size_t i = at; i < static_cast<size_t>(a.q); i += stride) a.locks[i] = 0;
+  if (at == 0) *a.ticket = 0u;
+  {
+    int* buf = reinterpret_cast<int*>(smem);
+    for (int t = blockIdx.x; t < a.q * a.chunks; t += gridDim.x)
+      partition_chunk(a, t / a.chunks, t % a.chunks, buf, buf + kPart, buf + kPart + kMaxWindows);
+  }
+  grid.sync();
+
+  int* qs = reinterpret_cast<int*>(smem + (kWarps + 1) * a.k);
+  int* sid = qs + a.m;
+  int* seg_start = sid + kPart;
+  int* seg_pre = seg_start + kMaxChunks;
+  const unsigned items = static_cast<unsigned>(a.q) * a.windows;
+  unsigned next = 0;
+  if (threadIdx.x == 0) next = atomicAdd(a.ticket, 1u);
+  for (;;) {
+    if (threadIdx.x == 0) s_item[0] = static_cast<int>(next);
+    __syncthreads();
+    const unsigned t = static_cast<unsigned>(s_item[0]);
+    if (t >= items) break;
+    if (threadIdx.x == 0) next = atomicAdd(a.ticket, 1u);  // the next item's, early
+    rerank_item<T, MODE>(a, static_cast<int>(t % a.q), static_cast<int>(t / a.q), smem, qs, sid,
+                         seg_start, seg_pre, s_item + 1);
+    __syncthreads();
+  }
+  grid.sync();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = blockIdx.x * kWarps + warp; r < a.q; r += gridDim.x * kWarps) {
+    for (int j = lane; j < a.k; j += 32) {
+      const size_t o = static_cast<size_t>(r) * a.k + j;
+      const unsigned long long key = __ldcg(a.lists + o);
+      a.dout[o] = key == kEmpty ? kBigDist : key_dist(key);
+      a.iout[o] = key == kEmpty ? -1 : static_cast<int>(key & 0xffffffffu);
+    }
+  }
+}
+
+template <typename T>
+using WindowKernel = void (*)(Window<T>);
+
+template <typename T>
+WindowKernel<T> pick_window(int m, int vec) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (!vec) return rerank_slice_kernel<T, kScalar, kWindowed>;
+  if (m / kPer <= 32) return rerank_slice_kernel<T, kRegVec, kWindowed>;
+  return rerank_slice_kernel<T, kSharedVec, kWindowed>;
+}
+
 template <typename T>
 using SliceKernel = void (*)(const T*, const int*, const int*, unsigned long long*, int*, int*,
                              int, int, int, int);
@@ -392,7 +710,105 @@ int launch(const void* dataset, const void* queries, const void* ids, void* work
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of the windowed kernel for (m, k, vec) the current device keeps
+// resident at once, the most its cooperative launch may have; < 0 is a
+// CUDA error.
+template <typename T>
+int window_resident(int m, int k, int vec) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_window<T>(m, vec), kThreads,
+                                                           window_smem_bytes(m, k))) != cudaSuccess) {
+    return -static_cast<int>(err);
+  }
+  return sms * per_sm;
+}
+
+// ids (q, ctot) int32, reordered in place; work holds the windowed path's
+// workspace; grid at most window_resident blocks.
+template <typename T>
+int launch_window(const void* dataset, const void* queries, void* ids, void* work, void* dout,
+                  void* iout, int q, int n, int m, int ctot, int k, int vec, int shift,
+                  int windows, int grid, void* stream) {
+  const int chunks = (ctot + kPart - 1) / kPart;
+  if (work == nullptr || grid < 1 || shift < 0 || shift > 30 || windows < 1 ||
+      windows > kMaxWindows || chunks > kMaxChunks ||
+      (static_cast<long long>(windows) << shift) < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Window<T> a;
+  a.dataset = static_cast<const T*>(dataset);
+  a.queries = static_cast<const int*>(queries);
+  a.ids = static_cast<int*>(ids);
+  a.dout = static_cast<int*>(dout);
+  a.iout = static_cast<int*>(iout);
+  char* w = static_cast<char*>(work);
+  a.lists = reinterpret_cast<unsigned long long*>(w);
+  w += sizeof(unsigned long long) * q * k;
+  a.locks = reinterpret_cast<int*>(w);
+  w += sizeof(int) * q;
+  a.ticket = reinterpret_cast<unsigned*>(w);
+  w += 16;
+  a.offsets = reinterpret_cast<unsigned short*>(w);
+  a.q = q;
+  a.n = n;
+  a.m = m;
+  a.ctot = ctot;
+  a.k = k;
+  a.shift = shift;
+  a.windows = windows;
+  a.chunks = chunks;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = window_smem_bytes(m, k);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, pick_window<T>(m, vec), a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int fused_rerank_l2_bytes() {
+  int dev = 0, bytes = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&bytes, cudaDevAttrL2CacheSize, dev)) != cudaSuccess) {
+    return -static_cast<int>(err);
+  }
+  return bytes;
+}
+
+extern "C" int fused_rerank_window_resident_i32(int m, int k, int vec) {
+  return window_resident<int32_t>(m, k, vec);
+}
+extern "C" int fused_rerank_window_resident_i16(int m, int k, int vec) {
+  return window_resident<int16_t>(m, k, vec);
+}
+
+extern "C" int fused_rerank_window_i32(const void* dataset, const void* queries, void* ids,
+                                       void* work, void* dout, void* iout, int q, int n, int m,
+                                       int ctot, int k, int vec, int shift, int windows, int grid,
+                                       void* stream) {
+  return launch_window<int32_t>(dataset, queries, ids, work, dout, iout, q, n, m, ctot, k, vec,
+                                shift, windows, grid, stream);
+}
+
+extern "C" int fused_rerank_window_i16(const void* dataset, const void* queries, void* ids,
+                                       void* work, void* dout, void* iout, int q, int n, int m,
+                                       int ctot, int k, int vec, int shift, int windows, int grid,
+                                       void* stream) {
+  return launch_window<int16_t>(dataset, queries, ids, work, dout, iout, q, n, m, ctot, k, vec,
+                                shift, windows, grid, stream);
+}
 
 extern "C" int fused_rerank_resident_i32(int m, int k, int vec) { return resident<int32_t>(m, k, vec); }
 extern "C" int fused_rerank_resident_i16(int m, int k, int vec) { return resident<int16_t>(m, k, vec); }

@@ -15,7 +15,8 @@ appends the device's current stream, raises when the status is not 0 and
 counts the launch in ``LAUNCHES`` (through ``count``, under the module's lock,
 since the cluster router launches from several threads at once).  ``SLOTS``
 counts, beside it and under the same lock, the work a call site hands its
-launches.
+launches, and ``PATHS`` the launches of a kernel by the path it took
+(``take_path`` gives a thread the path of its own last launch).
 """
 from __future__ import annotations
 
@@ -26,11 +27,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "SLOTS", "reset_launches", "count", "count_slots", "build_all",
+__all__ = ["LAUNCHES", "SLOTS", "PATHS", "reset_launches", "count", "count_slots",
+           "count_path", "take_path", "build_all",
            "library", "declare", "entry", "launch", "CSRC", "BUILD_ROOT"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -50,25 +52,47 @@ LAUNCHES: Dict[str, int] = {"fused_probe_extents": 0, "fused_probe_gather": 0,
 # count is the rerank's fill.
 SLOTS: Dict[str, int] = {"fused_rerank": 0}
 
+# Launches by path: ``fused_rerank``'s sliced grid or its windowed
+# cooperative launch (``fused_rerank.plan_windows`` picks one a call).
+PATHS: Dict[str, Dict[str, int]] = {"fused_rerank": {"sliced": 0, "windowed": 0}}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SIGNATURES: Dict[str, Dict[str, Sequence]] = {}   # library -> entry -> argtypes
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 _LOCK = threading.Lock()
+_LAST_PATH = threading.local()   # kernel -> (path, detail) of the thread's last launch
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and ``SLOTS``."""
+    """Zero ``LAUNCHES``, ``SLOTS`` and ``PATHS``."""
     with _LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
         for name in SLOTS:
             SLOTS[name] = 0
+        for paths in PATHS.values():
+            for name in paths:
+                paths[name] = 0
 
 
 def count_slots(site: str, n: int) -> None:
     """Add ``n`` to ``SLOTS[site]``, under the lock ``count`` takes."""
     with _LOCK:
         SLOTS[site] += n
+
+
+def count_path(kernel: str, path: str, detail: int = 0) -> None:
+    """Add one launch of ``kernel`` by ``path`` to ``PATHS``, under the lock,
+    and keep ``(path, detail)`` as the calling thread's last launch of it."""
+    with _LOCK:
+        PATHS[kernel][path] += 1
+    setattr(_LAST_PATH, kernel, (path, detail))
+
+
+def take_path(kernel: str) -> Optional[Tuple[str, int]]:
+    """``(path, detail)`` of the calling thread's last launch of ``kernel``
+    since it last asked, or None: each launch is given out once."""
+    return _LAST_PATH.__dict__.pop(kernel, None)
 
 
 def count(kernel: str, n: int = 1) -> None:

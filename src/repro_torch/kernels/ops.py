@@ -45,7 +45,9 @@ def topk_merge(da, ia, db, ib):
 
 def fused_rerank(dataset, queries, ids, k: int, chunk: int = 512):
     """Gather + exact L1 + top-k over unique valid candidates (``chunk`` sizes
-    the plain version's candidate steps; the kernel needs none)."""
+    the plain version's candidate steps; the kernel needs none).  The
+    kernel's windowed path reorders ``ids`` in place, each row keeping its
+    multiset of valid ids."""
     if _on_cuda(ids):
         out = fused_rerank_cuda(dataset, queries, ids, k)
         count_slots("fused_rerank", ids.numel())

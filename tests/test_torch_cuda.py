@@ -122,6 +122,106 @@ def test_fused_rerank_kernel_at_each_split(card, name, slices):
     _eq(want[1].cpu(), got[1].cpu())
 
 
+def _valid_multiset(ids, n):
+    return torch.sort(torch.where((ids >= 0) & (ids < n), ids, -1), dim=1).values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 64, 1 << 20])
+@pytest.mark.parametrize("name", sorted(KERNEL_RERANK_CASES))
+def test_fused_rerank_windowed_matches_plain(card, name, rows):
+    """The windowed path at a fixed window (one row a window, a few, all
+    rows in one) equals plain, and leaves each row's valid ids reordered
+    with their multiset kept."""
+    data, queries, ids, k = KERNEL_RERANK_CASES[name]
+    args = [_t(x).to(card) for x in (data, queries, ids)]
+    n = args[0].shape[0]
+    if -(-n // rows) > tfr.MAX_WINDOWS:
+        rows = 1 << (n - 1).bit_length()
+    want = tfr.fused_rerank_plain(*args, k)
+    work = args[2].clone()
+    got = tfr.fused_rerank_cuda(args[0], args[1], work, k, window_rows=rows)
+    torch.cuda.synchronize()
+    _eq(want[0].cpu(), got[0].cpu())
+    _eq(want[1].cpu(), got[1].cpu())
+    _eq(_valid_multiset(work, n).cpu(), _valid_multiset(args[2], n).cpu())
+
+
+def _window_traps(rng, q, n, m, ctot, dtype, rows):
+    """Random rows with the windowed path's traps: ids at the edges of every
+    window, each id twice, copies in the next partition chunk, -1 and n, a
+    row with no valid id, and a row of one id (k above its valid count)."""
+    data = rng.integers(0, 256, (n, m)).astype(dtype)
+    queries = rng.integers(0, 256, (q, m)).astype(np.int32)
+    ids = rng.integers(-1, n + 1, (q, ctot)).astype(np.int32)
+    edges = np.arange(0, n, rows)
+    e = np.concatenate([edges - 1, edges, edges + 1])
+    ids[:, :min(e.size, ctot)] = e[:ctot]
+    ids[:, 1::2] = ids[:, 0::2][:, :ids[:, 1::2].shape[1]]
+    if ctot > tfr.WINDOW_PART + 500:
+        ids[:, tfr.WINDOW_PART:tfr.WINDOW_PART + 500] = ids[:, :500]
+    ids[0] = -1
+    if q > 1:
+        ids[-1, 1:] = n
+    return data, queries, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 3, 130, 1024])
+@pytest.mark.parametrize("m", [128, 960])
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+def test_fused_rerank_windowed_at_served_widths(card, dtype, m, q):
+    """Served widths and types, Q from 1 to a bulk batch, rows of several
+    partition chunks: the windowed path at two windows and by the rule
+    equals plain and the sliced path, bit for bit."""
+    rng = np.random.default_rng(q * 1000 + m)
+    n, ctot, k = 6000, 2 * tfr.WINDOW_PART + 1000, 10
+    data, queries, ids = _window_traps(rng, q, n, m, ctot, dtype, 256)
+    args = [_t(x).to(card) for x in (data, queries, ids)]
+    want = tfr.fused_rerank_plain(*args, k)
+    sliced = tfr.fused_rerank_cuda(*args, k, slices=1)
+    for rows in (256, 4096, None):
+        work = args[2].clone()
+        got = tfr.fused_rerank_cuda(args[0], args[1], work, k, window_rows=rows)
+        torch.cuda.synchronize()
+        for a, b, c in zip(want, got, sliced):
+            _eq(a.cpu(), b.cpu(), f"rows={rows}")
+            _eq(c.cpu(), b.cpu(), f"rows={rows}")
+        _eq(_valid_multiset(work, n).cpu(), _valid_multiset(args[2], n).cpu())
+
+
+@pytest.mark.cuda
+def test_fused_rerank_paths_counted(card):
+    """``PATHS['fused_rerank']`` counts each launch by the path it took: the
+    rule picks the windowed path where the batch names each row often and
+    the sliced one where it does not; ``take_path`` gives the launching
+    thread each path (and the windows) once; ``LAUNCHES`` counts both
+    alike."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(5)
+    n, m, k = 200_000, 128, 10
+    data = _t(rng.integers(0, 256, (n, m)).astype(np.int32)).to(card)
+    dev = card.index or 0
+    rule = tfr.plan_windows(256, n, m, 4, 32_768, k, tfr.l2_bytes(dev),
+                            tfr.resident_blocks(dev, torch.int32, m, k, 1, windowed=True))
+    assert rule is not None and rule.windows >= 2
+    _build.reset_launches()
+    for q, ctot, path in ((256, 32_768, "windowed"), (4, 4096, "sliced")):
+        queries = _t(rng.integers(0, 256, (q, m)).astype(np.int32)).to(card)
+        ids = _t(rng.integers(-1, n + 1, (q, ctot)).astype(np.int32)).to(card)
+        want = tfr.fused_rerank_plain(data, queries, ids, k)
+        got = ops.fused_rerank(data, queries, ids, k)
+        _eq(want[0].cpu(), got[0].cpu())
+        _eq(want[1].cpu(), got[1].cpu())
+        assert _build.take_path("fused_rerank") == (
+            path, rule.windows if path == "windowed" else 0)
+        assert _build.take_path("fused_rerank") is None
+    assert _build.PATHS["fused_rerank"] == {"sliced": 1, "windowed": 1}
+    assert _build.LAUNCHES["fused_rerank"] == 2
+    _build.reset_launches()
+    assert _build.PATHS["fused_rerank"] == {"sliced": 0, "windowed": 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(set(RERANK_CASES) - set(KERNEL_RERANK_CASES)))
 def test_serving_on_card_refuses_distances_beyond_big_dist(card, name):
