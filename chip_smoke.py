@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: serve a SIFT1M-shaped segmented
+"""Chip check of the PyTorch/CUDA port: serve a SIFT1M-shaped segmented
 MP-RW-LSH index on one NVIDIA card through the port's own entry points, run
 the paper's quality protocol at the same size, and hold every CUDA kernel of
-those paths against its plain-torch version.
+those paths against its plain-torch version.  It checks; it times nothing
+(the benchmark, ``portbench/``, measures the port).
 
-  python3 chip_smoke.py          # from the repository root; needs one card
+  python3 chip_smoke.py                  # from the repository root; needs one card
   python3 chip_smoke.py --dist-cards 4   # the distributed index on 4 cards only
-  python3 chip_smoke.py --rerank-paths   # fused_rerank's two paths at the cells' batches only
 
 Phases (each path runs with the launch counters zeroed just before it and
 read just after, and must launch the kernels named in ``PATHS``):
@@ -14,30 +14,16 @@ read just after, and must launch the kernels named in ``PATHS``):
                  subprocess, before any card phase: exit 0, and its report
                  of every sanctioned finding (allowed inline or baselined)
                  for ``host_syncs``;
-  build          compile csrc/*.cu with nvcc (sm_90a), one process per source;
-  kernels        each kernel against its plain version at small adversarial
-                 shapes (ties, duplicate ids, uint32 extremes, truncating
-                 buckets, tighter caps, n in {0, 1}, Ctot < k, k > 32, int16;
-                 odd, negative and above-universe coordinates; ragged Q, N,
-                 C, m with m = 300 and m = 1 in four input types; the
-                 probe's extents with and without the run-length table, its
-                 gather at every cap, the rerank and the gather at their
-                 planned split and at 1, 2, 3, 7 and 32 slices, the
-                 rerank's windowed path at 1-, 4- and 64-row windows and
-                 one window of every row; wrapped
-                 int32 sums; l1_distance's two loops, a block mixing them and
-                 float sums flushed; rw_hash's table kernel and its hash
-                 kernel at the planned split and at 1, 2, 3, 7 and m
-                 slices, and both at a U2 above the one-pass limit and at
-                 8,192, which take several shared-memory windows), bit for
-                 bit; an index on the card refuses the rerank cases whose
-                 distances reach BIG_DIST;
-  walk_range     one served batch with an out-of-range query (negative, odd
-                 and above-universe coordinates) over a segment and a delta
-                 holding an out-of-range insert, then after a compaction
-                 that hashes it, on the card at the serve configuration over
-                 the first 50,000 points: no device assert, and the (d, i)
-                 of the same engine on the CPU, bit for bit;
+  build          compile csrc/*.cu with nvcc (sm_90a), one process per
+                 source, and print ptxas's registers and spills;
+  cuda           the card tests, ``python -m pytest -q -m cuda
+                 tests/test_torch_cuda.py``, in a subprocess started here
+                 that runs beside every phase below and is waited for last:
+                 every kernel against its plain version at the adversarial
+                 shapes of ``tests/test_torch_cases.py``, and the
+                 card-against-CPU tests; exit 0, and none failed, errored
+                 or skipped (its output and junit report under
+                 ``build/chip_smoke_cuda/``);
   ground_truth   exact L1 k-NN of the queries through ``ops.l1_distance``,
                  each chunk of distances held against the plain version;
   serve          the main path: build the engine on the card, insert 512
@@ -50,9 +36,6 @@ read just after, and must launch the kernels named in ``PATHS``):
   checks         every served result against the ground truth, its
                  distances recomputed through ``ops.l1_distance_rows`` and
                  held against the plain version;
-  order          the two engines' batches timed alternately (ABBA), so the
-                 order of the two serve phases does not enter the gap, and
-                 one profiled batch of each;
   host_syncs     each engine ('gather', then 'pallas') at the serve
                  configuration under torch's sync debug mode ("warn"): after
                  warm-up and one drain over a segment, a delta and
@@ -61,28 +44,25 @@ read just after, and must launch the kernels named in ``PATHS``):
                  its frames there), and every sync inside r1-host-sync's
                  scope must lie on a line the lint allows or baselines, or
                  in a host helper called from one (``hold_syncs``), else the
-                 run fails; prints one
-                 ``{"host_syncs": ...}`` line (syncs a batch, the count at
-                 each file:line, the compaction's, the sanctioned lines not
-                 hit, whether ``torch.cuda.synchronize`` is reported);
-  examples       ``repro_torch.examples``' quickstart, ann_serving and
-                 cluster_serving, each ``main()`` on the card at its own
-                 sizes (each checks its own claims), then on the CPU: every
-                 step's (d, i) equal, bit for bit; their seconds and recall;
-                 and ``generate``, whose greedy tokens on the card equal the
-                 CPU's;
+                 run fails; prints one ``{"host_syncs": ...}`` line (syncs a
+                 batch, the count at each file:line, the compaction's, the
+                 sanctioned lines not hit, whether ``torch.cuda.synchronize``
+                 is reported);
+  examples       ``repro_torch.examples``' ann_serving and cluster_serving,
+                 each ``main()`` on the card at its own sizes (each checks
+                 its own claims), then on the CPU: every step's (d, i) equal,
+                 bit for bit; and ``generate``, whose greedy tokens on the
+                 card equal the CPU's;
   lm             the language models (no kernel of the repo): every arch's
                  reduced() on the card against the CPU (float32, TF32 off;
                  train_loss, prefill, 8 decode steps and their caches,
                  within 1e-3), then smollm-360m at full width and depth:
                  float32 teacher-forced decode against the full forward
-                 (the JAX package's 2e-2), bf16 prefill against float32
-                 (0.1 x max |logit|), then in bf16 through
-                 ``LanguageModel``: prefill ms of 8 x 128 tokens, a
-                 192-slot cache filled by 128 single-token steps, 64 greedy
-                 steps (ms a step, tokens/s), the peak of allocated memory
-                 by stage, a profiled decode step and prefill; one
-                 ``{"lm": ...}`` line with the card's name and power limit;
+                 (the JAX package's 2e-2), then in bf16 through
+                 ``LanguageModel``: prefill against float32 (0.1 x max
+                 |logit|), a 192-slot cache filled by 128 single-token steps
+                 against prefill, 64 greedy steps (finite logits, tokens in
+                 the vocabulary); one ``{"lm": ...}`` line;
   lm_retrieval   ``repro_torch.examples.retrieval_augmented_lm.main()`` on
                  the card at its own sizes (hit rate >= 0.9, recall@5 >=
                  0.5), its index's answers and ground truth again through
@@ -95,12 +75,10 @@ read just after, and must launch the kernels named in ``PATHS``):
                  losses and grad norms; ``smollm-360m`` at full width and
                  depth (bf16 parameters, float32 moments, remat as
                  configured), B 8 x S 128 from ``batch_at_step``: 20 steps
-                 through ``make_train_step`` (ms a step from CUDA events,
-                 the median after 2; tokens/s; the peak of allocated memory
-                 by stage; finite losses and grad norms, every leaf
-                 changed), one profiled step, the gradients with and without
-                 remat (equal within TRAIN_REMAT_SHARE, the peak without
-                 above the peak with) and one step without remat; then
+                 through ``make_train_step`` (finite losses and grad norms,
+                 every leaf changed), the gradients with and without remat
+                 (equal within TRAIN_REMAT_SHARE, the peak of allocated
+                 memory without remat above the peak with); then
                  ``repro_torch.examples.train_smollm`` (``improved=yes``),
                  and 100 steps resumed to 200 against the straight run;
                  one ``{"train": ...}`` line;
@@ -122,8 +100,8 @@ read just after, and must launch the kernels named in ``PATHS``):
                  line;
   quality        the paper's protocol (``repro_torch.eval.QualityRun``) on
                  the same 1 M points and 256 queries at the JAX package's
-                 full QualitySpec: the exact ground truth, 35 timed records
-                 over MP-RW-LSH, RW-LSH, CP-LSH, MP-CP-LSH and SRS, the
+                 full QualitySpec: the exact ground truth, 35 records over
+                 MP-RW-LSH, RW-LSH, CP-LSH, MP-CP-LSH and SRS, the
                  tables-needed claim, the served configuration's recall, and
                  the segmented, compacted and distributed (nccl, one rank
                  a card) cross-layer oracles at the claim's configuration;
@@ -143,8 +121,8 @@ read just after, and must launch the kernels named in ``PATHS``):
                  the tuner again under the kernels' plain versions (the same
                  history, configuration and predicted recall), the served
                  results' checks, one traced drain (``REPRO_TRACE=1``: the
-                 spans render and check, one ``engine_batch`` a batch, the
-                 median of each phase span), one batch through
+                 spans render and check, one ``engine_batch`` and the four
+                 phase spans a batch), one batch through
                  ``probe_impl='staged'`` equal to the fused probe, the
                  concat fold of a fragmented index equal to the kernel fold,
                  and one drain under ``REPRO_SANITIZE=1``;
@@ -195,62 +173,43 @@ read just after, and must launch the kernels named in ``PATHS``):
                  under nccl, one rank a card.  The path's launches are the
                  ranks' (each counts its own);
   batch          the kernels against their plain versions at the main path's
-                 shapes, and their times beside the least time the card
-                 could take (bytes over 3.35 TB/s, or operations over 67 T/s,
-                 the larger): ``ms`` from CUDA events around one call (for a
-                 launch-bound kernel that is the wrapper's host work),
-                 ``device_ms`` the kernels' own device time a call from
-                 torch.profiler, the same two for the library call.  The
-                 probe's row gives its two launches apart and the one-pass
-                 route; the rw_hash row gives the build's shape (1 M rows)
-                 and the served batch's (``batch_*``), the table kernel
-                 alone (``table``) and its path's calls by row count; the
-                 l1_distance row gives a wide input's times (``wide_*``:
-                 coordinates in +-2^30, the int32 loop), int16's
-                 (``int16_*``), and the SASS of each inner loop
-                 (``sass``: instructions per update from cuobjdump) with
-                 the issue floor it gives (``*issue_floor_ms``: that count
-                 x updates / (SMs x 128 lanes x the SM clock's maximum, which
-                 nvidia-smi reports as ``clocks.max.sm``)).  Every row also
-                 gives ``quality_launches``, ``tuned_launches``,
-                 ``cluster_launches``, ``cluster_process_launches``,
-                 ``cluster_oracle_launches``,
-                 ``cluster_oracle_process_launches``,
-                 ``cluster_oracle_tcp_launches``, ``dist_launches``,
-                 ``host_syncs_launches``, ``host_syncs_rw_hash_launches``,
-                 ``examples_launches``, ``lm_retrieval_launches``,
-                 ``train_launches`` and ``shard_launches``, its launches on
-                 those paths.  The probe's library call is the
-                 staged probe at the same cap (``stage_bucket_lookup``'s two
-                 ``torch.searchsorted`` calls, then ``stage_candidate_gather``),
-                 whose valid candidates must equal the gather's.
+                 shapes, bit for bit: one served batch over the compacted
+                 segment and a delta (the probe's extents, its gather and
+                 both in one pass, and in one pass at caps 1 and 3 of
+                 every ``PROBE_CASES`` entry; the staged probe's slab, whose valid
+                 candidates must equal the gather's; ``fused_rerank`` with
+                 each row's valid ids kept; the delta scan; the
+                 ``topk_merge`` fold), ``rw_hash`` at the build's 1 M rows
+                 (against ``eval_prefix``, and the plain version on the
+                 first 65,536) and at the batch, its table kernel, and
+                 ``l1_distance_rows`` at the batch's first 4,096 candidates
+                 a query and at SRS's shape in four input types on the
+                 vector path, and one element into its storage on the
+                 scalar path (the path from ``plan_rows``), and
+                 ``l1_distance`` at 64 x 1 M x 128 with every coordinate in
+                 +-2^30 (the int32 loop in every stage) and in int16.
 
 Prints one ``{"host_syncs": ...}`` line, one ``{"lm": ...}`` line, one
 ``{"train": ...}`` line, one ``{"dryrun": ...}`` line, one
-``{"shard_ranks": ...}`` line, one ``{"quality": ...}`` line, one ``{"tuned": ...}`` line, one
-``{"cluster": ...}`` line, one ``{"dist": ...}`` line (each run's mesh,
-merge, backend and exchange, each rank's boot, build seconds and bytes
-sent a call, the query's wall ms: the maximum over ranks, median of 5
-calls after one, recall@10), one ``{"kernels": [...]}`` line, the
-card's name and power limit, and as its last line ``{"ok": true, "device":
-{...}}``.  Any failed check raises, so the exit code is not 0.  Exits 2 with
-no result when no card is present or the port's sources are missing.
+``{"shard_ranks": ...}`` line, one ``{"quality": ...}`` line, one
+``{"tuned": ...}`` line, one ``{"cluster": ...}`` line, one ``{"dist": ...}``
+line, the card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``.  Any failed check raises, so the exit code is not 0.
+Exits 2 with no result when no card is present or the port's sources are
+missing.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import gc
 import io
 import json
 import math
 import os
-import re
 import shutil
 import subprocess
 import sys
 import tempfile
-import time
 import traceback
 import warnings
 from pathlib import Path
@@ -259,18 +218,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-AMORTISED_CALLS = 50        # calls between one event pair (amortised_ms)
-INT32_OPS_PER_S = 67e12     # the data sheet's 32-bit non-tensor rate
-# instruction issue: 4 schedulers an SM, each one warp instruction (32
-# lanes) a clock; times the SM count and the card's clock gives
-# lane-instructions/s
-LANES_PER_SM_CLOCK = 4 * 32
 N_POINTS, DIM, UNIVERSE = 1_000_000, 128, 510
-INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
 N_QUERIES, N_INSERT, N_DELETE, K = 1024, 512, 64, 10
 RW_PLAIN_ROWS = 65_536      # the plain thermometer at 1 M rows is ~6 TFLOP
-ORDER_ROUNDS = 32           # alternating batches of each engine
+CUDA_TESTS_TIMEOUT_S = 1800  # the card tests' subprocess
 # the kernels each path must launch
 PROBE = ("fused_probe_extents", "fused_probe_gather")
 PATHS = {"ground_truth": ("l1_distance",),
@@ -293,8 +244,8 @@ PATHS = {"ground_truth": ("l1_distance",),
          "host_syncs": (*PROBE, "fused_rerank", "topk_merge"),
          "host_syncs_rw_hash": ("rw_hash", "rw_prefix_table", *PROBE, "fused_rerank",
                                 "topk_merge"),
-         # the three ANN examples at their own sizes; brute_force_l1 runs
-         # l1_distance
+         # two ANN examples at their own sizes; ann_serving's brute_force_l1
+         # runs l1_distance
          "examples": (*PROBE, "fused_rerank", "topk_merge", "l1_distance"),
          # the retrieval-augmented LM: the one-pass query_index and the
          # brute-force ground truth
@@ -314,17 +265,19 @@ QUALITY_SPEC = dict(k=10, table_sweep=(1, 2, 4, 8, 16, 32),
                     candidate_cap=64, num_hashes_rw=12, num_hashes_cp=8,
                     rerank_chunk=1024, srs_t=1024, target_recall=0.9)
 CAUCHY_ROWS = 65_536        # rows of the card's Cauchy buckets held against float64
-WALK_RANGE_ROWS = 50_000    # the out-of-range batch's index, on the card and the CPU
 CLUSTER_SHARDS, CLUSTER_REPLICAS = 2, 2
+ROUTER_COUNTS = ("queries", "batches", "served", "hedged_batches", "hedge_wins", "failovers",
+                 "cache_hits", "cache_misses", "recoveries", "replicas_marked_dead",
+                 "dispatch_failures")
 # the cluster oracle: rows, queries, and the bound on the flat query's slab
 # at the raised cap (ids, the gather's and the rerank's copies)
 ORACLE_ROWS, ORACLE_QUERIES, ORACLE_SLAB_BYTES = 250_000, 64, 4 << 30
 # the distributed index: four rank processes sharing the one card (gloo, the
-# exchanges through the host), timed calls a run, the occ_hist quantiles of
-# the capped runs (the serving policy's, and one whose cap truncates), the
-# rows and queries of the card-against-CPU check, and the dry-run's ANN
-# configuration (src/repro/launch/dryrun.py:181-183)
-DIST_RANKS, DIST_REPS = 4, 5
+# exchanges through the host), the occ_hist quantiles of the capped runs (the
+# serving policy's, and one whose cap truncates), the rows and queries of the
+# card-against-CPU check, and the dry-run's ANN configuration
+# (src/repro/launch/dryrun.py:181-183)
+DIST_RANKS = 4
 DIST_QUANTILES = {"policy": 0.999, "truncating": 0.9}
 DIST_CPU_ROWS, DIST_CPU_QUERIES = 50_000, 64
 DRYRUN_ANN = dict(num_tables=8, num_hashes=16, width=256, num_probes=100,
@@ -342,13 +295,13 @@ LM_DECODE_STEPS = 8
 # TRAIN_REDUCED_STEPS steps' losses and grad norms within TRAIN_STEP_RTOL
 # (an AdamW step turns a gradient's rounding into a sign, so parameters are
 # not compared); smollm-360m at full width and depth in bf16, B 8 x S 128,
-# TRAIN_STEPS steps (the step time the median after TRAIN_WARM), and its
-# gradients with and without remat within TRAIN_REMAT_SHARE (bf16);
+# TRAIN_STEPS steps, and its gradients with and without remat within
+# TRAIN_REMAT_SHARE (bf16);
 # repro_torch.examples.train_smollm straight and resumed half-way, losses
 # within TRAIN_RESUME_RTOL and parameters within TRAIN_RESUME_SHARE of a
 # leaf's max |value| (the card's reductions need not repeat bit for bit)
 TRAIN_GRAD_SHARE, TRAIN_STEP_RTOL, TRAIN_REDUCED_STEPS = 1e-3, 1e-3, 3
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 128, 20, 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 20
 TRAIN_REMAT_SHARE, TRAIN_RESUME_RTOL, TRAIN_RESUME_SHARE = 2e-2, 1e-4, 1e-3
 # sharding: the dry-run's cells at full width and depth, each a process of
 # its own (one fake world a process), all started together: (arch, shape,
@@ -380,154 +333,6 @@ def check(cond: bool, what: str) -> None:
 
 def equal(a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
-
-
-def max_abs_err(pairs) -> float:
-    return max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
-               if a.numel() else 0.0 for a, b in pairs)
-
-
-def event_ms(fn) -> float:
-    """One call between two CUDA events: the device's time from the first
-    event to the last of the call's work, which includes the host's time to
-    issue the call where that is longer than the work before it."""
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop)
-
-
-def cuda_ms(fn, reps: int = 20, warm: int = 2) -> float:
-    """Median time of one call, from CUDA events around each call."""
-    for _ in range(warm):
-        fn()
-    return float(np.median([event_ms(fn) for _ in range(reps)]))
-
-
-def cuda_ms_pair(fa, fb, reps: int = 20, warm: int = 2):
-    """Median times of one call of each of two functions, timed in turns
-    (a b, b a, ...), so that drift in the host or the card hits both alike."""
-    for _ in range(warm):
-        fa()
-        fb()
-    ta, tb = [], []
-    for r in range(reps):
-        turn = ((fa, ta), (fb, tb)) if r % 2 == 0 else ((fb, tb), (fa, ta))
-        for fn, times in turn:
-            times.append(event_ms(fn))
-    return float(np.median(ta)), float(np.median(tb))
-
-
-def amortised_ms(fn, n: int = AMORTISED_CALLS, warm: int = 3, windows: int = 3) -> float:
-    """Time of one call from one CUDA event pair around ``n`` calls issued
-    back to back, / n, after ``warm`` calls; the median of ``windows`` such
-    readings, with Python's collector paused so that no collection of this
-    process's large heap falls inside a window (host work there counts in
-    full: one window read 7x a call's own time).  The host's issue time of a
-    call hides behind the card's work of the calls before it, unless it is
-    the longer of the two."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    gc.disable()
-    try:
-        return float(np.median([event_ms(lambda: [fn() for _ in range(n)]) / n
-                                for _ in range(windows)]))
-    finally:
-        gc.enable()
-
-
-# the device times that came from CUDA events because every profiler window
-# of device_ms recorded nothing
-DEVICE_MS_FROM_EVENTS = []
-
-
-def device_ms(fn, reps: int = 10, tries: int = 3) -> float:
-    return device_profile(fn, reps, tries)[0]
-
-
-def device_profile(fn, reps: int = 10, tries: int = 3):
-    """Device time of one call and the device events recorded a call:
-    torch.profiler's device-side time over ``reps`` calls (every kernel,
-    memset and copy the call launches) / reps, from the fullest of
-    ``tries`` windows.  On the H100 a window may lose records (1 event in
-    10 calls of a two-launch call was seen) or record none at all,
-    and a window short of events reads short of the time; so every window
-    is profiled and the one with the most device events is kept, with its
-    events a call beside it.  Where every window was empty (seen once in a
-    whole run, late in it), the time is that of two CUDA events around
-    ``reps`` calls issued back to back, / reps: the host's issue time counts
-    where it is the longer, so this reads at or above the profiler's time.
-    Such a time is logged and kept in DEVICE_MS_FROM_EVENTS."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    best = (0, 0.0)                     # (device events, device us) of a window
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total, events = 0.0, 0
-        for e in prof.key_averages():
-            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-                continue
-            dev = getattr(e, "self_device_time_total", None)
-            total += getattr(e, "self_cuda_time_total", 0.0) if dev is None else dev
-            events += e.count
-        best = max(best, (events, total))
-    if best[1] > 0:
-        return best[1] / 1e3 / reps, best[0] / reps
-    ms = event_ms(lambda: [fn() for _ in range(reps)]) / reps
-    DEVICE_MS_FROM_EVENTS.append(ms)
-    log(f"device_ms: the profiler recorded no device event in {tries} windows; "
-        f"{ms:.6f} ms a call from CUDA events around {reps} calls")
-    return ms, None
-
-
-def sass_loops(lib: Path, kernel: str, updates_per_lds) -> list:
-    """The innermost loops of one kernel in a built library, read from
-    ``cuobjdump -sass``: for each, its instructions (NOPs left out), shared
-    loads, FADDs, and instructions per |q - x| update, where
-    ``updates_per_lds(opcode)`` gives the updates one shared load feeds.
-    ``kernel`` is a substring of the mangled name.  A loop is a backward
-    branch; an innermost one holds no other.  None without ``cuobjdump``."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
-    code, func = [], None
-    for line in sass.splitlines():
-        head = re.match(r"\s*Function : (\S+)", line)
-        if head:
-            func = head.group(1)
-            continue
-        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.+?)\s*;", line)
-        if ins and func and kernel in func:
-            words = [w for w in ins.group(2).split() if not w.startswith("@")]
-            code.append((int(ins.group(1), 16), words[0], ins.group(2)))
-    back = []
-    for addr, op, text in code:
-        target = re.search(r"0x([0-9a-f]+)", text.split(op, 1)[1]) if op.startswith("BRA") else None
-        if target and int(target.group(1), 16) < addr:
-            back.append((int(target.group(1), 16), addr))
-    loops = []
-    for lo, hi in back:
-        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in back):
-            continue
-        body = [op for addr, op, _ in code if lo <= addr <= hi and op != "NOP"]
-        updates = sum(updates_per_lds(op) for op in body if op.startswith("LDS"))
-        if updates:
-            loops.append({"instructions": len(body), "updates": updates,
-                          "lds": sum(op.startswith("LDS") for op in body),
-                          "fadd": sum(op.startswith("FADD") for op in body),
-                          "per_update": len(body) / updates})
-    return loops
 
 
 @contextlib.contextmanager
@@ -566,22 +371,20 @@ def quality_phase(ops, spec, data, queries, served_cfg, kernel_modules):
     from repro_torch.core.index import build_index, query_index
     from repro_torch.eval import QualityRun, QualitySpec
 
-    t0 = time.perf_counter()
     qspec = QualitySpec(**QUALITY_SPEC)
 
     def protocol():
         qrun = QualityRun(data, queries, spec.universe, qspec, device="cuda")
-        records = qrun.sweep(timed=True)
+        records = qrun.sweep()
         claim = qrun.table_claim(records)
         l_mp = claim["tables_needed"]["mp-rw-lsh"] or max(qspec.table_sweep)
         oracle_cfg = qrun.scheme_config("mp-rw-lsh", l_mp, qspec.probe_sweep[-1])
         cross = qrun.check_cross_layer(oracle_cfg, cluster=False)
-        served = qrun.eval_config(served_cfg, timed=True)
+        served = qrun.eval_config(served_cfg)
         return qrun, records, claim, oracle_cfg, cross, served
 
     (qrun, records, claim, oracle_cfg, cross, served), launches = run_path(
         "quality", ops, protocol)
-    protocol_s = time.perf_counter() - t0
     for r in records:
         check(0.0 <= r["recall"] <= 1.0 and r["ratio"] >= 1.0 - 1e-9,
               f"quality record {r} has recall in [0, 1] and ratio >= 1")
@@ -688,9 +491,7 @@ def quality_phase(ops, spec, data, queries, served_cfg, kernel_modules):
         "oracle_config": {"scheme": "mp-rw-lsh", "num_tables": oracle_cfg.num_tables,
                           "num_probes": oracle_cfg.num_probes},
         "cross_layer": cross, "plain_equal": plain_equal, "plain_path": plain_path,
-        "cauchy_buckets": cauchy,
-        "protocol_seconds": protocol_s, "seconds": time.perf_counter() - t0,
-        "launches": launches}
+        "cauchy_buckets": cauchy, "launches": launches}
     return summary, launches
 
 
@@ -705,36 +506,30 @@ def tuned_phase(ops, kernel_modules, serve, cfg, serve_cfg, data_c, queries, ins
     from repro_torch.obs import render, trace
     from repro_torch.serve.engine import AnnServingEngine
 
-    t_phase = time.perf_counter()
     tuned_serve = dataclasses.replace(serve_cfg, target_recall=TUNED_TARGET,
                                       autotune_calib=TUNED_CALIB)
-    real_tune, tune_s = autotune.tune_for_recall, []
+    real_tune, tunes = autotune.tune_for_recall, []
 
-    def timed_tune(*args, **kw):                # the engine's own tuning run
-        t0 = time.perf_counter()
-        out = real_tune(*args, **kw)
-        torch.cuda.synchronize()
-        tune_s.append(time.perf_counter() - t0)
-        return out
+    def counted_tune(*args, **kw):              # the engine's own tuning run
+        tunes.append(1)
+        return real_tune(*args, **kw)
 
-    autotune.tune_for_recall = timed_tune
+    autotune.tune_for_recall = counted_tune
     try:
         (eng, phases), launches = run_path(
             "tuned", ops, lambda: serve(cfg, "tuned", tuned_serve))
     finally:
         autotune.tune_for_recall = real_tune
     res = eng.autotune
-    check(res is not None and len(tune_s) == 1, "the engine tuned once at start-up")
+    check(res is not None and len(tunes) == 1, "the engine tuned once at start-up")
     check(eng.cfg == res.cfg, "the engine serves the tuned configuration")
 
     # the tuner again, through the kernels' plain versions on the card
     before = dict(ops.LAUNCHES)
-    t0 = time.perf_counter()
     with plain_kernels(ops, *kernel_modules):
         plain = real_tune(cfg, data_c, TUNED_TARGET, num_calib=TUNED_CALIB,
                           device="cuda")
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
     check(dict(ops.LAUNCHES) == before, "the tuner's plain route launched no kernel")
     check(plain.history == res.history and plain.cfg == res.cfg
           and plain.predicted_recall == res.predicted_recall
@@ -743,17 +538,13 @@ def tuned_phase(ops, kernel_modules, serve, cfg, serve_cfg, data_c, queries, ins
           "the tuner under the plain versions == under the kernels, field for field")
     del plain
 
-    served, all_ms = {}, []
-    for name, setup_s, lat, d, i in phases:
+    served = {}
+    for name, d, i in phases:
         r, hits = check_served(name, d, i, name.endswith("_delta"))
-        all_ms += lat
-        served[name] = {"setup_s": setup_s, "batches": len(lat),
-                        "p50_ms": float(np.percentile(lat, 50)),
-                        "p99_ms": float(np.percentile(lat, 99)),
-                        "queries_per_s": N_QUERIES / (sum(lat) / 1e3),
-                        "recall": r, "self_hits": hits}
+        served[name] = {"recall": r, "self_hits": hits}
     summ = eng.summary()
-    check(summ["batches"] == len(all_ms) and summ["quality"]["num_tables"] == res.cfg.num_tables,
+    check(summ["batches"] == 2 * -(-N_QUERIES // serve_cfg.batch_size)
+          and summ["quality"]["num_tables"] == res.cfg.num_tables,
           "the summary counts every served batch and reports the tuned tables")
 
     # one batch through the staged probe and the concat fold of a fragmented
@@ -798,7 +589,7 @@ def tuned_phase(ops, kernel_modules, serve, cfg, serve_cfg, data_c, queries, ins
     finally:
         del os.environ["REPRO_TRACE"]
     trace.flush()
-    traced_ms = batch_ms_since(eng, rec0)
+    n_traced = eng.flight.recorded - rec0
     eng.submit(queries)
     untraced = eng.drain()
     check(all(np.array_equal(a, b) for a, b in zip(traced, untraced)),
@@ -808,15 +599,13 @@ def tuned_phase(ops, kernel_modules, serve, cfg, serve_cfg, data_c, queries, ins
     check(report["ok"], f"the port's trace checks: {report['errors']}")
     (trace_dir / "trace.json").write_text(json.dumps(render.to_chrome(spans)))
     names = ("engine_batch", "phase_a", "phase_b_rerank", "delta_scan", "merge")
-    durs = {n: [r["dur"] / 1e3 for r in spans if r["name"] == n] for n in names}
-    check(len(durs["engine_batch"]) == len(traced_ms),
+    counts = {n: sum(r["name"] == n for r in spans) for n in names}
+    check(n_traced > 0 and counts["engine_batch"] == n_traced,
           "one engine_batch span for each batch of the traced drain")
-    check(all(len(durs[n]) == len(traced_ms) for n in names[1:]),
+    check(all(counts[n] == n_traced for n in names[1:]),
           "each traced batch has the four phase spans")
     trace_summary = {"dir": str(trace_dir.relative_to(ROOT)), "records": len(spans),
-                     "batches": len(traced_ms),
-                     "median_ms": {n: float(np.median(v)) for n, v in durs.items()},
-                     "batch_p50_ms": float(np.percentile(traced_ms, 50))}
+                     "batches": n_traced, "spans": counts}
 
     # one drain under the race sanitizer, through the constructor's seam
     os.environ["REPRO_SANITIZE"] = "1"
@@ -831,7 +620,6 @@ def tuned_phase(ops, kernel_modules, serve, cfg, serve_cfg, data_c, queries, ins
           "the sanitized drain is clean and serves the same results")
     del guarded
 
-    lat_q = {q: summ[f"{q}_batch_ms"] for q in ("p50", "p99", "p999")}
     summary = {
         "target_recall": TUNED_TARGET, "autotune_calib": TUNED_CALIB,
         "base": {"num_tables": cfg.num_tables, "num_probes": cfg.num_probes,
@@ -841,54 +629,12 @@ def tuned_phase(ops, kernel_modules, serve, cfg, serve_cfg, data_c, queries, ins
         "predicted_recall": res.predicted_recall,
         "validated_recall": res.validated_recall, "met_target": res.met_target,
         "rounds": res.rounds, "history": list(res.history), "d_calib": list(res.d_calib),
-        "tune_seconds": tune_s[0], "plain_tune_seconds": plain_s, "plain_equal": True,
-        "quality": summ["quality"], "served": served,
-        "histogram_ms": lat_q,
-        "exact_ms": {"p50": float(np.percentile(all_ms, 50)),
-                     "p99": float(np.percentile(all_ms, 99))},
-        "warmup_ms": summ["warmup_ms"], "cand_buckets": summ["cand_buckets"],
-        "flight": summ["flight"], "trace": trace_summary,
+        "plain_equal": True, "quality": summ["quality"], "served": served,
+        "cand_buckets": summ["cand_buckets"], "trace": trace_summary,
         "staged_equal": True, "concat": concat, "sanitized_clean": True,
-        "seconds": time.perf_counter() - t_phase, "launches": launches}
+        "launches": launches}
     del eng
     return summary, launches
-
-
-def walk_range_phase(cfg, data, inserted, queries) -> dict:
-    """One served batch with an out-of-range query over a segment and a
-    delta holding an out-of-range insert, then again after a compaction, on
-    the card and on the CPU (the same seeded parameters): equal bit for bit.
-    Returns what the log prints."""
-    from repro_torch.serve.engine import AnnServingEngine, ServeConfig
-    u = cfg.universe
-    bad = queries[:64].copy()
-    # -2 (U2+2) fills, -2 (U2+1) wraps to row 0, -2 and -1 wrap to row U2,
-    # odd values, U, U + 1 and 2U fill
-    pattern = np.asarray([-(u + 4), -(u + 2), -2, -1, 1, u - 1, u, u + 1, u + 2, 2 * u])
-    bad[1] = np.resize(pattern, bad.shape[1])
-    ins = inserted[:64].copy()
-    ins[3] = np.resize(pattern[::-1], ins.shape[1])
-    bad[2] = ins[3]
-    out = []
-    for device in ("cuda", "cpu"):
-        eng = AnnServingEngine(cfg, ServeConfig(batch_size=64, delta_cap=2048,
-                                                warm_buckets=False),
-                               data[:WALK_RANGE_ROWS], device=device)
-        eng.insert(ins)
-        eng.delete([5, 7])
-        got = [eng.query_batch(bad)]
-        eng.compact()
-        got.append(eng.query_batch(bad))
-        out.append(got)
-        del eng
-    torch.cuda.synchronize()
-    for (cd, ci), (hd, hi), when in zip(*out, ("delta", "compacted")):
-        check(np.array_equal(cd, hd) and np.array_equal(ci, hi),
-              f"walk_range: the card's (d, i) == the CPU's, {when}")
-    check(out[0][0][1][2, 0] == WALK_RANGE_ROWS + 3 and out[0][0][0][2, 0] == 0,
-          "walk_range: the out-of-range insert is found in the delta")
-    return {"rows": WALK_RANGE_ROWS, "bad_query_rank0": [int(out[0][0][0][1, 0]),
-                                                          int(out[0][0][1][1, 0])]}
 
 
 def cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, check_drain):
@@ -898,10 +644,8 @@ def cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, check_d
     path's launch counts."""
     from repro_torch.cluster import ClusterConfig, ClusterRouter
 
-    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as root:
         def traffic():
-            t0 = time.perf_counter()
             # no result cache: each drain repeats the same queries, and every
             # one of them is to reach the replicas
             router = ClusterRouter(cfg, serve_cfg,
@@ -909,16 +653,6 @@ def cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, check_d
                                                  num_replicas=CLUSTER_REPLICAS,
                                                  cache_capacity=0),
                                    data, root, device="cuda")
-            torch.cuda.synchronize()
-            timing = {"startup_s": time.perf_counter() - t0, "snapshot_s": []}
-            for group in router.replicas:       # time every later snapshot
-                for rep in group:
-                    def timed_snapshot(orig=rep.snapshot):
-                        t1 = time.perf_counter()
-                        step = orig()
-                        timing["snapshot_s"].append(time.perf_counter() - t1)
-                        return step
-                    rep.snapshot = timed_snapshot
             gids = router.insert(inserted)
             check(list(gids[:2]) == [N_POINTS, N_POINTS + 1],
                   "cluster: insert assigns fresh gids")
@@ -927,43 +661,19 @@ def cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, check_d
             drains = {}
 
             def drain(name):
-                live = [rep for group in router.replicas for rep in group if rep.alive]
                 rec0 = router.flight.recorded
-                eng0 = [rep.engine.flight.recorded for rep in live]
                 router.submit(queries)
                 d, i = router.drain()
                 n = router.flight.recorded - rec0
                 check(0 < n <= router.flight.capacity, f"cluster: {n} dispatches recorded")
-                # each replica engine's own batch times in this drain
-                engine_ms = {f"{rep.shard_id}.{rep.replica_id}": float(np.percentile(
-                    [ms for _, ms, _ in rep.engine.flight.entries()[-m:]], 50))
-                    for rep, e0 in zip(live, eng0)
-                    if 0 < (m := rep.engine.flight.recorded - e0)}
-                drains[name] = (d, i, [ms for _, ms, _ in router.flight.entries()[-n:]],
-                                engine_ms)
+                drains[name] = (d, i, n)
 
             drain("cluster_delta")
-            t0 = time.perf_counter()
             router.compact()
-            timing["compact_s"] = time.perf_counter() - t0
             drain("cluster_compacted")
-            # one replica alone on this thread, the same batches: its batch
-            # time without the other shard's host work beside it (outside
-            # the router, so not counted)
-            def alone():
-                rep, times = router.replicas[0][0], []
-                for lo in range(0, queries.shape[0], serve_cfg.batch_size):
-                    t0 = time.perf_counter()
-                    rep.query(queries[lo:lo + serve_cfg.batch_size], serve_cfg.batch_size)
-                    times.append((time.perf_counter() - t0) * 1e3)
-                return float(np.percentile(times, 50))
-            timing["one_replica_alone_p50_ms"] = uncounted(ops, router, alone)
             router.kill_replica(0, 0)
             check(router.delete(gids) == len(gids), "cluster: the inserted gids deleted")
-            t0 = time.perf_counter()
             info = router.recover_replica(0, 0)
-            torch.cuda.synchronize()
-            timing["recovery_s"] = time.perf_counter() - t0
             # the recovered replica answers as its peer did, bit for bit
             # (replica queries outside the router, not counted)
             batch = queries[:serve_cfg.batch_size]
@@ -976,9 +686,9 @@ def cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, check_d
                   "cluster: the recovered replica answers as its peer did, bit for bit")
             drain("cluster_recovered")
             router._quiesce()     # late hedge losers launch on the path too
-            return router, drains, timing, info
+            return router, drains, info
 
-        (router, drains, timing, info), launches = run_path("cluster", ops, traffic)
+        (router, drains, info), launches = run_path("cluster", ops, traffic)
         summary = router.summary()
         router.close()
     check(summary["recoveries"] >= 1, "cluster: the router recovered a replica")
@@ -986,23 +696,11 @@ def cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, check_d
           "cluster: the recovery replayed or caught up a record")
     out = {"shards": CLUSTER_SHARDS, "replicas": CLUSTER_REPLICAS,
            "rows_per_shard": N_POINTS // CLUSTER_SHARDS, "recovery": info,
-           "startup_s": timing["startup_s"], "compact_s": timing["compact_s"],
-           "recovery_s": timing["recovery_s"], "snapshot_s": timing["snapshot_s"],
-           "one_replica_alone_p50_ms": timing["one_replica_alone_p50_ms"],
-           "router": {k: summary[k] for k in (
-               "queries", "batches", "served", "hedged_batches", "hedge_wins",
-               "failovers", "cache_hits", "cache_misses", "recoveries",
-               "replicas_marked_dead", "dispatch_failures")},
+           "router": {k: summary[k] for k in ROUTER_COUNTS},
            "launches": launches, "drains": {}}
-    for name, (d, i, lat, engine_ms) in drains.items():
+    for name, (d, i, n) in drains.items():
         r, hits = check_drain(name, d, i, name)
-        lat = np.asarray(lat)
-        out["drains"][name] = {"batches": int(lat.size), "p50_ms": float(np.percentile(lat, 50)),
-                               "p99_ms": float(np.percentile(lat, 99)),
-                               "first_ms": float(lat[0]), "engine_p50_ms": engine_ms,
-                               "queries_per_s": queries.shape[0] / (lat.sum() / 1e3),
-                               "recall": r, "self_hits": hits}
-    out["seconds"] = time.perf_counter() - t_phase
+        out["drains"][name] = {"batches": n, "recall": r, "self_hits": hits}
     return out, launches
 
 
@@ -1053,18 +751,16 @@ def cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
     parent's (the fold's ``topk_merge``) plus every worker's."""
     from repro_torch.cluster import ClusterConfig, ClusterRouter, ReplicaKilled
 
-    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_process_") as root, \
             worker_launches() as (w_launches, take):
         def traffic():
-            t0 = time.perf_counter()
             router = ClusterRouter(cfg, serve_cfg,
                                    ClusterConfig(num_shards=CLUSTER_SHARDS,
                                                  num_replicas=CLUSTER_REPLICAS,
                                                  transport="process", cache_capacity=0),
                                    data, root, device="cuda")
             try:
-                out = drive(router, time.perf_counter() - t0)
+                out = drive(router)
                 return router.summary(), *out
             except BaseException:
                 log(worker_log_tails(router))
@@ -1072,27 +768,16 @@ def cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
             finally:
                 router.close()          # takes the live workers' counts
 
-        def engine_batches(router):
-            """{worker: (batches recorded, their times)} of every reachable
-            worker, from its telemetry."""
-            out = {}
+        def drive(router):
+            devices = {}
             for group in router.replicas:
                 for rep in group:
                     try:
-                        t = rep.telemetry()
+                        devices[f"{rep.shard_id}.{rep.replica_id}"] = rep.telemetry()["device"]
                     except ReplicaKilled:
                         continue
-                    out[f"{rep.shard_id}.{rep.replica_id}"] = (
-                        t["flight"]["recorded"], t["engine_batch_ms"], t["device"])
-            return out
-
-        def drive(router, startup_s):
-            boots = {f"{rep.shard_id}.{rep.replica_id}": rep.boot_s
-                     for group in router.replicas for rep in group}
-            devices = {k: v[2] for k, v in engine_batches(router).items()}
             check(set(devices.values()) == {"cuda"}, f"cluster_process: every worker "
                   f"runs its engine on the card ({devices})")
-            timing = {"startup_s": startup_s, "boot_s": boots}
             gids = router.insert(inserted)
             check(list(gids[:2]) == [N_POINTS, N_POINTS + 1],
                   "cluster_process: insert assigns fresh gids")
@@ -1101,7 +786,6 @@ def cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
             drains = {}
 
             def drain(name, stage):
-                before = engine_batches(router)
                 rec0 = router.flight.recorded
                 fail0 = router.stats["dispatch_failures"]
                 router.submit(queries)
@@ -1112,18 +796,10 @@ def cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
                       f"{name}: every batch served (no dropped query)")
                 n = router.flight.recorded - rec0
                 check(0 < n <= router.flight.capacity, f"{name}: {n} dispatches recorded")
-                engine_ms = {}
-                for w, (rec, ms, _) in engine_batches(router).items():
-                    m = rec - before.get(w, (rec, None))[0]
-                    if 0 < m <= len(ms):
-                        engine_ms[w] = float(np.percentile(ms[-m:], 50))
-                drains[name] = (d, i, [ms for _, ms, _ in router.flight.entries()[-n:]],
-                                engine_ms, stage)
+                drains[name] = (d, i, n, stage)
 
             drain("cluster_process_delta", "cluster_delta")
-            t0 = time.perf_counter()
             router.compact()
-            timing["compact_s"] = time.perf_counter() - t0
             drain("cluster_process_compacted", "cluster_compacted")
             # a real, unannounced process death: the drain fails over
             victim = router.replicas[0][0]
@@ -1137,10 +813,7 @@ def cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
             check(router.delete(np.asarray(gids)) == len(gids),
                   "cluster_process: the inserted gids deleted")
             check(not victim.alive, "cluster_process: the dead worker marked down")
-            t0 = time.perf_counter()
             info = router.recover_replica(0, 0)
-            timing["recovery_s"] = time.perf_counter() - t0
-            timing["recovered_boot_s"] = victim.boot_s
             # the recovered worker answers as its peer did, bit for bit
             # (replica queries outside the router; their launches taken back)
             batch = queries[:serve_cfg.batch_size]
@@ -1158,16 +831,9 @@ def cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
                   "bit for bit")
             drain("cluster_process_recovered", "cluster_recovered")
             router._quiesce()
-            timing["snapshot_s"] = []
-            for group in router.replicas:
-                for rep in group:
-                    if rep.alive:
-                        t0 = time.perf_counter()
-                        rep.snapshot()
-                        timing["snapshot_s"].append(time.perf_counter() - t0)
-            return drains, timing, info
+            return drains, info
 
-        (summary, drains, timing, info), launches = run_path(
+        (summary, drains, info), launches = run_path(
             "cluster_process", ops, traffic, more=w_launches)
         parent = {k: launches[k] - w_launches.get(k, 0) for k in launches}
     for k in (*PROBE, "fused_rerank", "topk_merge"):
@@ -1177,22 +843,13 @@ def cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
     check(info["replayed"] + info["caught_up"] >= 1,
           "cluster_process: the recovery replayed or caught up a record")
     out = {"transport": "process", "shards": CLUSTER_SHARDS, "replicas": CLUSTER_REPLICAS,
-           "rows_per_shard": N_POINTS // CLUSTER_SHARDS, "recovery": info, **timing,
-           "router": {k: summary[k] for k in (
-               "queries", "batches", "served", "hedged_batches", "hedge_wins",
-               "failovers", "cache_hits", "cache_misses", "recoveries",
-               "replicas_marked_dead", "dispatch_failures")},
-           "wire": summary["wire"], "launches": launches,
-           "launches_parent": parent, "launches_workers": dict(w_launches), "drains": {}}
-    for name, (d, i, lat, engine_ms, stage) in drains.items():
+           "rows_per_shard": N_POINTS // CLUSTER_SHARDS, "recovery": info,
+           "router": {k: summary[k] for k in ROUTER_COUNTS}, "wire": summary["wire"],
+           "launches": launches, "launches_parent": parent,
+           "launches_workers": dict(w_launches), "drains": {}}
+    for name, (d, i, n, stage) in drains.items():
         r, hits = check_drain(name, d, i, stage)
-        lat = np.asarray(lat)
-        out["drains"][name] = {"batches": int(lat.size), "p50_ms": float(np.percentile(lat, 50)),
-                               "p99_ms": float(np.percentile(lat, 99)),
-                               "first_ms": float(lat[0]), "engine_p50_ms": engine_ms,
-                               "queries_per_s": queries.shape[0] / (lat.sum() / 1e3),
-                               "recall": r, "self_hits": hits}
-    out["seconds"] = time.perf_counter() - t_phase
+        out["drains"][name] = {"batches": n, "recall": r, "self_hits": hits}
     return out, launches
 
 
@@ -1206,7 +863,6 @@ def cluster_oracle_phase(ops, spec, data):
     from repro_torch.data import ann_synthetic as ds
     from repro_torch.eval import QualityRun, QualitySpec
 
-    t0 = time.perf_counter()
     n = ORACLE_ROWS
     while True:                 # size the cut outside the counted path
         rows = data[:n]
@@ -1223,19 +879,16 @@ def cluster_oracle_phase(ops, spec, data):
         if slab <= ORACLE_SLAB_BYTES:
             break
         n //= 2
-    t1 = time.perf_counter()
     got, launches = run_path("cluster_oracle", ops, lambda: run.check_cluster(cfg))
     check(got["cluster_matches_flat"], "cluster_oracle: cluster == flat, bit for bit")
     check(got["cluster_recovery_matches_flat"],
           "cluster_oracle: after kill and recovery, cluster == flat, bit for bit")
     out = {"rows": n, "cut": f"n {n} of {N_POINTS} (the flat oracle's slab at the raised "
-           f"cap), dims {spec.dim} kept", "config": dataclasses.asdict(cfg), **got,
-           "inproc_seconds": time.perf_counter() - t1}
+           f"cap), dims {spec.dim} kept", "config": dataclasses.asdict(cfg), **got}
     all_launches = {"cluster_oracle": launches}
     # the same oracle over worker processes on the card, each transport
     for transport in ("process", "tcp"):
         name = f"cluster_oracle_{transport}"
-        t1 = time.perf_counter()
         with worker_launches() as (w_launches, _):
             got, all_launches[name] = run_path(
                 name, ops, lambda: run.check_cluster(cfg, transport=transport),
@@ -1245,9 +898,7 @@ def cluster_oracle_phase(ops, spec, data):
               "recovery")
         for k in (*PROBE, "fused_rerank"):
             check(w_launches.get(k, 0) > 0, f"{name}: the workers launched {k}")
-        out[transport] = {**got, "seconds": time.perf_counter() - t1,
-                          "launches_workers": dict(w_launches)}
-    out["seconds"] = time.perf_counter() - t0
+        out[transport] = {**got, "launches_workers": dict(w_launches)}
     return out, all_launches
 
 
@@ -1307,24 +958,22 @@ def dist_phase(ops, plain_rows, recall, cfg, data, queries, gt_i0):
     from repro_torch.eval import QualityRun, QualitySpec
     from repro_torch.launch import dist_index as di
 
-    t_phase = time.perf_counter()
     card = torch.device("cuda")
     params = make_params(cfg, DIM)
     dry = IndexConfig(**DRYRUN_ANN)
     base = {"cfg": cfg, "params": params}
-    runs = {f"rows2_model2_{m}": {"shape": (2, 2), "merge": m, "reps": DIST_REPS, **base}
-            for m in di.MERGES}
+    runs = {f"rows2_model2_{m}": {"shape": (2, 2), "merge": m, **base} for m in di.MERGES}
     for tag, q in DIST_QUANTILES.items():
         capped = {"shape": (2, 2), "cand_bucket": "cover", "cap_quantile": q, **base}
         for m in di.MERGES:
             runs[f"rows2_model2_{m}_{tag}"] = {"merge": m, **capped}
         runs[f"rows2_model2_tree_again_{tag}"] = {"merge": "tree", **capped}
     runs.update({
-            "dryrun_rows2_model2_tree": {"shape": (2, 2), "merge": "tree", "reps": DIST_REPS,
-                                         "cfg": dry, "params": make_params(dry, DIM)},
+            "dryrun_rows2_model2_tree": {"shape": (2, 2), "merge": "tree", "cfg": dry,
+                                         "params": make_params(dry, DIM)},
             "rows2_model2_first_rows": {"shape": (2, 2), "rows": DIST_CPU_ROWS,
                                         "queries": DIST_CPU_QUERIES, **base},
-            "model4_allgather": {"shape": (1, 4), "reps": DIST_REPS, **base}})
+            "model4_allgather": {"shape": (1, 4), **base}})
     names = list(runs)
     rank_launches = {k: 0 for k in ops.LAUNCHES}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
@@ -1356,11 +1005,9 @@ def dist_phase(ops, plain_rows, recall, cfg, data, queries, gt_i0):
             return reports
 
         reports, launches = run_path("dist", ops, ranks, more=rank_launches)
-        t0 = time.perf_counter()
         cpu = di.spawn_ranks(DIST_RANKS, di.run_meshes, path, queries,
                              [runs["rows2_model2_first_rows"]], backend="gloo",
                              device="cpu", timeout_s=600)
-        cpu_s = time.perf_counter() - t0
     recs = [rep["result"] for rep in reports]
     got = {name: di.assemble(recs, k) for k, name in enumerate(names)}
     check(all(rep["device"] == "cuda:0" for rep in reports)
@@ -1392,7 +1039,6 @@ def dist_phase(ops, plain_rows, recall, cfg, data, queries, gt_i0):
     check(caps["truncating"][0] < cfg.candidate_cap,
           f"dist: the truncating cap {caps['truncating'][0]} < {cfg.candidate_cap}")
     # against the flat index over the same points and parameters
-    t0 = time.perf_counter()
     data_c, q_c = torch.from_numpy(data).to(card), torch.from_numpy(queries).to(card)
     state = build_index(cfg, data_c, params=params.to(card))
     fd, fi = (x.cpu().numpy() for x in query_index(cfg, state, q_c))
@@ -1434,22 +1080,16 @@ def dist_phase(ops, plain_rows, recall, cfg, data, queries, gt_i0):
     oracle = qrun.check_distributed(cfg)
     check(oracle["dist_matches_flat"] and oracle["devices"] == torch.cuda.device_count(),
           f"dist: check_distributed under nccl, one rank a card: {oracle}")
-    checks_s = time.perf_counter() - t0
 
     out = {"ranks": DIST_RANKS, "backend": recs[0][0]["backend"],
            "exchange": recs[0][0]["exchange"],
-           "boot_s": [rep["boot_s"] for rep in reports],
-           "ready_s": [rep["ready_s"] for rep in reports],
-           "rank_seconds": [rep["seconds"] for rep in reports],
            "nccl_refusal": nccl_refusal if torch.cuda.device_count() < DIST_RANKS else None,
            "nccl_own_answer": nccl_answer if torch.cuda.device_count() < DIST_RANKS else None,
-           "runs": {}, "cpu_ranks_s": cpu_s,
-           "cpu_ranks_boot_s": [rep["boot_s"] for rep in cpu],
+           "runs": {},
            "check_distributed": {**oracle, "backend": "nccl", "queries": QUALITY_QUERIES},
-           "checks_s": checks_s, "launches": launches}
+           "launches": launches}
     for k, name in enumerate(names):
         run, rr = runs[name], [r[k] for r in recs]
-        per_call = np.max([r["query_ms"] for r in rr], axis=0) if run.get("reps") else None
         d, i = got[name]
         out["runs"][name] = {
             "shape": list(run["shape"]), "merge": run.get("merge", "allgather"),
@@ -1459,26 +1099,22 @@ def dist_phase(ops, plain_rows, recall, cfg, data, queries, gt_i0):
             "rows_per_shard": run.get("rows", N_POINTS) // run["shape"][0],
             "queries_per_block": int(d.shape[0]) // run["shape"][1],
             "cand_cap": rr[0]["cand_cap"], "cand_bucket": rr[0]["cand_bucket"],
-            "build_s": [r["build_s"] for r in rr],
-            "query_ms": None if per_call is None else float(np.median(per_call)),
-            "query_ms_calls": None if per_call is None else per_call.tolist(),
             "sent_bytes": [r["sent_bytes"] for r in rr],
             "build_sent_bytes": [r["build_sent_bytes"] for r in rr],
             # the ground truth is over every point
             "recall_at_10": None if run.get("rows") else float(recall(i[:, :K], gt_i0))}
     out["flat_recall_at_10"] = float(recall(fi, gt_i0))
-    out["seconds"] = time.perf_counter() - t_phase
     return out, launches
 
 
 def dist_cards_main(cards: int) -> int:
     """``python3 chip_smoke.py --dist-cards N``: the distributed index under
-    nccl, one card a rank, on N cards, in turns with gloo ranks on the same
-    cards (the exchanges through the host): nccl, gloo, gloo, nccl.  At the
-    serve configuration over the 1 M points and 1,024 queries: (2, N/2) and
-    (N, 1) meshes under the three merges and (1, N), five timed calls each;
-    every result equal across backends and merges, (1, N) equal to the flat
-    index; then ``QualityRun.query_dist`` over the N cards (nccl ranks
+    nccl, one card a rank, on N cards, and under gloo ranks on the same
+    cards (the exchanges through the host), each backend twice: nccl, gloo,
+    gloo, nccl.  At the serve configuration over the 1 M points and 1,024
+    queries: (2, N/2) and (N, 1) meshes under the three merges and (1, N);
+    every result equal across calls, backends and merges, (1, N) equal to
+    the flat index; then ``QualityRun.query_dist`` over the N cards (nccl ranks
     spawned) equal to flat; on 4 cards also the shard phase's sharded
     forward (``shard_ranks``) under nccl, one rank a card.  Prints one
     ``{"dist_cards": ...}`` line."""
@@ -1492,7 +1128,6 @@ def dist_cards_main(cards: int) -> int:
 
     check(torch.cuda.device_count() >= cards,
           f"--dist-cards {cards} needs {cards} cards, found {torch.cuda.device_count()}")
-    t_start = time.perf_counter()
     log(nvidia_smi_line())
     for name in _build.build_all():
         _build.library(name)
@@ -1511,9 +1146,9 @@ def dist_cards_main(cards: int) -> int:
     fd, fi = (x.cpu().numpy() for x in query_index(cfg, state, q_c))
     del state, data_c, q_c
     torch.cuda.empty_cache()
-    runs = [{"shape": shape, "merge": m, "reps": DIST_REPS, "cfg": cfg, "params": params}
+    runs = [{"shape": shape, "merge": m, "cfg": cfg, "params": params}
             for shape in ((2, cards // 2), (cards, 1)) for m in di.MERGES]
-    runs.append({"shape": (1, cards), "reps": DIST_REPS, "cfg": cfg, "params": params})
+    runs.append({"shape": (1, cards), "cfg": cfg, "params": params})
     names = [f"rows{r['shape'][0]}_model{r['shape'][1]}_{r.get('merge', 'allgather')}"
              for r in runs]
     out = {"cards": cards, "width": cfg.width, "calls": []}
@@ -1522,13 +1157,10 @@ def dist_cards_main(cards: int) -> int:
         path = os.path.join(tmp, "points.npy")
         np.save(path, data)
         for backend in ("nccl", "gloo", "gloo", "nccl"):
-            t0 = time.perf_counter()
             reports = di.spawn_ranks(cards, di.run_meshes, path, queries, runs,
                                      backend=backend, device="cuda", timeout_s=600)
             recs = [rep["result"] for rep in reports]
-            call = {"backend": backend, "seconds": time.perf_counter() - t0,
-                    "devices": [rep["device"] for rep in reports],
-                    "boot_s": [rep["boot_s"] for rep in reports],
+            call = {"backend": backend, "devices": [rep["device"] for rep in reports],
                     "launches": {k: sum(rep["launches"][k] for rep in reports)
                                  for k in reports[0]["launches"]}, "runs": {}}
             got = {name: di.assemble(recs, k) for k, name in enumerate(names)}
@@ -1537,19 +1169,15 @@ def dist_cards_main(cards: int) -> int:
                 check(all(np.array_equal(a, b) for a, b in zip(got[name], first[name])),
                       f"dist_cards {backend} {name} == the first call's, bit for bit")
                 check((got[name][0] <= fd).all(), f"dist_cards {name}: every distance <= flat")
-                per_call = np.max([rr[k]["query_ms"] for rr in recs], axis=0)
                 call["runs"][name] = {
-                    "exchange": recs[0][k]["exchange"], "query_ms": float(np.median(per_call)),
-                    "query_ms_calls": per_call.tolist(),
-                    "build_s": [rr[k]["build_s"] for rr in recs],
+                    "exchange": recs[0][k]["exchange"],
                     "sent_bytes": [rr[k]["sent_bytes"] for rr in recs],
                     "recall_at_10": float(recall(got[name][1], gt_i))}
             check(call["devices"] == [f"cuda:{r}" for r in range(cards)],
                   f"dist_cards {backend}: one card a rank ({call['devices']})")
             for k in (*PROBE, "fused_rerank", "topk_merge"):
                 check(call["launches"][k] > 0, f"dist_cards {backend}: the ranks launched {k}")
-            log(f"dist_cards {backend}: {call['seconds']:.1f} s, " + ", ".join(
-                f"{n} {r['query_ms']:.3f} ms" for n, r in call["runs"].items()))
+            log(f"dist_cards {backend}: every run == the first call's, every distance <= flat")
             out["calls"].append(call)
     for shape in ((2, cards // 2), (cards, 1)):
         base = f"rows{shape[0]}_model{shape[1]}"
@@ -1561,19 +1189,17 @@ def dist_cards_main(cards: int) -> int:
           f"dist_cards: the (1, {cards}) mesh == the flat query_index, bit for bit")
     qrun = QualityRun(data, queries[:QUALITY_QUERIES], UNIVERSE, QualitySpec(k=K),
                       device="cuda", params_fn=lambda c, dim: make_params(c, dim))
-    t0 = time.perf_counter()
     oracle = qrun.check_distributed(cfg)
     check(oracle == {"devices": cards, "dist_matches_flat": True},
           f"dist_cards: check_distributed over {cards} cards: {oracle}")
-    out["check_distributed"] = {**oracle, "seconds": time.perf_counter() - t0}
+    out["check_distributed"] = oracle
     if cards == 4:      # the shard phase's sharded forward under nccl, one rank a card
         out["shard_ranks"] = shard_ranks("nccl", "cuda")
         check(out["shard_ranks"]["devices"] == [f"cuda:{r}" for r in range(4)],
               f"dist_cards shard ranks: one card a rank ({out['shard_ranks']['devices']})")
         log(f"dist_cards shard ranks (nccl): max abs err "
             f"{max(out['shard_ranks']['max_abs_err']):.3g} of max |logit| "
-            f"{out['shard_ranks']['max_abs_logit']:.4g}, {out['shard_ranks']['seconds']:.1f} s")
-    out["seconds"] = time.perf_counter() - t_start
+            f"{out['shard_ranks']['max_abs_logit']:.4g}")
     log(json.dumps({"dist_cards": out}))
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1582,93 +1208,62 @@ def dist_cards_main(cards: int) -> int:
     return 0
 
 
-# fused_rerank's two paths at the bulk cells' batches: (name, rows n, width
-# m, universe, queries Q, rung ctot, valid slots a query), the valid ids
-# uniform over the rows and packed to the front, the tail the sentinel n
-RERANK_SHAPES = (("gist1m", 1_000_000, 960, 256, 1024, 131_072, 50_600),
-                 ("sift50m", 50_000_000, 128, 510, 1024, 262_144, 139_773))
-RERANK_REPS = 10
-
-
-def rerank_paths_main() -> int:
-    """``python3 chip_smoke.py --rerank-paths``: ``fused_rerank``'s sliced
-    and windowed paths at ``RERANK_SHAPES``, each call on a fresh copy of the
-    ids (the windowed path reorders them), timed alone between CUDA events
-    (median of ``RERANK_REPS``), the two equal bit for bit, beside the
-    bounds: the distinct rows' bytes once, and every valid slot's row once
-    (the sliced path's reads).  Prints one ``{"rerank_paths": ...}`` line."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import fused_rerank as kfr
-
-    log(nvidia_smi_line())
-    for name in _build.build_all():
-        _build.library(name)
-    card = torch.device("cuda")
-    dev = torch.cuda.current_device()
-    out = []
-    for name, n, m, universe, q, ctot, valid in RERANK_SHAPES:
-        gen = torch.Generator(device=card).manual_seed(35)
-        data = torch.randint(0, universe + 1, (n, m), dtype=torch.int32, device=card,
-                             generator=gen)
-        queries = torch.randint(0, universe + 1, (q, m), dtype=torch.int32, device=card,
-                                generator=gen)
-        fresh = torch.full((q, ctot), n, dtype=torch.int32, device=card)
-        fresh[:, :valid] = torch.randint(0, n, (q, valid), dtype=torch.int32, device=card,
-                                         generator=gen)
-        ids = fresh.clone()
-        plan = kfr.plan_windows(q, n, m, 4, ctot, K, kfr.l2_bytes(dev),
-                                kfr.resident_blocks(dev, torch.int32, m, K, 1, windowed=True))
-        check(plan is not None, f"the rule takes the windowed path at {name}'s batch")
-        slices = kfr.plan_slices(q, ctot, kfr.resident_blocks(dev, torch.int32, m, K, 1))
-        calls = {"sliced": lambda: kfr.fused_rerank_cuda(data, queries, ids, K, slices=slices),
-                 "windowed": lambda: kfr.fused_rerank_cuda(data, queries, ids, K)}
-        ms, res = {}, {}
-        for path, fn in calls.items():
-            times = []
-            for _ in range(RERANK_REPS + 1):
-                ids.copy_(fresh)
-                times.append(event_ms(fn))
-            ms[path] = float(np.median(times[1:]))
-            ids.copy_(fresh)
-            res[path] = fn()
-        check(equal(res["sliced"][0], res["windowed"][0])
-              and equal(res["sliced"][1], res["windowed"][1]),
-              f"fused_rerank windowed == sliced at {name}'s batch")
-        distinct = int(torch.unique(fresh[:, :valid]).numel())
-        pairs = q * valid
-        base = q * ctot * 4 + q * m * 4 + 2 * q * K * 4
-        row_bytes = m * 4
-        ops_ms = pairs * m * 3 / INT32_OPS_PER_S * 1e3
-        rec = {"shape": name, "n": n, "m": m, "q": q, "ctot": ctot, "valid": valid,
-               "distinct_rows": distinct, "slots_a_row": q * ctot / n,
-               "windows": plan.windows, "window_rows": plan.rows,
-               "workspace_bytes": plan.workspace_bytes, "slices": slices,
-               "sliced_ms": ms["sliced"], "windowed_ms": ms["windowed"],
-               "bound_ms": max((base + distinct * row_bytes) / HBM_BYTES_PER_S * 1e3, ops_ms),
-               "pair_bound_ms": max((base + pairs * row_bytes) / HBM_BYTES_PER_S * 1e3, ops_ms)}
-        log(f"rerank paths at {name}: {json.dumps(rec)}")
-        out.append(rec)
-        del data, queries, fresh, ids, res
-        torch.cuda.empty_cache()
-    log(json.dumps({"rerank_paths": out, "device": torch.cuda.get_device_name(0)}))
-    log(nvidia_smi_line())
-    return 0
-
-
 def lint_phase() -> dict:
     """The port's lint gate, ``python -m repro_torch.analysis --check
     --json``, in a subprocess on this machine's Python; its report (the
     findings and every sanctioned one, with its lines)."""
-    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.analysis", "--check", "--json"],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     check(proc.returncode == 0, "python -m repro_torch.analysis --check exits 0:\n"
           + proc.stdout[-2000:] + proc.stderr[-2000:])
-    report = json.loads(proc.stdout)
-    report["seconds"] = time.perf_counter() - t0
-    return report
+    return json.loads(proc.stdout)
+
+
+@contextlib.contextmanager
+def card_tests():
+    """The card tests, ``python -m pytest -q -m cuda tests/test_torch_cuda.py``,
+    in a subprocess on this machine's Python, started on entry and run beside
+    the block (each process has its own CUDA context and launch counters;
+    the tests' workers and ranks take ports the kernel picks and file
+    stores of their own).  Yields ``wait()``: the tests must exit 0, and
+    every one pass (none failed, errored or skipped); it returns their
+    number.  A run still going when the block exits is killed.  Both loads
+    share the one card, so a memory or timing flake in either fails the
+    whole smoke, and a failed card test shows only when the block ends; run
+    in line instead, the tests cost the smoke ~47 s more."""
+    from xml.etree import ElementTree
+    out_dir = ROOT / "build" / "chip_smoke_cuda"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    report, printed = out_dir / "junit.xml", out_dir / "pytest.log"
+    with open(printed, "w") as sink:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p", "no:cacheprovider",
+             f"--junitxml={report}", "tests/test_torch_cuda.py"],
+            stdout=sink, stderr=subprocess.STDOUT, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+    def wait() -> int:
+        rc = proc.wait(timeout=CUDA_TESTS_TIMEOUT_S)
+        tail = printed.read_text()[-4000:]
+        check(rc == 0, f"the card tests exit 0:\n{tail}")
+        suite = ElementTree.parse(report).getroot()
+        if suite.tag != "testsuite":
+            suite = suite.find("testsuite")
+        counts = {k: int(suite.get(k, 0)) for k in ("tests", "failures", "errors", "skipped")}
+        check(counts["tests"] > 0 and counts["failures"] == counts["errors"]
+              == counts["skipped"] == 0,
+              f"every card test passed, none failed, errored or skipped {counts}:\n{tail}")
+        return counts["tests"]
+
+    try:
+        yield wait
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 class SyncRecorder:
@@ -1721,7 +1316,6 @@ def host_syncs_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, sanc
     scope that no allow or baseline entry covers fails the phase."""
     from repro_torch.analysis.rules import hold_syncs
     from repro_torch.serve.engine import AnnServingEngine
-    t_phase = time.perf_counter()
     out, launches, batch = {}, {}, serve_cfg.batch_size
     for tag, path, run_cfg in (("gather", "host_syncs", cfg),
                                ("pallas", "host_syncs_rw_hash",
@@ -1771,7 +1365,6 @@ def host_syncs_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, sanc
         torch.cuda.synchronize()
         rec.window = None
     out["synchronize_reported"] = bool(rec.counts)
-    out["seconds"] = time.perf_counter() - t_phase
     for tag in ("gather", "pallas"):
         check(not out[tag]["missed_by_the_lint"],
               f"host_syncs {tag}: every sync inside r1-host-sync's scope carries an allow "
@@ -1780,24 +1373,19 @@ def host_syncs_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted, sanc
 
 
 def examples_phase() -> dict:
-    """The three ANN examples' ``main()`` on the card at their own sizes (each
+    """Two ANN examples' ``main()`` on the card at their own sizes (each
     checks its own claims; a failed assert fails the run), then each again
     on the CPU (the kernels' plain versions): every step's (d, i), the
-    recall and the inserted gids equal the card's, bit for bit.  Each one's
-    seconds on both, recall and the tail of what it printed."""
-    from repro_torch.examples import ann_serving, cluster_serving, quickstart
+    recall and the inserted gids equal the card's, bit for bit; then
+    ``generate``'s greedy tokens on the card and on the CPU.  Each one's
+    recall and the tail of what it printed."""
+    from repro_torch.examples import ann_serving, cluster_serving, generate
     out = {}
-    for name, mod in (("quickstart", quickstart), ("ann_serving", ann_serving),
-                      ("cluster_serving", cluster_serving)):
-        t0 = time.perf_counter()
+    for name, mod in (("ann_serving", ann_serving), ("cluster_serving", cluster_serving)):
         with contextlib.redirect_stdout(io.StringIO()) as printed:
             res = mod.main()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             plain = mod.main(device="cpu")
-        cpu_seconds = time.perf_counter() - t0
         steps = sorted(res["answers"])
         check(steps == sorted(plain["answers"]) and all(
             np.array_equal(a, b) for step in steps
@@ -1806,23 +1394,18 @@ def examples_phase() -> dict:
         check(res["recall"] == plain["recall"] and np.array_equal(
             res.get("gids", ()), plain.get("gids", ())),
               f"examples {name}: recall and gids on the card == on the CPU")
-        out[name] = {"seconds": seconds, "cpu_seconds": cpu_seconds,
-                     "recall": res["recall"], "steps_equal_on_the_cpu": steps,
+        out[name] = {"recall": res["recall"], "steps_equal_on_the_cpu": steps,
                      **{k: v for k, v in res.items()
                         if k not in ("recall", "answers", "gids")},
                      "printed_tail": printed.getvalue().strip().splitlines()[-2:]}
     # the greedy generation example: the same tokens on the card and the CPU
-    from repro_torch.examples import generate
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as printed:
         res = generate.main()
-    seconds = time.perf_counter() - t0
     with contextlib.redirect_stdout(io.StringIO()):
         plain = generate.main(device="cpu")
     check(np.array_equal(res["sequence"], plain["sequence"]),
           "examples generate: the greedy sequence on the card == on the CPU")
-    out["generate"] = {"seconds": seconds, "arch": res["arch"],
-                       "shape": list(res["sequence"].shape),
+    out["generate"] = {"arch": res["arch"], "shape": list(res["sequence"].shape),
                        "printed_tail": printed.getvalue().strip().splitlines()[-1:]}
     return out
 
@@ -1867,30 +1450,24 @@ def lm_phase() -> dict:
     last one against prefill's) within LM_FULL_TOL; in its config's bf16
     (the same seed-0 draws, which ``init_params`` casts), through
     ``LanguageModel``: prefill logits within LM_BF16_SHARE x max |float32
-    logits| (a sanity bound: a wrong cast or mask, not rounding), prefill
-    ms, the prompt into a LM_CACHE-slot cache by LM_PROMPT single-token
-    steps from pos0 = 0 (the reference's multi-token decode step gives
-    every token position pos0, so it is not a prefill; the last step's
-    logits against prefill's, same bound), then LM_GREEDY greedy steps: ms
-    a step at B LM_BATCH, tokens per second, the peak of allocated memory
-    in each stage, and one profiled decode step and prefill (device busy,
-    launches, idle share)."""
+    logits| (a sanity bound: a wrong cast or mask, not rounding), the
+    prompt into a LM_CACHE-slot cache by LM_PROMPT single-token steps from
+    pos0 = 0 (the reference's multi-token decode step gives every token
+    position pos0, so it is not a prefill; the last step's logits against
+    prefill's, same bound), then LM_GREEDY greedy steps at B LM_BATCH:
+    finite logits, tokens inside the vocabulary."""
     from repro_torch import configs
     from repro_torch.models import model as M
     from repro_torch.models import transformer as tf
-    t_phase = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     out = {"reduced": {}}
     try:
         with torch.no_grad():
             for arch in configs.ARCHS:
-                t0 = time.perf_counter()
                 cfg = configs.get_reduced(arch)
                 params = M.init_params(cfg, device="cpu")
                 card = _lm_run(M, tf, cfg, tf.tree_map(lambda t: t.cuda(), params), "cuda")
-                torch.cuda.synchronize()
-                card_s = time.perf_counter() - t0
                 cpu = _lm_run(M, tf, cfg, params, "cpu")
                 check(sorted(card) == sorted(cpu) and all(
                     torch.allclose(card[k], cpu[k], atol=LM_REDUCED_TOL, rtol=LM_REDUCED_TOL)
@@ -1898,12 +1475,10 @@ def lm_phase() -> dict:
                     f"{LM_REDUCED_TOL}")
                 out["reduced"][arch] = {
                     "max_abs_err": max(float((card[k] - cpu[k]).abs().max()) for k in cpu),
-                    "loss": float(card["loss"]), "card_seconds": card_s,
-                    "results": len(cpu)}
+                    "loss": float(card["loss"]), "results": len(cpu)}
             out["full"] = _lm_full(M, tf, configs)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1935,14 +1510,6 @@ def _lm_f32(M, tf, cfg32, toks) -> dict:
             "max_abs_logit": float(full.abs().max())}
 
 
-def _peak_since(mark: dict, stage: str) -> None:
-    """Record the peak of allocated memory since the last mark, and start a
-    new one."""
-    torch.cuda.synchronize()
-    mark[stage] = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-
-
 def _lm_full(M, tf, configs) -> dict:
     """smollm-360m at full width and depth: float32 checks, then the bf16
     model (the same draws, cast as ``init_params`` casts them) served
@@ -1952,7 +1519,6 @@ def _lm_full(M, tf, configs) -> dict:
     vocab = cfg16.vocab
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         1, vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()
-    batch = {"tokens": toks}
     f32 = _lm_f32(M, tf, cfg32, toks)
     pre32 = f32.pop("pre32")
     torch.cuda.empty_cache()
@@ -1964,68 +1530,34 @@ def _lm_full(M, tf, configs) -> dict:
            "f32": f32}
 
     # bfloat16, through the module: the same seed-0 draws, cast to bf16
-    memory = {"before": torch.cuda.memory_allocated()}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     lm = M.LanguageModel(cfg16, device="cuda")
-    torch.cuda.synchronize()
-    res["init_s"] = time.perf_counter() - t0
-    _peak_since(memory, "weights")
-    pre16 = lm.prefill(batch)[:, 0, :vocab].float()
+    pre16 = lm.prefill({"tokens": toks})[:, 0, :vocab].float()
     bound = LM_BF16_SHARE * float(pre32.abs().max())
     err16 = float((pre16 - pre32).abs().max())
     check(torch.isfinite(pre16).all() and err16 <= bound,
           f"lm full: bf16 prefill logits within {bound:.3f} of float32's ({err16:.3f})")
-    prefill_ms = cuda_ms(lambda: lm.prefill(batch), reps=10)
-    _peak_since(memory, "prefill")
     caches = lm.make_caches(LM_BATCH, LM_CACHE, torch.bfloat16)
     check(caches["sub0"]["k"].dtype == torch.bfloat16 and
           caches["sub0"]["k"].shape == (cfg16.n_groups, LM_BATCH, LM_CACHE, cfg16.n_kv,
                                         cfg16.head_dim), "lm full: the bf16 cache's layout")
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
     for i in range(LM_PROMPT):
         lg, caches = lm.decode_step(caches, toks[:, i:i + 1], i)
-    stop.record()
-    stop.synchronize()
-    fill_ms = start.elapsed_time(stop)
-    _peak_since(memory, "fill")
     last = lg[:, 0, :vocab].float()
     err_fill = float((last - pre16).abs().max())
     check(err_fill <= bound, f"lm full: bf16 cache fill's last logits within {bound:.3f} of "
           f"prefill's ({err_fill:.3f})")
     tok = torch.argmax(lg[..., :vocab], dim=-1).to(torch.int32)
     seq = [tok]
-    start.record()
     for i in range(LM_PROMPT, LM_PROMPT + LM_GREEDY):
         lg, caches = lm.decode_step(caches, tok, i)
         tok = torch.argmax(lg[..., :vocab], dim=-1).to(torch.int32)
         seq.append(tok)
-    stop.record()
-    stop.synchronize()
-    greedy_ms = start.elapsed_time(stop)
-    _peak_since(memory, "greedy")
     seq = torch.cat(seq, dim=1)
     check(bool(torch.isfinite(lg[..., :vocab]).all()) and bool(((seq >= 0) & (seq < vocab)).all()),
           "lm full: greedy logits finite, tokens inside the vocabulary")
-    step_ms = greedy_ms / LM_GREEDY
     res["bf16"] = {"prefill_vs_f32_max_abs_err": err16, "bound": bound,
                    "fill_vs_prefill_max_abs_err": err_fill,
-                   "prefill_ms": prefill_ms, "fill_ms": fill_ms,
-                   "fill_ms_per_step": fill_ms / LM_PROMPT,
-                   "decode_ms_per_step": step_ms,
-                   "tokens_per_s": LM_BATCH * 1e3 / step_ms,
-                   # the peak of allocated memory above what the earlier
-                   # phases left allocated when this one started
-                   "peak_allocated": max(memory[k] for k in memory if k != "before")
-                   - memory["before"],
-                   "memory_peaks": memory,
-                   "weights_bytes": sum(t.numel() * t.element_size() for t in lm.parameters()),
-                   "cache_bytes": sum(t.numel() * t.element_size() for t in _leaves(caches)),
                    "greedy_tokens_first_row": seq[0, :8].tolist()}
-    res["bf16"]["decode_profile"] = device_split(
-        lambda: lm.decode_step(caches, tok, LM_CACHE - 1))
-    res["bf16"]["prefill_profile"] = device_split(lambda: lm.prefill(batch))
     del lm, caches
     torch.cuda.empty_cache()
     return res
@@ -2098,12 +1630,10 @@ def _train_reduced(arch: str) -> dict:
 def _train_full() -> dict:
     """smollm-360m at full width and depth in its config's bf16 (remat on,
     float32 moments), the launcher's AdamW: TRAIN_STEPS steps on
-    ``batch_at_step``'s B TRAIN_BATCH x S TRAIN_SEQ, each between two CUDA
-    events, the peak of allocated memory by stage above the phase's start,
-    one profiled step; then, at the trained parameters, the gradients with
-    remat and without (each one's peak) and one step without remat.  The
-    first draws stay on the host, so that the card holds only what
-    training holds."""
+    ``batch_at_step``'s B TRAIN_BATCH x S TRAIN_SEQ; then, at the trained
+    parameters, the gradients with remat and without, and each one's peak
+    of allocated memory.  The first draws stay on the host, so that the
+    card holds only what training holds."""
     from repro_torch import configs
     from repro_torch.models import model as M
     from repro_torch.models import transformer as tf
@@ -2112,43 +1642,23 @@ def _train_full() -> dict:
     cfg = configs.get_config(LM_ARCH)
     check(cfg.remat and cfg.dtype == "bfloat16" and cfg.opt_moment_dtype == "float32",
           "train full: smollm-360m trains with remat, bf16 parameters, float32 moments")
-    seconds = {}
-    t0 = time.perf_counter()
     host = M.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    seconds["draw"] = time.perf_counter() - t0
-    memory = {"before": torch.cuda.memory_allocated()}
-    torch.cuda.reset_peak_memory_stats()
     p = tf.tree_map(lambda t: t.cuda(), host)
     opt = OptConfig(lr=3e-3, moment_dtype=cfg.opt_moment_dtype, warmup_steps=20)
     st = init_opt_state(p, opt)
-    _peak_since(memory, "weights_and_moments")
     batches = [_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i, "cuda") for i in range(TRAIN_STEPS)]
     step = make_train_step(cfg, opt)
-    ms, curve = [], []
-    t0 = time.perf_counter()
+    curve = []
     for batch in batches:
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
         p, st, m = step(p, st, batch)
-        stop.record()
-        ms.append((start, stop))
         curve.append((m["loss"], m["grad_norm"]))
-    _peak_since(memory, "steps")
-    seconds["steps"] = time.perf_counter() - t0
-    ms = [a.elapsed_time(b) for a, b in ms]
     curve = [[float(a), float(b)] for a, b in curve]
     check(bool(np.isfinite(curve).all()), f"train full: every loss and grad norm finite {curve}")
     changed = [not torch.equal(a, b.cpu()) for a, b in zip(_leaves(host), _leaves(p))]
     check(all(changed), f"train full: every parameter leaf changed ({sum(changed)}/"
           f"{len(changed)})")
     del host
-    step_ms = float(np.median(ms[TRAIN_WARM:]))
-    t0 = time.perf_counter()
-    profile = device_split(lambda: step(p, st, batches[0]), reps=1)
-    _peak_since(memory, "profile")
-    seconds["profile"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
     grads, grad_peak = {}, {}
     for name, c in (("remat", cfg), ("no_remat", dataclasses.replace(cfg, remat=False))):
         torch.cuda.synchronize()
@@ -2163,31 +1673,14 @@ def _train_full() -> dict:
     check(grad_peak["no_remat"] > grad_peak["remat"],
           f"train full: the gradient's peak without remat {grad_peak['no_remat']} above "
           f"remat's {grad_peak['remat']}")
-    del grads
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = make_train_step(dataclasses.replace(cfg, remat=False), opt)(p, st, batches[0])
-    stop.record()
-    stop.synchronize()
-    no_remat_step = {"ms": start.elapsed_time(stop), "loss": float(out[2]["loss"]),
-                     "peak_above": torch.cuda.max_memory_allocated() - base}
-    seconds["remat_checks"] = time.perf_counter() - t0
-    del out, p, st, batches
+    del grads, p, st, batches
     torch.cuda.empty_cache()
     return {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                        "vocab": cfg.vocab, "dtype": cfg.dtype, "remat": cfg.remat,
                        "remat_policy": cfg.remat_policy,
                        "moment_dtype": cfg.opt_moment_dtype},
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-            "step_ms": step_ms, "step_ms_all": ms,
-            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / step_ms,
-            "curve": curve, "peak_allocated": max(v for k, v in memory.items() if k != "before")
-            - memory["before"], "memory_peaks": memory,
-            "grad_peak_above": grad_peak, "remat_grad_share": share,
-            "no_remat_step": no_remat_step, "profile": profile, "seconds": seconds}
+            "curve": curve, "grad_peak_above": grad_peak, "remat_grad_share": share}
 
 
 def _train_example() -> dict:
@@ -2200,16 +1693,15 @@ def _train_example() -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         def run(name, steps, resume):
             out = io.StringIO()
-            t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 losses = train_smollm.main(steps=steps, ckpt_dir=os.path.join(root, name),
                                            resume=resume)
             printed[f"{name}_{steps}"] = out.getvalue().strip().splitlines()
-            return losses, time.perf_counter() - t0
-        straight, straight_s = run("straight", train_smollm.STEPS, False)
+            return losses
+        straight = run("straight", train_smollm.STEPS, False)
         half = train_smollm.STEPS // 2
-        first, _ = run("resumed", half, False)
-        resumed, resumed_s = run("resumed", train_smollm.STEPS, True)
+        first = run("resumed", half, False)
+        resumed = run("resumed", train_smollm.STEPS, True)
         last = printed[f"straight_{train_smollm.STEPS}"][-1]
         check(last.endswith("improved=yes"), f"train example: {last}")
         check(any(line == f"resumed from step {half}"
@@ -2232,8 +1724,7 @@ def _train_example() -> dict:
               f"({share:.3g})")
         exact = all(np.array_equal(np.asarray(want[k]), np.asarray(got[k])) for k in want
                     if not torch.is_tensor(want[k]))
-    return {"last_line": last, "straight_s": straight_s, "resumed_s": resumed_s,
-            "loss_first": straight[0], "loss_last": straight[-1],
+    return {"last_line": last, "loss_first": straight[0], "loss_last": straight[-1],
             "resume_max_abs_loss_err": float(np.max(np.abs(np.subtract(first + resumed,
                                                                        straight)))),
             "resume_leaf_share": share, "resume_bit_for_bit": exact,
@@ -2244,20 +1735,15 @@ def train_phase() -> dict:
     """Language-model training on the card (the ``train`` path): every
     arch's reduced() against the CPU, smollm-360m at full width and depth,
     and the training example with its resume."""
-    t_phase = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         from repro_torch import configs
         out = {"reduced": {arch: _train_reduced(arch) for arch in configs.ARCHS}}
-        out["reduced_s"] = time.perf_counter() - t_phase
         out["full"] = _train_full()
-        t0 = time.perf_counter()
         out["example"] = _train_example()
-        out["example_s"] = time.perf_counter() - t0
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2326,7 +1812,6 @@ def shard_phase(launches: dict) -> dict:
     unsharded prefill on the card; returns the cells and the ranks' record,
     and adds to ``launches`` those the processes made (the ANN cell's and
     the ranks')."""
-    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
         started = _dryrun_cells(tmp)
         try:
@@ -2336,7 +1821,7 @@ def shard_phase(launches: dict) -> dict:
     for counts in (ranks.pop("launches"), *(c.get("launches", {}) for c in cells)):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
-    return {"dryrun": cells, "ranks": ranks, "seconds": time.perf_counter() - t_phase}
+    return {"dryrun": cells, "ranks": ranks}
 
 
 def shard_ranks(backend: str, device: str) -> dict:
@@ -2354,10 +1839,8 @@ def shard_ranks(backend: str, device: str) -> dict:
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         1, cfg.vocab, (SHARD_BATCH, SHARD_SEQ)).astype(np.int32))
     runs = [{"shape": SHARD_MESH, "step": "prefill", "batch": {"tokens": toks}}]
-    t0 = time.perf_counter()
     reports = di.spawn_ranks(4, shd.run_sharded, [(cfg, params, runs)], backend=backend,
                              device=device, timeout_s=600)
-    seconds = time.perf_counter() - t0
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -2374,8 +1857,7 @@ def shard_ranks(backend: str, device: str) -> dict:
                        "dtype": cfg.dtype}, "mesh": list(SHARD_MESH), "backend": backend,
             "devices": [rep["device"] for rep in reports],
             "batch": [SHARD_BATCH, SHARD_SEQ], "max_abs_logit": scale,
-            "max_abs_err": errs, "tolerance_share": SHARD_SHARE, "seconds": seconds,
-            "boot_s": [rep["boot_s"] for rep in reports],
+            "max_abs_err": errs, "tolerance_share": SHARD_SHARE,
             "launches": {k: sum(rep["launches"][k] for rep in reports)
                          for k in reports[0]["launches"]}}
 
@@ -2394,7 +1876,6 @@ def lm_retrieval_phase(ops, kernel_modules):
     from repro_torch.core.baselines import brute_force_l1
     from repro_torch.core.index import query_index
     from repro_torch.examples import retrieval_augmented_lm as rag
-    t0 = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -2404,7 +1885,6 @@ def lm_retrieval_phase(ops, kernel_modules):
             with contextlib.redirect_stdout(printed):
                 return rag.main()
         res, launches = run_path("lm_retrieval", ops, quiet_main)
-        seconds = time.perf_counter() - t0
         check(res["hit_rate"] >= 0.9 and res["recall"] >= 0.5,
               f"lm_retrieval: hit rate {res['hit_rate']} >= 0.9, recall@5 {res['recall']} >= 0.5")
         idx = res["index"]
@@ -2420,10 +1900,8 @@ def lm_retrieval_phase(ops, kernel_modules):
                   and np.array_equal(got[1], wi.cpu().numpy()),
                   f"lm_retrieval: {name} through the kernels == their plain versions on the "
                   f"card, bit for bit")
-        t1 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             cpu = rag.main(device="cpu")
-        cpu_seconds = time.perf_counter() - t1
         errs = {name: float(np.abs(res["embeddings"][name] - cpu["embeddings"][name]).max())
                 for name in ("memory", "query")}
         check(all(np.allclose(res["embeddings"][n], cpu["embeddings"][n], atol=LM_REDUCED_TOL,
@@ -2431,22 +1909,22 @@ def lm_retrieval_phase(ops, kernel_modules):
               f"lm_retrieval: the card's embeddings == the CPU's within {LM_REDUCED_TOL} {errs}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    return {"seconds": seconds, "cpu_seconds": cpu_seconds, "hit_rate": res["hit_rate"],
+    return {"hit_rate": res["hit_rate"],
             "recall": res["recall"], "cpu_hit_rate": cpu["hit_rate"], "cpu_recall": cpu["recall"],
             "embedding_max_abs_err": errs, "plain_equal": True,
             "memory": list(res["embeddings"]["memory"].shape),
             "printed_tail": printed.getvalue().strip().splitlines()[-1:]}, launches
 
 
-def nvidia_smi_line(fields: str = "name,power.limit") -> str:
+def nvidia_smi_line() -> str:
     out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
 def uncounted(ops, router, fn):
-    """Run ``fn`` (a check or a timing outside the router) in the middle of
+    """Run ``fn`` (a check outside the router) in the middle of
     a counted path, with the router's in-flight work waited out first, and
     take its launches back out of the counts."""
     router._quiesce()
@@ -2534,56 +2012,161 @@ def check_results(ops, plain, phase, d, i, queries, points, deleted, inserted_ro
     return r, hits
 
 
-def batch_ms_since(engine, recorded_before) -> list:
-    """The exact host-clock time of each batch the engine served since its
-    flight recorder had ``recorded_before`` records (its ring keeps 256)."""
-    n = engine.flight.recorded - recorded_before
-    check(0 < n <= engine.flight.capacity, f"{n} batches fit the flight recorder's ring")
-    return [ms for _, ms, _ in engine.flight.entries()[-n:]]
+def batch_phase(engine, cfg, serve_cfg, inserted, q_c, data_c) -> dict:
+    """The kernels against their plain versions at the main path's shapes,
+    bit for bit: one served batch over the engine's compacted segment and a
+    delta (the probe's two launches apart and in one pass, the staged
+    probe's slab, the rerank, the delta scan, the fold), the one-pass probe
+    at caps 1 and 3 of ``PROBE_CASES``, ``rw_hash`` at the build's rows and
+    at the batch, ``l1_distance`` on wide int32 and on int16 inputs at the
+    ground truth's shape, and ``l1_distance_rows`` on both of its paths.
+    Returns what the log prints."""
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.core import walks
+    from repro_torch.core.index import probe_index
+    from repro_torch.core.segments import _gid_map
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_probe as kfp
+    from repro_torch.kernels import fused_rerank as kfr
+    from repro_torch.kernels import l1_distance as kl1
+    from repro_torch.kernels import rw_hash as krw
+    from repro_torch.kernels import topk_merge as ktm
 
+    idx = engine.index
+    idx.insert(inserted[:N_INSERT // 2])     # a delta again, for the fold
+    batch = q_c[:serve_cfg.batch_size].contiguous()
+    seg = idx.segments[0]
+    st = seg.state
+    n_rows = st.dataset.shape[0]
+    idx._ensure_caps(seg)
+    pk, lo, occ, counts = probe_index(cfg, st, batch)
+    cb, c_cap, _ = pipe.pick_rung(int(counts.max()), seg.ctot_cap,
+                                  serve_cfg.cand_bucket_min, seg.ctot_norm,
+                                  seg.c_norm, serve_cfg.cand_overflow)
+    cap = cfg.candidate_cap if c_cap is None else min(cfg.candidate_cap, c_cap)
+    ext = kfp.probe_extents_cuda(st.sorted_keys, pk, cfg.candidate_cap, st.occ_from)
+    check(all(equal(a, b) for a, b in zip(ext, kfp.probe_extents(
+        st.sorted_keys, pk, cfg.candidate_cap, st.occ_from))) and equal(ext[0], lo),
+          "fused_probe extents kernel == plain on the served batch")
+    got = kfp.compact_gather_cuda(st.sorted_ids, lo, occ, cfg.probes_per_table, cb, cap)
+    want = kfp.compact_gather(st.sorted_ids, lo, occ, cfg.probes_per_table, cb, cap)
+    check(equal(got[0], want[0]) and equal(got[1], want[1]),
+          "fused_probe gather kernel == plain on the served batch")
+    one = kfp.fused_probe_cuda(st.sorted_keys, st.sorted_ids, pk, cap, cb, occ_from=st.occ_from)
+    check(all(equal(a, b) for a, b in zip(one, want)),
+          "fused_probe one-pass kernels == plain on the served batch")
+    # the one-pass route at the tighter caps 1 and 3 of each adversarial case
+    # (the served path reaches such caps through c_cap)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_cases import PROBE_CASES
+    for name, (keys, ids_np, pk_np, case_cap, cbucket) in sorted(PROBE_CASES.items()):
+        tk, tids, tpk = (torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32 else x)
+                         .to(batch.device) for x in (keys, ids_np, pk_np))
+        t_occ = (torch.searchsorted(tk, tk, right=True)
+                 - torch.arange(tk.shape[1], device=batch.device)).to(torch.int32)
+        c_lo, c_raw, _ = kfp.probe_extents(tk, tpk, case_cap, t_occ)
+        for c in (1, 3):
+            c_want = kfp.compact_gather(tids, c_lo, c_raw, pk_np.shape[2], cbucket, c)
+            for occ_from in (None, t_occ):
+                c_got = kfp.fused_probe_cuda(tk, tids, tpk, c, cbucket, occ_from=occ_from)
+                check(equal(c_got[0], c_want[0]) and equal(c_got[1], c_want[1]),
+                      f"fused_probe one-pass kernels == plain on {name} cap={c}")
+    # the staged probe at the same cap: two torch.searchsorted calls a table,
+    # then a gather of the (Q, L*P*C) slab
+    staged_cfg = dataclasses.replace(cfg, candidate_cap=cap, probe_impl="staged")
+    s_lo, s_hi = pipe.stage_bucket_lookup(st.sorted_keys, pk)
+    check(equal(s_lo.reshape(lo.shape), lo) and equal((s_hi - s_lo).reshape(occ.shape), occ),
+          "the staged lookup's extents == the extents kernel's on the served batch")
+    slab = pipe.stage_candidate_gather(staged_cfg, st.sorted_ids, s_lo, s_hi, n_rows)
+    front = torch.sort((slab == n_rows).to(torch.int8), dim=1, stable=True).indices
+    check(equal(torch.gather(slab, 1, front)[:, :cb], got[0]),
+          "the staged slab's valid candidates == the gather's, in order")
+    del slab, front
+    tomb = idx._tombstone_array()
+    ids = pipe.stage_tombstone(got[0], seg.gids, tomb, n_rows)
+    # the windowed path reorders ids in place (same answer, same work): the
+    # plain version takes a copy in the gather's order, as served
+    ids_fresh = ids.clone()
+    _build.take_path("fused_rerank")
+    sd, si = kfr.fused_rerank_cuda(st.dataset, batch, ids, K)
+    rr_path = _build.take_path("fused_rerank")
+    wd, wi = kfr.fused_rerank_plain(st.dataset, batch, ids_fresh, K, chunk=cfg.rerank_chunk)
+    check(equal(sd, wd) and equal(si, wi), "fused_rerank kernel == plain on the served batch")
+    in_rows = lambda x: torch.sort(torch.where((x >= 0) & (x < n_rows), x, -1), dim=1).values
+    check(equal(in_rows(ids), in_rows(ids_fresh)),
+          f"fused_rerank's {rr_path[0]} path keeps each row's valid ids on the served batch")
+    delta_pts, delta_gids = idx._delta_arrays()
+    cap_d = delta_pts.shape[0]
+    slots = torch.arange(cap_d, dtype=torch.int32, device=batch.device)
+    dids = torch.where(slots < idx._delta_count, slots, cap_d).expand(
+        batch.shape[0], cap_d).contiguous()
+    dids = pipe.stage_tombstone(dids, delta_gids, tomb, cap_d)
+    pd, pi = kfr.fused_rerank_plain(delta_pts, batch, dids, K)
+    dd, di = kfr.fused_rerank_cuda(delta_pts, batch, dids, K)
+    check(equal(dd, pd) and equal(di, pi), "fused_rerank kernel == plain on the delta scan")
+    ia, ib = _gid_map(si, seg.gids, n_rows), _gid_map(di, delta_gids, cap_d)
+    mk, mp = ktm.topk_merge_cuda(sd, ia, dd, ib), ktm.topk_merge_plain(sd, ia, dd, ib)
+    check(equal(mk[0], mp[0]) and equal(mk[1], mp[1]), "topk_merge kernel == plain on the fold")
 
-def device_split(fn, reps: int = 3) -> dict:
-    """Where one call's time goes: its host-clock wall ms, torch.profiler's
-    device-busy ms and device launches a call, the device's idle share of
-    the wall time, and the ten largest device rows (ms a call, name)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()                                            # steady state first
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rows, launches = [], 0
-    for e in prof.key_averages():
-        # device-side events only: an aten op's row repeats its kernels' time
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((dev / 1e3 / reps, e.key))
-            launches += e.count
-    rows.sort(reverse=True)
-    busy = sum(ms for ms, _ in rows)
-    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": launches / reps,
-            "idle_share": max(0.0, 1 - busy / wall_ms) if rows else None,
-            "top": [[ms, key[:90]] for ms, key in rows[:10]]}
+    # rw_hash at the build's shape (every point) and at the served batch;
+    # plain on a subset, the prefix-gather hash on every point
+    walk_tab = idx.params.walks
+    wp = walk_tab.pairs
+    rw_out = krw.rw_hash_cuda(wp, data_c)
+    check(equal(rw_out, walks.eval_prefix(walk_tab, data_c)),
+          "rw_hash kernel == eval_prefix on every point")
+    check(equal(rw_out[:RW_PLAIN_ROWS], krw.rw_hash_plain(wp, data_c[:RW_PLAIN_ROWS])),
+          f"rw_hash kernel == plain on {RW_PLAIN_ROWS} rows")
+    del rw_out
+    check(equal(krw.rw_prefix_table_cuda(wp),
+                krw.rw_prefix_table_plain(wp, krw.padded_fns(wp.shape[0]))),
+          "rw_hash table kernel == plain at the served steps")
+    check(equal(krw.rw_hash_cuda(wp, batch), krw.rw_hash_plain(wp, batch)),
+          "rw_hash kernel == plain on the served batch")
 
+    # l1_distance_rows at the batch's first 4,096 candidates a query and at
+    # SRS's shape (QUALITY_QUERIES queries x its 512-row chunk) in four input
+    # types, through the vector path; SRS's rows one element into their
+    # storage (not 16-byte aligned) take the scalar path
+    def rows_check(qd, rd, what, path):
+        plan = kl1.plan_rows(qd.dtype, rd.shape[2], rd.shape[1], rd.shape[0],
+                             rd.data_ptr(), qd.data_ptr())
+        took = "vector" if plan.slots else "scalar"
+        check(took == path and equal(kl1.l1_distance_rows_cuda(qd, rd),
+                                     kl1.l1_distance_rows_plain(qd, rd)),
+              f"l1_distance_rows kernel == plain {what}, on the {path} path (took {took})")
 
-def log_profile(tag, engine, batch) -> None:
-    """Where one served batch's time goes: torch.profiler device time by
-    operator, and the device's idle share of the batch's wall time."""
-    split = device_split(lambda: engine.query_batch(batch))
-    if not split["top"]:
-        log(f"profile of one {tag} batch: the profiler recorded no device time")
-        return
-    log(f"profile of one {tag} batch: wall {split['wall_ms']:.3f} ms, device busy "
-        f"{split['busy_ms']:.3f} ms, idle share {split['idle_share']:.3f}")
-    for ms, key in split["top"]:
-        log(f"  {ms:8.3f} ms  {key[:90]}")
+    cand = ids_fresh[:, :4096].clamp(0, n_rows - 1).long()
+    srs_cand = torch.randint(0, n_rows, (QUALITY_QUERIES, SRS_ROWS_CHUNK),
+                             generator=torch.Generator(device=batch.device).manual_seed(28),
+                             device=batch.device)
+    srs_q = q_c[:QUALITY_QUERIES].contiguous()
+    for what, qd, rd in (("at the served batch", batch, st.dataset[cand]),
+                         ("at SRS's shape", srs_q, st.dataset[srs_cand])):
+        for dtype in (torch.int32, torch.int16, torch.float32, torch.bfloat16):
+            rows_check(qd.to(dtype), rd.to(dtype).contiguous(),
+                       f"in {dtype} {what} {list(rd.shape)}", "vector")
+    rs = st.dataset[srs_cand].to(torch.int32)
+    mis = torch.empty(rs.numel() + 1, dtype=torch.int32, device=batch.device)[1:].view(
+        rs.shape).copy_(rs)
+    rows_check(srs_q.to(torch.int32), mis, "at SRS's shape one element into its storage",
+               "scalar")
+    # l1_distance at the ground truth's shape (the batch against every point)
+    # with every coordinate drawn in +-2^30, so every stage of every block runs
+    # the int32 loop, and in int16
+    gen = torch.Generator(device=batch.device).manual_seed(18)
+    wq, wx = (torch.randint(-2 ** 30, 2 ** 30, t.shape, generator=gen, device=batch.device,
+                            dtype=torch.int32) for t in (batch, data_c))
+    check(equal(kl1.l1_distance_cuda(wq, wx), kl1.l1_distance_plain(wq, wx)),
+          "l1_distance kernel == plain on the wide input (int32 loop) at 64 x 1 M x 128")
+    del wq, wx
+    hq, hx = batch.to(torch.int16), data_c.to(torch.int16)
+    check(equal(kl1.l1_distance_cuda(hq, hx), kl1.l1_distance_plain(hq, hx)),
+          "l1_distance kernel == plain in int16 at 64 x 1 M x 128")
+    del hq, hx
+    return {"queries": int(batch.shape[0]), "cbucket": int(cb),
+            "c_cap": None if c_cap is None else int(c_cap), "rerank_path": list(rr_path),
+            "delta_rows": int(idx._delta_count)}
 
 
 def main() -> int:
@@ -2594,32 +2177,24 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+    sys.path.insert(0, str(ROOT / "src"))
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-cards":
         return dist_cards_main(int(sys.argv[2]))
-    if len(sys.argv) == 2 and sys.argv[1] == "--rerank-paths":
-        return rerank_paths_main()
     from repro_torch.core import pipeline as pipe
     from repro_torch.core.baselines import recall
     from repro_torch.core.index import IndexConfig, probe_index
-    from repro_torch.core.segments import _gid_map
     from repro_torch.data import ann_synthetic as ds
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fused_probe as kfp
-    from repro_torch.core import walks
     from repro_torch.kernels import fused_rerank as kfr
     from repro_torch.kernels import l1_distance as kl1
     from repro_torch.kernels import rw_hash as krw
     from repro_torch.kernels import topk_merge as ktm
     from repro_torch.serve.engine import AnnServingEngine, ServeConfig
-    from test_torch_cases import (KERNEL_RERANK_CASES, L1_CASES, L1_ROWS_CASES, MERGE_CASES,
-                                  PROBE_CASES, RERANK_CASES, RW_HASH_CASES)
 
-    t_start = time.perf_counter()
     card = torch.device("cuda")
-    smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(smi)
+    log(nvidia_smi_line())
     log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     # -- lint: the port's analysis gate, before any card phase ---------------
@@ -2628,16 +2203,15 @@ def main() -> int:
     for ent in lint["sanctioned"]:
         key = f"{ent['rule']} {ent['how']}"
         by_how[key] = by_how.get(key, 0) + 1
-    log(f"phase lint: python -m repro_torch.analysis --check --json exits 0 in "
-        f"{lint['seconds']:.1f} s; {len(lint['findings'])} finding(s), all baselined; "
+    log(f"phase lint: python -m repro_torch.analysis --check --json exits 0; "
+        f"{len(lint['findings'])} finding(s), all baselined; "
         f"sanctioned by rule and kind {json.dumps(dict(sorted(by_how.items())))}")
 
     # -- build -------------------------------------------------------------
-    t0 = time.perf_counter()
     libs = _build.build_all()
     for name in libs:
         _build.library(name)
-    log(f"phase build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}")
+    log(f"phase build: {sorted(libs)}")
     for name, path in libs.items():
         lines = (path.parent / f"{name}.log").read_text().splitlines()
         regs = [ln.strip() for ln in lines if "Used" in ln and "registers" in ln]
@@ -2645,861 +2219,242 @@ def main() -> int:
                   and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"  ptxas {name}: {' | '.join(regs)}; spills: {' | '.join(spills) or 'none'}")
 
-    # -- kernels at adversarial shapes ---------------------------------------
-    t0 = time.perf_counter()
-    n_cases = 0
-    for name, (keys, ids, pk, cap, cbucket) in sorted(PROBE_CASES.items()):
-        tk = torch.from_numpy(keys.astype(np.int64)).to(card)
-        tids = torch.from_numpy(ids).to(card)
-        tpk = torch.from_numpy(pk.astype(np.int64)).to(card)
-        occ = (torch.searchsorted(tk, tk, right=True)
-               - torch.arange(tk.shape[1], device=card)).to(torch.int32)
-        for occ_from in (None, occ):
-            got, want = ops.probe_extents(tk, tpk, cap, occ_from), kfp.probe_extents(
-                tk, tpk, cap, occ_from)
-            check(all(equal(g, w) for g, w in zip(got, want)),
-                  f"fused_probe extents kernel == plain on {name}")
-            n_cases += 1
-        lo, raw, _ = got
-        for c in sorted({cap, 1, 3}):               # the full and tighter caps
-            want = kfp.compact_gather(tids, lo, raw, pk.shape[2], cbucket, c)
-            for occ_from in (None, occ):            # the one-pass route
-                got = ops.fused_probe(tk, tids, tpk, c, cbucket, occ_from=occ_from)
-                check(equal(got[0], want[0]) and equal(got[1], want[1]),
-                      f"fused_probe one-pass kernels == plain on {name} cap={c}")
-                n_cases += 1
-            for slices in (None, 1, 2, 3, 7, 32):   # the served route's gather
-                got = kfp.compact_gather_cuda(tids, lo, raw, pk.shape[2], cbucket, c,
-                                              slices=slices)
-                check(equal(got[0], want[0]) and equal(got[1], want[1]),
-                      f"fused_probe gather kernel at {slices} slices == plain on {name} "
-                      f"cap={c}")
-                n_cases += 1
-    for name, (data, queries, ids, k) in sorted(KERNEL_RERANK_CASES.items()):
-        args = [torch.from_numpy(np.ascontiguousarray(x)).to(card)
-                for x in (data, queries, ids)]
-        want = kfr.fused_rerank_plain(*args, k)
-        got = ops.fused_rerank(*args, k)
-        check(equal(got[0], want[0]) and equal(got[1], want[1]),
-              f"fused_rerank kernel == plain on {name}")
-        n_cases += 1
-        for slices in (1, 2, 3, 7, 32):
-            got = kfr.fused_rerank_cuda(*args, k, slices=slices)
-            check(equal(got[0], want[0]) and equal(got[1], want[1]),
-                  f"fused_rerank kernel at {slices} slices == plain on {name}")
-            n_cases += 1
-        n_rows = args[0].shape[0]
-        for rows in sorted({1, 4, 64, 1 << max(n_rows - 1, 0).bit_length()}):
-            if -(-n_rows // rows) > kfr.MAX_WINDOWS:
-                continue
-            got = kfr.fused_rerank_cuda(args[0], args[1], args[2].clone(), k, window_rows=rows)
-            check(equal(got[0], want[0]) and equal(got[1], want[1]),
-                  f"fused_rerank windowed kernel at {rows}-row windows == plain on {name}")
-            n_cases += 1
-    for name in sorted(set(RERANK_CASES) - set(KERNEL_RERANK_CASES)):
-        data, queries, _, k = RERANK_CASES[name]    # a distance reaches BIG_DIST
-        small = IndexConfig(num_tables=2, num_hashes=4, width=24, num_probes=8,
-                            candidate_cap=8, universe=64, k=k, hash_impl="thermo")
-        eng = AnnServingEngine(small, ServeConfig(batch_size=4, warm_buckets=False,
-                                                  cand_cap_sample=2), data, device="cuda")
-        try:
-            eng.query_batch(queries)
-        except ValueError as err:
-            check("BIG_DIST" in str(err), f"the refusal of {name} names BIG_DIST")
-        else:
-            check(False, f"an index on the card refuses the queries of {name}")
-        n_cases += 1
-    for name, arrays in sorted(MERGE_CASES.items()):
-        args = [torch.from_numpy(x).to(card) for x in arrays]
-        got, want = ops.topk_merge(*args), ktm.topk_merge_plain(*args)
-        check(equal(got[0], want[0]) and equal(got[1], want[1]),
-              f"topk_merge kernel == plain on {name}")
-        n_cases += 1
-    for name, arrays in sorted(RW_HASH_CASES.items()):
-        args = [torch.from_numpy(x).to(card) for x in arrays]
-        want = krw.rw_hash_plain(*args)
-        check(equal(krw.rw_prefix_table_cuda(args[0]),
-                    krw.rw_prefix_table_plain(args[0], krw.padded_fns(args[0].shape[0]))),
-              f"rw_hash table kernel == plain on {name}")
-        check(equal(ops.rw_hash(*args), want), f"rw_hash kernel == plain on {name}")
-        n_cases += 2
-        for slices in (1, 2, 3, 7, args[0].shape[1]):
-            check(equal(krw.rw_hash_cuda(*args, slices=slices), want),
-                  f"rw_hash kernel at {slices} slices == plain on {name}")
-            n_cases += 1
-    # rw_hash beyond one shared-memory window: U2 above the one-pass limit
-    # and 8,192, on in-range, odd, negative and above-universe coordinates
-    span = krw.max_u2()
-    rng = np.random.default_rng(21)
-    for u2 in (span + 1, 8192):
-        pairs = torch.from_numpy(
-            (2 * rng.integers(0, 2, (37, 18, u2, 2)) - 1).sum(-1).astype(np.int8)).to(card)
-        pts = torch.from_numpy(rng.integers(-40, 2 * u2 + 40, (600, 18)).astype(np.int32)).to(card)
-        check(equal(krw.rw_prefix_table_cuda(pairs),
-                    krw.rw_prefix_table_plain(pairs, krw.padded_fns(37))),
-              f"rw_hash table kernel == plain at U2 {u2} (one-pass limit {span})")
-        check(equal(ops.rw_hash(pairs, pts), krw.rw_hash_plain(pairs, pts)),
-              f"rw_hash kernel == plain at U2 {u2} (one-pass limit {span})")
-        n_cases += 2
-    del pairs, pts
-    for cases, kfns, pfn in (
-            (L1_CASES, (ops.l1_distance,), kl1.l1_distance_plain),
-            (L1_ROWS_CASES, (ops.l1_distance_rows,), kl1.l1_distance_rows_plain)):
-        for name, (qs, xs, dtype) in sorted(cases.items()):
-            args = [torch.from_numpy(x).to(card).to(getattr(torch, dtype)).contiguous()
-                    for x in (qs, xs)]
-            want = pfn(*args)
-            for kfn in kfns:
-                got = kfn(*args)
-                check(got.dtype == want.dtype and equal(got, want),
-                      f"{kfn.__name__} kernel == plain on {name}")
-                n_cases += 1
-    torch.cuda.synchronize()
-    log(f"phase kernels: {n_cases} adversarial cases equal to plain, bit for bit, "
-        f"{time.perf_counter() - t0:.1f} s")
+    # -- cuda: the card tests (every kernel at its adversarial shapes, the
+    # card against the CPU at small sizes) beside the phases below ---------
+    with card_tests() as wait_card_tests:
+        # -- data, width and ground truth ----------------------------------------
+        spec = ds.DatasetSpec("sift1m", n=N_POINTS, dim=DIM, universe=UNIVERSE)
+        data = ds.make_dataset(spec)
+        queries = ds.make_queries(spec, data, N_QUERIES)
+        inserted = ds.make_queries(spec, data, N_INSERT, seed=11)
+        inserted_rows = np.arange(32)
+        queries[inserted_rows] = inserted[:32]          # self-hit probes
+        log(f"cut: n {N_POINTS} (SIFT1M) instead of the paper's SIFT50M 50M, for "
+            f"host data generation and the smoke's time limit; widths kept: "
+            f"dim {DIM}, universe {UNIVERSE}")
+        data_c = torch.from_numpy(data).to(card)
+        q_c = torch.from_numpy(queries).to(card)
+        points = torch.cat([data_c, torch.from_numpy(inserted).to(card)])
+        dead = torch.zeros(points.shape[0], dtype=torch.bool, device=card)
 
-    # -- data, width and ground truth ----------------------------------------
-    t0 = time.perf_counter()
-    spec = ds.DatasetSpec("sift1m", n=N_POINTS, dim=DIM, universe=UNIVERSE)
-    data = ds.make_dataset(spec)
-    queries = ds.make_queries(spec, data, N_QUERIES)
-    inserted = ds.make_queries(spec, data, N_INSERT, seed=11)
-    inserted_rows = np.arange(32)
-    queries[inserted_rows] = inserted[:32]          # self-hit probes
-    log(f"cut: n {N_POINTS} (SIFT1M) instead of the paper's SIFT50M 50M, for "
-        f"host data generation and the smoke's time limit; widths kept: "
-        f"dim {DIM}, universe {UNIVERSE}")
-    data_c = torch.from_numpy(data).to(card)
-    q_c = torch.from_numpy(queries).to(card)
-    points = torch.cat([data_c, torch.from_numpy(inserted).to(card)])
-    dead = torch.zeros(points.shape[0], dtype=torch.bool, device=card)
+        def ground_truth():
+            gt_d0, gt_i0 = exact_knn(ops, kl1.l1_distance_plain, data_c, q_c, K)
+            # delete the exact 1-NN of 64 queries, so the tombstones bite
+            deleted = np.unique(gt_i0[32:32 + N_DELETE, 0].cpu().numpy()).astype(np.int32)
+            dead[torch.from_numpy(deleted).long().to(card)] = True
+            return float(gt_d0.float().mean()), deleted, exact_knn(
+                ops, kl1.l1_distance_plain, points, q_c, K, dead=dead)[1], gt_i0
 
-    def ground_truth():
-        gt_d0, gt_i0 = exact_knn(ops, kl1.l1_distance_plain, data_c, q_c, K)
-        # delete the exact 1-NN of 64 queries, so the tombstones bite
-        deleted = np.unique(gt_i0[32:32 + N_DELETE, 0].cpu().numpy()).astype(np.int32)
-        dead[torch.from_numpy(deleted).long().to(card)] = True
-        return float(gt_d0.float().mean()), deleted, exact_knn(
-            ops, kl1.l1_distance_plain, points, q_c, K, dead=dead)[1], gt_i0
-
-    (dbar, deleted, gt_i, gt_i0), gt_launches = run_path("ground_truth", ops, ground_truth)
-    width = max(8, int(3.0 * math.sqrt(dbar)) & ~1)
-    cfg = IndexConfig(num_tables=8, num_hashes=12, width=width, num_probes=200,
-                      candidate_cap=128, universe=UNIVERSE, k=K, rerank_chunk=1024)
-    gt_ids = gt_i.cpu().numpy()
-    deleted_c = torch.from_numpy(deleted).to(card)
-    log(f"phase data: {time.perf_counter() - t0:.1f} s; dbar {dbar:.1f} -> W {width}; "
-        f"L 8 M 12 T 200 C 128 k {K} batch 64")
-
-    # -- serve and serve_rw_hash: the same traffic through two engines --------
-    serve_cfg = ServeConfig(batch_size=64, delta_cap=2048)
-
-    def serve(run_cfg, tag, run_serve_cfg=serve_cfg):
-        """build, insert, delete, drain, compact, drain; returns the engine
-        and its phases (name, set-up s, batch ms, dists, gids)."""
-        t0 = time.perf_counter()
-        eng = AnnServingEngine(run_cfg, run_serve_cfg, data, device="cuda")
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        gids_new = eng.insert(inserted)
-        check(list(gids_new[:2]) == [N_POINTS, N_POINTS + 1], "insert assigns fresh gids")
-        check(eng.delete(deleted) == len(deleted), "delete tombstones every gid")
-        check(eng.index.num_segments == 1 and eng.index.delta_fill > 0,
-              "one segment plus a delta buffer: the fold runs topk_merge")
-        out = []
-        for name, setup_s in ((f"{tag}_delta", build_s), (f"{tag}_compacted", None)):
-            if setup_s is None:
-                t0 = time.perf_counter()
-                eng.compact()
-                setup_s = time.perf_counter() - t0
-            rec0 = eng.flight.recorded
-            eng.submit(queries)
-            d, i = eng.drain()
-            out.append((name, setup_s, batch_ms_since(eng, rec0), d, i))
-        return eng, out
-
-    (engine, phases), launches = run_path("serve", ops, lambda: serve(cfg, "serve"))
-    check(launches["rw_hash"] == 0, "the 'gather' path launches no rw_hash")
-    rw_cfg = dataclasses.replace(cfg, hash_impl="pallas")
-    rw_rows, dispatch = [], ops.rw_hash
-
-    def rw_hash_recorded(pairs, points):    # the row count of each call
-        rw_rows.append(points.shape[0])
-        return dispatch(pairs, points)
-
-    ops.rw_hash = rw_hash_recorded
-    try:
-        (rw_engine, rw_phases), rw_launches = run_path(
-            "serve_rw_hash", ops, lambda: serve(rw_cfg, "serve_rw_hash"))
-    finally:
-        ops.rw_hash = dispatch
-    rw_rows = [r for r in rw_rows if r > 0]     # a call on no rows launches nothing
-    check(len(rw_rows) == rw_launches["rw_hash"] == rw_launches["rw_prefix_table"],
-          "every rw_hash call of the path launched both kernels once")
-    rest = [r for r in rw_rows if r < N_POINTS]
-    rw_by_rows = {"build_and_compaction": len(rw_rows) - len(rest), "rest": len(rest),
-                  "rest_max_rows": max(rest, default=0)}
-    for (name, _, _, d, i), (rw_name, _, _, rd, ri) in zip(phases, rw_phases):
-        check(np.array_equal(d, rd) and np.array_equal(i, ri),
-              f"{rw_name} serves the (d, i) of {name}, bit for bit")
-    for what in ("sorted_keys", "sorted_ids", "occ_from", "occ_hist"):
-        check(equal(getattr(engine.index.segments[0].state, what),
-                    getattr(rw_engine.index.segments[0].state, what)),
-              f"hash_impl='pallas' builds the segment's {what} of 'gather'")
-    log("phase serve_rw_hash: (d, i) of both drains and the compacted segment's "
-        "tables equal the 'gather' engine's, bit for bit")
-
-    def checks():
-        big = pipe.BIG_DIST
+        (dbar, deleted, gt_i, gt_i0), _ = run_path("ground_truth", ops, ground_truth)
+        width = max(8, int(3.0 * math.sqrt(dbar)) & ~1)
+        cfg = IndexConfig(num_tables=8, num_hashes=12, width=width, num_probes=200,
+                          candidate_cap=128, universe=UNIVERSE, k=K, rerank_chunk=1024)
+        gt_ids = gt_i.cpu().numpy()
+        deleted_c = torch.from_numpy(deleted).to(card)
         self_rows = torch.from_numpy(inserted_rows).to(card)
-        for name, setup_s, lat, d, i in phases + rw_phases:
-            r, hits = check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c,
-                                    points, deleted_c, self_rows, gt_ids, big, recall,
-                                    exact_delta=name.endswith("_delta"))
-            lat = np.asarray(lat)
-            what = "build" if name.endswith("_delta") else "compact"
-            log(f"phase {name}: {what} {setup_s:.2f} s, batches {lat.size}, "
-                f"p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
-                f"{N_QUERIES / (lat.sum() / 1e3):.1f} queries/s, recall@10 {r:.4f}, "
-                f"self-hits {hits}/{inserted_rows.size}")
+        log(f"phase data: dbar {dbar:.1f} -> W {width}; L 8 M 12 T 200 C 128 k {K} batch 64")
 
-    _, check_launches = run_path("checks", ops, checks)
+        # -- serve and serve_rw_hash: the same traffic through two engines --------
+        serve_cfg = ServeConfig(batch_size=64, delta_cap=2048)
 
-    # the two engines' batches alternately (ABBA), each timed on the host's
-    # clock to the result on the host, as the drains time them
-    order_ms = {"serve": [], "serve_rw_hash": []}
-    for r in range(ORDER_ROUNDS):
-        pair = [("serve", engine), ("serve_rw_hash", rw_engine)]
-        for tag, eng in (pair if r % 2 == 0 else pair[::-1]):
-            lo = (r * serve_cfg.batch_size) % N_QUERIES
-            t0 = time.perf_counter()
-            eng.query_batch(queries[lo:lo + serve_cfg.batch_size])
-            order_ms[tag].append((time.perf_counter() - t0) * 1e3)
-    for tag, lat in order_ms.items():
-        log(f"phase order {tag}: {len(lat)} batches alternating (ABBA), "
-            f"p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms")
-    for tag, eng in (("serve", engine), ("serve_rw_hash", rw_engine)):
-        log_profile(tag, eng, queries[:serve_cfg.batch_size])
-    del rw_engine
+        def serve(run_cfg, tag, run_serve_cfg=serve_cfg):
+            """build, insert, delete, drain, compact, drain; returns the engine
+            and its drains (name, dists, gids)."""
+            eng = AnnServingEngine(run_cfg, run_serve_cfg, data, device="cuda")
+            gids_new = eng.insert(inserted)
+            check(list(gids_new[:2]) == [N_POINTS, N_POINTS + 1], "insert assigns fresh gids")
+            check(eng.delete(deleted) == len(deleted), "delete tombstones every gid")
+            check(eng.index.num_segments == 1 and eng.index.delta_fill > 0,
+                  "one segment plus a delta buffer: the fold runs topk_merge")
+            out = []
+            for name in (f"{tag}_delta", f"{tag}_compacted"):
+                if name.endswith("_compacted"):
+                    eng.compact()
+                eng.submit(queries)
+                out.append((name, *eng.drain()))
+            return eng, out
 
-    # -- host_syncs: the serve traffic under torch's sync debug mode ----------
-    syncs, s_launches = host_syncs_phase(ops, cfg, serve_cfg, data, queries, inserted,
-                                         deleted, lint["sanctioned"])
-    for tag in ("gather", "pallas"):
-        row = syncs[tag]
-        log(f"phase host_syncs {tag}: {row['syncs_per_batch']:.2f} syncs a batch over "
-            f"{row['batches']} batches {json.dumps(row['drain_sites'])}; compaction "
-            f"{json.dumps(row['compact_sites'])}; sanctioned, not hit: "
-            f"{json.dumps(row['sanctioned_not_hit'])}")
-    log(f"phase host_syncs: {syncs['seconds']:.1f} s; torch.cuda.synchronize reported "
-        f"as a sync: {syncs['synchronize_reported']}")
-    log(json.dumps({"host_syncs": syncs}))
+        (engine, phases), launches = run_path("serve", ops, lambda: serve(cfg, "serve"))
+        check(launches["rw_hash"] == 0, "the 'gather' path launches no rw_hash")
+        rw_cfg = dataclasses.replace(cfg, hash_impl="pallas")
+        rw_rows, dispatch = [], ops.rw_hash
 
-    # -- examples: the three ANN examples at their own sizes -----------------
-    t0 = time.perf_counter()
-    examples, e_launches = run_path("examples", ops, examples_phase)
-    for name, row in examples.items():
-        if name == "generate":
-            log(f"phase examples generate: {row['seconds']:.1f} s, {row['arch']} "
-                f"{row['shape']}, printed ... {json.dumps(row['printed_tail'])}")
-            continue
-        log(f"phase examples {name}: {row['seconds']:.1f} s (CPU {row['cpu_seconds']:.1f} s), "
-            f"recall@10 {row['recall']}, "
-            f"printed ... {json.dumps(row['printed_tail'])}")
-    log(f"phase examples: {time.perf_counter() - t0:.1f} s")
+        def rw_hash_recorded(pairs, points):    # the row count of each call
+            rw_rows.append(points.shape[0])
+            return dispatch(pairs, points)
 
-    # -- lm: the language models; lm_retrieval: the model feeding the index --
-    lm = lm_phase()
-    for arch, row in lm["reduced"].items():
-        log(f"phase lm {arch}: reduced() card == CPU, max abs err {row['max_abs_err']:.3g} "
-            f"over {row['results']} results")
-    full = lm["full"]
-    log(f"phase lm {full['config']['name']} ({full['config']['params']} parameters, "
-        f"B {LM_BATCH}, prompt {LM_PROMPT}, cache {LM_CACHE}): float32 decode vs forward "
-        f"max abs err {full['f32']['decode_vs_forward_max_abs_err']:.4g}; bf16 prefill "
-        f"{full['bf16']['prefill_ms']:.3f} ms, decode {full['bf16']['decode_ms_per_step']:.3f} "
-        f"ms a step, {full['bf16']['tokens_per_s']:.0f} tokens/s, peak allocated "
-        f"{full['bf16']['peak_allocated'] / 2**30:.3f} GiB above the phase's start; "
-        f"{lm['seconds']:.1f} s "
-        f"[{smi}]")
-    lm["card"] = smi
-    log(json.dumps({"lm": lm}))
-    lm_rag, r_launches = lm_retrieval_phase(ops, (kfp, kfr, ktm, kl1, krw))
-    log(f"phase lm_retrieval: {lm_rag['seconds']:.1f} s (CPU {lm_rag['cpu_seconds']:.1f} s), "
-        f"hit rate {lm_rag['hit_rate']}, recall@5 {lm_rag['recall']}, embeddings vs CPU "
-        f"{json.dumps(lm_rag['embedding_max_abs_err'])}")
-    # -- train: language-model training (no kernel of the repo) ---------------
-    train, tr_launches = run_path("train", ops, train_phase)
-    for arch, row in train["reduced"].items():
-        log(f"phase train {arch}: reduced() card == CPU, gradient within {row['grad_share']:.3g}"
-            f" of max |g|, {TRAIN_REDUCED_STEPS} steps' losses and grad norms within "
-            f"{row['curve_max_rel_err']:.3g}")
-    full, ex = train["full"], train["example"]
-    log(f"phase train {full['config']['name']} (bf16, remat, B {TRAIN_BATCH} x S {TRAIN_SEQ},"
-        f" {TRAIN_STEPS} steps): {full['step_ms']:.3f} ms a step, "
-        f"{full['tokens_per_s']:.0f} tokens/s, peak allocated "
-        f"{full['peak_allocated'] / 2**30:.3f} GiB above the phase's start; gradient peaks "
-        f"remat {full['grad_peak_above']['remat'] / 2**30:.3f} GiB, no remat "
-        f"{full['grad_peak_above']['no_remat'] / 2**30:.3f} GiB; loss "
-        f"{full['curve'][0][0]:.4f} -> {full['curve'][-1][0]:.4f}; profiled step wall "
-        f"{full['profile']['wall_ms']:.1f} ms, device busy {full['profile']['busy_ms']:.2f} ms,"
-        f" {full['profile']['launches']:.0f} launches, idle share "
-        f"{full['profile']['idle_share']} [{smi}]")
-    log(f"phase train example: {ex['last_line']}; resumed == straight within "
-        f"{ex['resume_leaf_share']:.3g} (bit for bit: {ex['resume_bit_for_bit']}); "
-        f"{train['seconds']:.1f} s")
-    train["card"] = smi
-    log(json.dumps({"train": train}))
-    # -- shard: the dry-run's cells and a sharded forward (no kernel) ---------
-    sh_more = {}
-    shard, sh_launches = run_path("shard", ops, lambda: shard_phase(sh_more), more=sh_more)
-    check(sum(sh_launches.values()) == 0,
-          f"no kernel launched on the shard path ({json.dumps(sh_launches)})")
-    for cell in shard["dryrun"]:
-        log(f"phase shard dryrun {cell['arch']} {cell['shape']} {cell['mesh']}: flops "
-            f"{cell['flops']:.4g}, bytes {cell['bytes']:.4g}, collectives "
-            f"{json.dumps(cell['coll_breakdown'])}, peak {cell['peak_bytes_device']:.4g} B, "
-            f"terms {cell['t_compute_s']:.4g} / {cell['t_memory_s']:.4g} / "
-            f"{cell['t_collective_s']:.4g} s ({cell['bottleneck']})")
-    rk = shard["ranks"]
-    log(f"phase shard ranks ({rk['backend']} on {rk['devices']}, {rk['mesh']}): "
-        f"{rk['config']['name']} float32 prefill within {max(rk['max_abs_err']):.3g} of the "
-        f"unsharded card's (max |logit| {rk['max_abs_logit']:.4g}); {rk['seconds']:.1f} s; "
-        f"phase {shard['seconds']:.1f} s [{smi}]")
-    shard["card"] = smi
-    log(json.dumps({"dryrun": shard["dryrun"]}))
-    log(json.dumps({"shard_ranks": rk}))
-    # why a compacted self-hit can miss: its epicenter buckets overflow the cap
-    seg = engine.index.segments[0]
-    _, _, occ_e, _ = probe_index(cfg, seg.state, q_c[:inserted_rows.size])
-    epi = occ_e.reshape(inserted_rows.size, cfg.num_tables, cfg.probes_per_table)[:, :, 0]
-    over = int((epi > cfg.candidate_cap).all(dim=1).sum())
-    log(f"self-hit queries whose epicenter bucket holds > {cfg.candidate_cap} rows "
-        f"in every table: {over}/{inserted_rows.size}")
-    summ = engine.summary()
-    log(f"engine: segments {summ['segments']}, compactions {summ['compactions']}, "
-        f"cand_buckets {summ['cand_buckets']}, cold hits {summ['bucket_cold_hits']}, "
-        f"warmup {summ['warmup_ms']:.0f} ms, skew {json.dumps(summ['skew']['segments'])}")
+        ops.rw_hash = rw_hash_recorded
+        try:
+            (rw_engine, rw_phases), rw_launches = run_path(
+                "serve_rw_hash", ops, lambda: serve(rw_cfg, "serve_rw_hash"))
+        finally:
+            ops.rw_hash = dispatch
+        rw_rows = [r for r in rw_rows if r > 0]     # a call on no rows launches nothing
+        check(len(rw_rows) == rw_launches["rw_hash"] == rw_launches["rw_prefix_table"],
+              "every rw_hash call of the path launched both kernels once")
+        for (name, d, i), (rw_name, rd, ri) in zip(phases, rw_phases):
+            check(np.array_equal(d, rd) and np.array_equal(i, ri),
+                  f"{rw_name} serves the (d, i) of {name}, bit for bit")
+        for what in ("sorted_keys", "sorted_ids", "occ_from", "occ_hist"):
+            check(equal(getattr(engine.index.segments[0].state, what),
+                        getattr(rw_engine.index.segments[0].state, what)),
+                  f"hash_impl='pallas' builds the segment's {what} of 'gather'")
+        log("phase serve_rw_hash: (d, i) of both drains and the compacted segment's "
+            "tables equal the 'gather' engine's, bit for bit")
 
-    # -- quality: the paper's protocol at the serving phases' size -------------
-    quality, q_launches = quality_phase(
-        ops, spec, data, ds.make_queries(spec, data, QUALITY_QUERIES), cfg,
-        (kfp, kfr, ktm, kl1, krw))
-    log(f"phase quality: {quality['seconds']:.1f} s (protocol "
-        f"{quality['protocol_seconds']:.1f} s), {len(quality['records'])} records, "
-        f"tables needed {json.dumps(quality['table_claim']['tables_needed'])}")
-    log(json.dumps({"quality": quality}))
+        def checks():
+            for name, d, i in phases + rw_phases:
+                r, hits = check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c,
+                                        points, deleted_c, self_rows, gt_ids, pipe.BIG_DIST,
+                                        recall, exact_delta=name.endswith("_delta"))
+                log(f"phase {name}: recall@10 {r:.4f}, self-hits {hits}/{inserted_rows.size}")
 
-    # -- tuned: the recall-target engine, the serve phase's traffic ------------
-    self_rows = torch.from_numpy(inserted_rows).to(card)
+        run_path("checks", ops, checks)
+        del rw_engine
 
-    def check_served(name, d, i, exact_delta):
-        return check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c, points,
-                             deleted_c, self_rows, gt_ids, pipe.BIG_DIST, recall,
-                             exact_delta)
+        # -- host_syncs: the serve traffic under torch's sync debug mode ----------
+        syncs, _ = host_syncs_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
+                                    lint["sanctioned"])
+        for tag in ("gather", "pallas"):
+            row = syncs[tag]
+            log(f"phase host_syncs {tag}: {row['syncs_per_batch']:.2f} syncs a batch over "
+                f"{row['batches']} batches {json.dumps(row['drain_sites'])}; compaction "
+                f"{json.dumps(row['compact_sites'])}; sanctioned, not hit: "
+                f"{json.dumps(row['sanctioned_not_hit'])}")
+        log(f"phase host_syncs: torch.cuda.synchronize reported as a sync: "
+            f"{syncs['synchronize_reported']}")
+        log(json.dumps({"host_syncs": syncs}))
 
-    tuned, t_launches = tuned_phase(ops, (kfp, kfr, ktm, kl1, krw), serve, cfg, serve_cfg,
-                                    data_c, queries, inserted, q_c, check_served)
-    log(f"phase tuned: {tuned['seconds']:.1f} s (tuning {tuned['tune_seconds']:.1f} s, "
-        f"plain re-run {tuned['plain_tune_seconds']:.1f} s), tuned "
-        f"{json.dumps(tuned['tuned'])}, predicted {tuned['predicted_recall']:.4f}, "
-        f"validated {tuned['validated_recall']:.4f}, met {tuned['met_target']}, "
-        f"rounds {tuned['rounds']}")
-    for name, row in tuned["served"].items():
-        log(f"phase {name}: set-up {row['setup_s']:.2f} s, batches {row['batches']}, "
-            f"p50 {row['p50_ms']:.3f} ms, p99 {row['p99_ms']:.3f} ms, "
-            f"{row['queries_per_s']:.1f} queries/s, recall@10 {row['recall']:.4f}, "
-            f"self-hits {row['self_hits']}/{inserted_rows.size}")
-    log(f"tuned histogram p50/p99/p999 {json.dumps(tuned['histogram_ms'])} against exact "
-        f"{json.dumps(tuned['exact_ms'])}; traced phase medians (ms) "
-        f"{json.dumps(tuned['trace']['median_ms'])}")
-    log(json.dumps({"tuned": tuned}))
+        # -- examples: two ANN examples and generate at their own sizes ----------
+        examples, _ = run_path("examples", ops, examples_phase)
+        for name, row in examples.items():
+            log(f"phase examples {name}: printed ... {json.dumps(row['printed_tail'])}")
 
-    # -- walk_range: an out-of-range query and insert, card against CPU ------
-    t0 = time.perf_counter()
-    walk_range = walk_range_phase(cfg, data, inserted, queries)
-    log(f"phase walk_range: {time.perf_counter() - t0:.1f} s; a batch with an "
-        f"out-of-range query over {WALK_RANGE_ROWS} points (cut from {N_POINTS}), "
-        f"before and after compacting an out-of-range insert: the card's (d, i) == "
-        f"the CPU's; the bad query's rank-0 distances {walk_range['bad_query_rank0']}")
+        # -- lm: the language models; lm_retrieval: the model feeding the index --
+        lm = lm_phase()
+        for arch, row in lm["reduced"].items():
+            log(f"phase lm {arch}: reduced() card == CPU, max abs err {row['max_abs_err']:.3g} "
+                f"over {row['results']} results")
+        full = lm["full"]
+        log(f"phase lm {full['config']['name']} ({full['config']['params']} parameters, "
+            f"B {LM_BATCH}, prompt {LM_PROMPT}, cache {LM_CACHE}): float32 decode vs forward "
+            f"max abs err {full['f32']['decode_vs_forward_max_abs_err']:.4g}; bf16 prefill vs "
+            f"float32 {full['bf16']['prefill_vs_f32_max_abs_err']:.4g} (bound "
+            f"{full['bf16']['bound']:.4g})")
+        log(json.dumps({"lm": lm}))
+        lm_rag, _ = lm_retrieval_phase(ops, (kfp, kfr, ktm, kl1, krw))
+        log(f"phase lm_retrieval: hit rate {lm_rag['hit_rate']}, recall@5 {lm_rag['recall']}, "
+            f"embeddings vs CPU {json.dumps(lm_rag['embedding_max_abs_err'])}")
+        # -- train: language-model training (no kernel of the repo) ---------------
+        train, _ = run_path("train", ops, train_phase)
+        for arch, row in train["reduced"].items():
+            log(f"phase train {arch}: reduced() card == CPU, gradient within "
+                f"{row['grad_share']:.3g} of max |g|, {TRAIN_REDUCED_STEPS} steps' losses and "
+                f"grad norms within {row['curve_max_rel_err']:.3g}")
+        full, ex = train["full"], train["example"]
+        log(f"phase train {full['config']['name']} (bf16, remat, B {TRAIN_BATCH} x S {TRAIN_SEQ},"
+            f" {TRAIN_STEPS} steps): loss {full['curve'][0][0]:.4f} -> {full['curve'][-1][0]:.4f};"
+            f" gradients without remat within {full['remat_grad_share']:.3g} of remat's")
+        log(f"phase train example: {ex['last_line']}; resumed == straight within "
+            f"{ex['resume_leaf_share']:.3g} (bit for bit: {ex['resume_bit_for_bit']})")
+        log(json.dumps({"train": train}))
+        # -- shard: the dry-run's cells and a sharded forward (no kernel) ---------
+        sh_more = {}
+        shard, sh_launches = run_path("shard", ops, lambda: shard_phase(sh_more), more=sh_more)
+        check(sum(sh_launches.values()) == 0,
+              f"no kernel launched on the shard path ({json.dumps(sh_launches)})")
+        for cell in shard["dryrun"]:
+            log(f"phase shard dryrun {cell['arch']} {cell['shape']} {cell['mesh']}: ok, "
+                f"collectives {json.dumps(cell['coll_breakdown'])}, fits one card "
+                f"{cell.get('fits_one_card')}")
+        rk = shard["ranks"]
+        log(f"phase shard ranks ({rk['backend']} on {rk['devices']}, {rk['mesh']}): "
+            f"{rk['config']['name']} float32 prefill within {max(rk['max_abs_err']):.3g} of the "
+            f"unsharded card's (max |logit| {rk['max_abs_logit']:.4g})")
+        log(json.dumps({"dryrun": shard["dryrun"]}))
+        log(json.dumps({"shard_ranks": rk}))
+        # why a compacted self-hit can miss: its epicenter buckets overflow the cap
+        seg = engine.index.segments[0]
+        _, _, occ_e, _ = probe_index(cfg, seg.state, q_c[:inserted_rows.size])
+        epi = occ_e.reshape(inserted_rows.size, cfg.num_tables, cfg.probes_per_table)[:, :, 0]
+        over = int((epi > cfg.candidate_cap).all(dim=1).sum())
+        log(f"self-hit queries whose epicenter bucket holds > {cfg.candidate_cap} rows "
+            f"in every table: {over}/{inserted_rows.size}")
+        summ = engine.summary()
+        log(f"engine: segments {summ['segments']}, compactions {summ['compactions']}, "
+            f"cand_buckets {summ['cand_buckets']}, cold hits {summ['bucket_cold_hits']}, "
+            f"skew {json.dumps(summ['skew']['segments'])}")
 
-    # -- cluster: S x R replicas on the card, the serve traffic, kill/recover --
-    dead_final = dead.clone()
-    dead_final[N_POINTS:] = True                # the inserted gids, deleted at the end
-    gt_final = exact_knn(ops, kl1.l1_distance_plain, points, q_c, K, dead=dead_final)[1]
-    deleted_final = torch.cat([deleted_c, torch.arange(
-        N_POINTS, N_POINTS + N_INSERT, dtype=deleted_c.dtype, device=card)])
+        # -- quality: the paper's protocol at the serving phases' size -------------
+        quality, _ = quality_phase(
+            ops, spec, data, ds.make_queries(spec, data, QUALITY_QUERIES), cfg,
+            (kfp, kfr, ktm, kl1, krw))
+        log(f"phase quality: {len(quality['records'])} records, "
+            f"tables needed {json.dumps(quality['table_claim']['tables_needed'])}")
+        log(json.dumps({"quality": quality}))
 
-    def check_drain(name, d, i, stage):
-        final = stage == "cluster_recovered"
-        return check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c, points,
-                             deleted_final if final else deleted_c, self_rows,
-                             (gt_final if final else gt_i).cpu().numpy(), pipe.BIG_DIST,
-                             recall, exact_delta=stage == "cluster_delta")
+        # -- tuned: the recall-target engine, the serve phase's traffic ------------
+        def check_served(name, d, i, exact_delta):
+            return check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c, points,
+                                 deleted_c, self_rows, gt_ids, pipe.BIG_DIST, recall,
+                                 exact_delta)
 
-    cluster, c_launches = cluster_phase(ops, cfg, serve_cfg, data, queries, inserted,
-                                        deleted, check_drain)
-    for name, row in cluster["drains"].items():
-        log(f"phase {name}: batches {row['batches']}, p50 {row['p50_ms']:.3f} ms, "
-            f"p99 {row['p99_ms']:.3f} ms, first {row['first_ms']:.3f} ms, replica engines' "
-            f"p50 {json.dumps(row['engine_p50_ms'])}, {row['queries_per_s']:.1f} queries/s, "
-            f"recall@10 {row['recall']:.4f}, self-hits {row['self_hits']}/{inserted_rows.size}")
-    log(f"phase cluster: {cluster['seconds']:.1f} s; one replica alone p50 "
-        f"{cluster['one_replica_alone_p50_ms']:.3f} ms; start-up {cluster['startup_s']:.2f} s, "
-        f"compact {cluster['compact_s']:.2f} s, recovery {cluster['recovery_s']:.2f} s "
-        f"({json.dumps(cluster['recovery'])}), snapshots (s) "
-        f"{json.dumps([round(x, 3) for x in cluster['snapshot_s']])}, router "
-        f"{json.dumps(cluster['router'])}")
-    # -- cluster_process: the same traffic over one worker process a replica --
-    process, p_launches = cluster_process_phase(ops, cfg, serve_cfg, data, queries,
-                                                inserted, deleted, check_drain)
-    for name, row in process["drains"].items():
-        log(f"phase {name}: batches {row['batches']}, p50 {row['p50_ms']:.3f} ms, "
-            f"p99 {row['p99_ms']:.3f} ms, first {row['first_ms']:.3f} ms, worker engines' "
-            f"p50 {json.dumps(row['engine_p50_ms'])}, {row['queries_per_s']:.1f} queries/s, "
-            f"recall@10 {row['recall']:.4f}, self-hits {row['self_hits']}/{inserted_rows.size}")
-    log(f"phase cluster_process: {process['seconds']:.1f} s; start-up "
-        f"{process['startup_s']:.2f} s (worker boots, s: {json.dumps(process['boot_s'])}), "
-        f"compact {process['compact_s']:.2f} s, recovery {process['recovery_s']:.2f} s "
-        f"(respawned boot {process['recovered_boot_s']:.2f} s, "
-        f"{json.dumps(process['recovery'])}), snapshots (s) "
-        f"{json.dumps([round(x, 3) for x in process['snapshot_s']])}, router "
-        f"{json.dumps(process['router'])}, wire {json.dumps(process['wire'])}")
-    for a, b in (("cluster_compacted", "cluster_process_compacted"),
-                 ("cluster_recovered", "cluster_process_recovered")):
-        log(f"dispatch p50/p99 (ms) in this run: inproc {a} "
-            f"{cluster['drains'][a]['p50_ms']:.3f}/{cluster['drains'][a]['p99_ms']:.3f}, "
-            f"process {b} {process['drains'][b]['p50_ms']:.3f}/"
-            f"{process['drains'][b]['p99_ms']:.3f}")
-    oracle, o_launches = cluster_oracle_phase(ops, spec, data)
-    log(f"phase cluster_oracle: {oracle['seconds']:.1f} s, {oracle['cut']}, matches "
-        f"{oracle['cluster_matches_flat']}, after recovery "
-        f"{oracle['cluster_recovery_matches_flat']}, oracle cap {oracle['cluster_oracle_cap']}; "
-        + ", ".join(f"{t}: matches {oracle[t]['cluster_matches_flat']}, after recovery "
-                    f"{oracle[t]['cluster_recovery_matches_flat']} in "
-                    f"{oracle[t]['seconds']:.1f} s" for t in ("process", "tcp")))
-    log(json.dumps({"cluster": {**cluster, "process": process, "oracle": oracle,
-                                "walk_range": walk_range}}))
+        tuned, _ = tuned_phase(ops, (kfp, kfr, ktm, kl1, krw), serve, cfg, serve_cfg,
+                               data_c, queries, inserted, q_c, check_served)
+        log(f"phase tuned: tuned {json.dumps(tuned['tuned'])}, predicted "
+            f"{tuned['predicted_recall']:.4f}, validated {tuned['validated_recall']:.4f}, "
+            f"met {tuned['met_target']}, rounds {tuned['rounds']}, served recall@10 "
+            f"{json.dumps({n: r['recall'] for n, r in tuned['served'].items()})}")
+        log(json.dumps({"tuned": tuned}))
 
-    # -- dist: the distributed index over rank processes on the card ---------
-    dist, d_launches = dist_phase(ops, kl1.l1_distance_rows_plain, recall, cfg, data,
-                                  queries, gt_i0.cpu().numpy())
-    for name, row in dist["runs"].items():
-        log(f"phase dist {name}: {row['shape']} {row['merge']} ({row['config']}), "
-            f"query {row['query_ms']} ms (max over ranks, median of {DIST_REPS}), build "
-            f"{json.dumps([round(x, 3) for x in row['build_s']])} s, sent "
-            f"{json.dumps(row['sent_bytes'])} B, recall@10 {row['recall_at_10']}")
-    log(f"phase dist: {dist['seconds']:.1f} s; rank boots (s) "
-        f"{json.dumps([round(x, 2) for x in dist['boot_s']])}, CPU ranks "
-        f"{dist['cpu_ranks_s']:.1f} s, checks {dist['checks_s']:.1f} s")
-    log(json.dumps({"dist": dist}))
+        # -- cluster: S x R replicas on the card, the serve traffic, kill/recover --
+        dead_final = dead.clone()
+        dead_final[N_POINTS:] = True                # the inserted gids, deleted at the end
+        gt_final = exact_knn(ops, kl1.l1_distance_plain, points, q_c, K, dead=dead_final)[1]
+        deleted_final = torch.cat([deleted_c, torch.arange(
+            N_POINTS, N_POINTS + N_INSERT, dtype=deleted_c.dtype, device=card)])
 
-    # -- one served batch: kernels against plain, and their times -------------
-    idx = engine.index
-    idx.insert(inserted[:N_INSERT // 2])     # a delta again, for the fold
-    batch = q_c[:serve_cfg.batch_size].contiguous()
-    seg = idx.segments[0]
-    st = seg.state
-    idx._ensure_caps(seg)
-    pk, lo, occ, counts = probe_index(cfg, st, batch)
-    cb, c_cap, _ = pipe.pick_rung(int(counts.max()), seg.ctot_cap,
-                                  serve_cfg.cand_bucket_min, seg.ctot_norm,
-                                  seg.c_norm, serve_cfg.cand_overflow)
-    cap = cfg.candidate_cap if c_cap is None else min(cfg.candidate_cap, c_cap)
-    p = cfg.probes_per_table
-    tomb = idx._tombstone_array()
-    ext_k = lambda: kfp.probe_extents_cuda(st.sorted_keys, pk, cfg.candidate_cap, st.occ_from)
-    ext_p = lambda: kfp.probe_extents(st.sorted_keys, pk, cfg.candidate_cap, st.occ_from)
-    ext_got, ext_want = ext_k(), ext_p()
-    check(all(equal(a, b) for a, b in zip(ext_got, ext_want)) and equal(ext_got[0], lo),
-          "fused_probe extents kernel == plain on the served batch")
-    gat_k = lambda: kfp.compact_gather_cuda(st.sorted_ids, lo, occ, p, cb, cap)
-    gat_p = lambda: kfp.compact_gather(st.sorted_ids, lo, occ, p, cb, cap)
-    got, want = gat_k(), gat_p()
-    check(equal(got[0], want[0]) and equal(got[1], want[1]),
-          "fused_probe gather kernel == plain on the served batch")
-    probe_k = lambda: kfp.fused_probe_cuda(st.sorted_keys, st.sorted_ids, pk, cap, cb,
-                                           occ_from=st.occ_from)
-    probe_p = lambda: kfp.fused_probe_plain(st.sorted_keys, st.sorted_ids, pk, cap, cb,
-                                            occ_from=st.occ_from)
-    one_got = probe_k()
-    check(all(equal(a, b) for a, b in zip(one_got, want)),
-          "fused_probe one-pass kernels == plain on the served batch")
-    # the library yardstick: the staged probe at the same cap, two
-    # torch.searchsorted calls a table and a gather of the (Q, L*P*C) slab
-    staged_cfg = dataclasses.replace(cfg, candidate_cap=cap, probe_impl="staged")
-    n_rows = st.dataset.shape[0]
-    look = lambda: pipe.stage_bucket_lookup(st.sorted_keys, pk)
-    s_lo, s_hi = look()
-    check(equal(s_lo.reshape(lo.shape), lo) and equal((s_hi - s_lo).reshape(occ.shape), occ),
-          "the staged lookup's extents == the extents kernel's on the served batch")
-    sgat = lambda: pipe.stage_candidate_gather(staged_cfg, st.sorted_ids, s_lo, s_hi, n_rows)
-    staged_lib = lambda: pipe.stage_candidate_gather(staged_cfg, st.sorted_ids, *look(), n_rows)
-    slab = sgat()
-    front = torch.sort((slab == n_rows).to(torch.int8), dim=1, stable=True).indices
-    check(equal(torch.gather(slab, 1, front)[:, :cb], got[0]),
-          "the staged slab's valid candidates == the gather's, in order")
-    del slab, front
-    gat_slices = kfr.plan_slices(pk.shape[0], cb, kfp.gather_resident_blocks(
-        torch.cuda.current_device(), lo.shape[1]))
-    ids = pipe.stage_tombstone(got[0], seg.gids, tomb, st.dataset.shape[0])
-    # the windowed path reorders ids in place (same answer, same work): the
-    # plain version, and the sliced path's timings, take a copy in the
-    # gather's order, as served
-    ids_fresh = ids.clone()
-    rr_k = lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids, K)
-    rr_p = lambda: kfr.fused_rerank_plain(st.dataset, batch, ids_fresh, K,
-                                          chunk=cfg.rerank_chunk)
-    _build.take_path("fused_rerank")
-    sd, si = rr_k()
-    rr_path = _build.take_path("fused_rerank")
-    wd, wi = rr_p()
-    check(equal(sd, wd) and equal(si, wi), "fused_rerank kernel == plain on the served batch")
-    in_rows = lambda x: torch.sort(torch.where((x >= 0) & (x < st.dataset.shape[0]), x, -1),
-                                   dim=1).values
-    check(equal(in_rows(ids), in_rows(ids_fresh)),
-          f"fused_rerank's {rr_path[0]} path keeps each row's valid ids on the served batch")
-    rr_slices = kfr.plan_slices(ids.shape[0], ids.shape[1], kfr.resident_blocks(
-        torch.cuda.current_device(), st.dataset.dtype, DIM, K,
-        int(st.dataset.data_ptr() % 16 == 0)))
-    delta_pts, delta_gids = idx._delta_arrays()
-    cap_d = delta_pts.shape[0]
-    slots = torch.arange(cap_d, dtype=torch.int32, device=card)
-    dids = torch.where(slots < idx._delta_count, slots, cap_d).expand(
-        batch.shape[0], cap_d).contiguous()
-    dids = pipe.stage_tombstone(dids, delta_gids, tomb, cap_d)
-    dd, di = kfr.fused_rerank_cuda(delta_pts, batch, dids, K)
-    pd, pi = kfr.fused_rerank_plain(delta_pts, batch, dids, K)
-    check(equal(dd, pd) and equal(di, pi), "fused_rerank kernel == plain on the delta scan")
-    da, ia = sd, _gid_map(si, seg.gids, st.dataset.shape[0])
-    db, ib = dd, _gid_map(di, delta_gids, cap_d)
-    tm_k = lambda: ktm.topk_merge_cuda(da, ia, db, ib)
-    tm_p = lambda: ktm.topk_merge_plain(da, ia, db, ib)
-    mk, mp = tm_k(), tm_p()
-    check(equal(mk[0], mp[0]) and equal(mk[1], mp[1]), "topk_merge kernel == plain")
-    packed = torch.cat([(da.long() << 32) | (ia.long() & 0xFFFFFFFF),
-                        (db.long() << 32) | (ib.long() & 0xFFFFFFFF)], dim=1)
-    tm_lib = lambda: torch.topk(packed, K, dim=1, largest=False)
+        def check_drain(name, d, i, stage):
+            final = stage == "cluster_recovered"
+            return check_results(ops, kl1.l1_distance_rows_plain, name, d, i, q_c, points,
+                                 deleted_final if final else deleted_c, self_rows,
+                                 (gt_final if final else gt_i).cpu().numpy(), pipe.BIG_DIST,
+                                 recall, exact_delta=stage == "cluster_delta")
 
-    # bounds from this batch's inputs: each input byte read once, each output
-    # byte written once; the rerank reads each distinct candidate row once.
-    q_rows, lp = pk.shape[0], pk.shape[1] * pk.shape[2]
-    gathered = int(torch.minimum(got[1], torch.tensor(cb, device=card)).sum())
-    # the one-pass route, counted as for the single-launch design: each
-    # probe key, the key and the run length at its lower bound, the
-    # gathered ids, the output row
-    probe_bytes = q_rows * lp * (8 + 8 + 4) + gathered * 4 + q_rows * (cb + 1) * 4
-    probe_ops = q_rows * lp * math.ceil(math.log2(max(2, st.dataset.shape[0])))
-    # extents: those reads, lo and occ written; gather: lo and occ read
-    ext_bytes = q_rows * lp * (8 + 8 + 4 + 4 + 4) + q_rows * 4
-    gat_bytes = q_rows * lp * (4 + 4) + gathered * 4 + q_rows * (cb + 1) * 4
-    valid = ids_fresh[(ids_fresh >= 0) & (ids_fresh < st.dataset.shape[0])]
-    uniq_rows = int(torch.unique(valid).numel())
-    pairs = sum(int(torch.unique(r[(r >= 0) & (r < st.dataset.shape[0])]).numel())
-                for r in ids_fresh)
-    rr_bytes = (ids_fresh.numel() * 4 + uniq_rows * DIM * st.dataset.element_size()
-                + batch.numel() * 4 + 2 * q_rows * K * 4)
-    rr_ops = pairs * DIM * 3
-    # the per-pair bound: each valid (query, slot) row read once, as a kernel
-    # that does not invert the candidates across the batch must
-    n_slots = valid.numel()
-    rr_pair_bytes = rr_bytes + (n_slots - uniq_rows) * DIM * st.dataset.element_size()
-    rr_pair_ops = n_slots * DIM * 3
-    tm_bytes = 6 * q_rows * K * 4
-    tm_ops = q_rows * 2 * K * math.ceil(math.log2(2 * K))
+        cluster, _ = cluster_phase(ops, cfg, serve_cfg, data, queries, inserted, deleted,
+                                   check_drain)
+        # -- cluster_process: the same traffic over one worker process a replica --
+        process, _ = cluster_process_phase(ops, cfg, serve_cfg, data, queries, inserted,
+                                           deleted, check_drain)
+        for name, row in {**cluster["drains"], **process["drains"]}.items():
+            log(f"phase {name}: batches {row['batches']}, recall@10 {row['recall']:.4f}, "
+                f"self-hits {row['self_hits']}/{inserted_rows.size}")
+        for tag, row in (("cluster", cluster), ("cluster_process", process)):
+            log(f"phase {tag}: recovery {json.dumps(row['recovery'])}, router "
+                f"{json.dumps(row['router'])}")
+        oracle, _ = cluster_oracle_phase(ops, spec, data)
+        log(f"phase cluster_oracle: {oracle['cut']}, matches {oracle['cluster_matches_flat']}, "
+            f"after recovery {oracle['cluster_recovery_matches_flat']}, oracle cap "
+            f"{oracle['cluster_oracle_cap']}; "
+            + ", ".join(f"{t}: matches {oracle[t]['cluster_matches_flat']}, after recovery "
+                        f"{oracle[t]['cluster_recovery_matches_flat']}"
+                        for t in ("process", "tcp")))
+        log(json.dumps({"cluster": {**cluster, "process": process, "oracle": oracle}}))
 
-    def bound(nbytes, nops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
+        # -- dist: the distributed index over rank processes on the card ---------
+        dist, _ = dist_phase(ops, kl1.l1_distance_rows_plain, recall, cfg, data, queries,
+                             gt_i0.cpu().numpy())
+        for name, row in dist["runs"].items():
+            log(f"phase dist {name}: {row['shape']} {row['merge']} ({row['config']}), sent "
+                f"{json.dumps(row['sent_bytes'])} B, recall@10 {row['recall_at_10']}")
+        log(json.dumps({"dist": dist}))
 
-    def timed(kfn, pfn, lib, nbytes, nops, errs, what=""):
-        """The measured numbers of one kernel row; kernel == plain already
-        held.  A reading under the row's bound is a measurement fault to
-        explain: it is logged and the row says ``below_bound``."""
-        b_ms, b_by = bound(nbytes, nops)
-        # event times first, the kernel and the library call in turns; the
-        # amortised time; the profiler's device times after them
-        ms, lib_ms = (cuda_ms(kfn), None) if lib is None else cuda_ms_pair(kfn, lib)
-        row = {"max_abs_err": max_abs_err(errs), "ms": ms,
-               "amortised_ms": amortised_ms(kfn),
-               "plain_ms": cuda_ms(pfn, reps=5), "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": lib_ms}
-        row["device_ms"], row["device_events_per_call"] = device_profile(kfn)
-        row["library_device_ms"] = None if lib is None else device_ms(lib)
-        below = [k for k in ("ms", "amortised_ms", "device_ms") if row[k] < b_ms]
-        row["below_bound"] = bool(below)
-        if below:
-            log(f"below the bound {what}: {', '.join(f'{k} {row[k]:.6f}' for k in below)} "
-                f"< bound_ms {b_ms:.6f} ({b_by}); device events a call "
-                f"{row['device_events_per_call']}")
-        return row
+        # -- batch: one served batch's kernels against their plain versions -------
+        batch = batch_phase(engine, cfg, serve_cfg, inserted, q_c, data_c)
+        log(f"phase batch: {json.dumps(batch)}; every kernel == plain")
 
-    rows = []
-    for name, kfn, pfn, lib, nbytes, nops, errs, src, repl in [
-        ("fused_probe", probe_k, probe_p, staged_lib, probe_bytes, probe_ops,
-         [(one_got[0], want[0]), (one_got[1], want[1])], "fused_probe.cu",
-         "src/repro/kernels/fused_probe.py:158"),
-        ("fused_rerank", rr_k, rr_p, None, rr_bytes, rr_ops,
-         [(sd, wd), (si, wi)], "fused_rerank.cu",
-         "src/repro/kernels/fused_rerank.py:140"),
-        ("topk_merge", tm_k, tm_p, tm_lib, tm_bytes, tm_ops,
-         [(mk[0], mp[0]), (mk[1], mp[1])], "topk_merge.cu",
-         "src/repro/kernels/topk_merge.py:122"),
-    ]:
-        rows.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-            "replaces": repl, "equal_to_plain": True,
-            "launches": sum(launches[k] for k in PROBE) if name == "fused_probe" else
-            launches[name], **timed(kfn, pfn, lib, nbytes, nops, errs, name)})
-    # the probe's row holds the one-pass route (the extents, then the
-    # gather) and, apart, its two launches: the served route runs the
-    # extents in phase A and the gather alone in phase B
-    for key, kfn, pfn, lib, nbytes, nops, errs in [
-            ("extents", ext_k, ext_p, look, ext_bytes, probe_ops,
-             list(zip(ext_got, ext_want))),
-            ("gather", gat_k, gat_p, sgat, gat_bytes, q_rows * lp,
-             [(got[0], want[0]), (got[1], want[1])])]:
-        rows[0][key] = {"launches": launches[f"fused_probe_{key}"],
-                        **timed(kfn, pfn, lib, nbytes, nops, errs, f"fused_probe {key}")}
-    rows[0]["gather"]["slices"] = gat_slices
-    rows[1]["pair_bound_ms"] = bound(rr_pair_bytes, rr_pair_ops)[0]
-    rows[1]["slices"] = rr_slices
-    rows[1]["path"], rows[1]["windows"] = rr_path
-    rows[1]["ms_by_slices"] = {
-        s: cuda_ms(lambda: kfr.fused_rerank_cuda(st.dataset, batch, ids_fresh, K, slices=s))
-        for s in (rr_slices, 4, 8, 12, 16, 24, 32)}
-    rows[1]["delta_scan_ms"] = cuda_ms(lambda: kfr.fused_rerank_cuda(delta_pts, batch, dids, K))
-    rows[1]["delta_scan_device_ms"] = device_ms(
-        lambda: kfr.fused_rerank_cuda(delta_pts, batch, dids, K))
-    log(f"phase batch: Q {q_rows}, rung cbucket {cb} c_cap {c_cap}, gathered "
-        f"{gathered}, valid slots {n_slots}, distinct rows {uniq_rows}, delta rows "
-        f"{idx._delta_count}, rerank slices {rr_slices}, gather slices {gat_slices}")
-
-    # rw_hash at the build's shape (every point) and at one served batch;
-    # plain on a subset, the prefix-gather hash on every point; the table
-    # kernel alone
-    walk_tab = idx.params.walks
-    wp = walk_tab.pairs
-    n_fns, _, u2 = wp.shape
-    n_pts = data_c.shape[0]
-    fp = krw.padded_fns(n_fns)
-    rw_k = lambda: krw.rw_hash_cuda(wp, data_c)
-    rw_p = lambda: krw.rw_hash_plain(wp, data_c[:RW_PLAIN_ROWS])
-    rw_out, rw_plain = rw_k(), rw_p()
-    check(equal(rw_out, walks.eval_prefix(walk_tab, data_c)),
-          "rw_hash kernel == eval_prefix on every point")
-    check(equal(rw_out[:RW_PLAIN_ROWS], rw_plain),
-          f"rw_hash kernel == plain on {RW_PLAIN_ROWS} rows")
-    tab_k = lambda: krw.rw_prefix_table_cuda(wp)
-    tab_p = lambda: krw.rw_prefix_table_plain(wp, fp)
-    tab_got, tab_want = tab_k(), tab_p()
-    check(equal(tab_got, tab_want), "rw_hash table kernel == plain at the served steps")
-    rw_bk = lambda: krw.rw_hash_cuda(wp, batch)
-    rw_bp = lambda: krw.rw_hash_plain(wp, batch)
-    rw_batch, rw_batch_plain = rw_bk(), rw_bp()
-    check(equal(rw_batch, rw_batch_plain), "rw_hash kernel == plain on the served batch")
-    rw_row = timed(rw_k, rw_p, None, n_pts * DIM * 4 + wp.numel() + n_pts * n_fns * 4,
-                   n_pts * n_fns * DIM, [(rw_out[:RW_PLAIN_ROWS], rw_plain)], "rw_hash")
-    rw_batch_row = timed(rw_bk, rw_bp, None, batch.numel() * 4 + wp.numel()
-                         + batch.shape[0] * n_fns * 4, batch.shape[0] * n_fns * DIM,
-                         [(rw_batch, rw_batch_plain)], "rw_hash batch")
-    # the table: the steps read once, the table written once, an add a step
-    tab_row = timed(tab_k, tab_p, None, wp.numel() + tab_want.numel() * 4, wp.numel(),
-                    [(tab_got, tab_want)], "rw_hash table")
-    resident = krw.resident_blocks(torch.cuda.current_device(), u2)
-    rows.append({
-        "name": "rw_hash", "route": "cuda", "source": "src/repro_torch/csrc/rw_hash.cu",
-        "replaces": "src/repro/kernels/rw_hash.py:55",
-        "launches": rw_launches["rw_hash"], "launches_by_rows": rw_by_rows,
-        "equal_to_plain": True, **rw_row, "rows": n_pts, "plain_rows": RW_PLAIN_ROWS,
-        "gather_ms": cuda_ms(lambda: walks.eval_prefix(walk_tab, data_c), reps=5),
-        "thermo_int8_mma_bound_ms": 2 * n_pts * n_fns * DIM * u2 / INT8_TENSOR_OPS_PER_S * 1e3,
-        "resident_blocks": resident,
-        "slices": krw.plan_rw_hash(n_pts, n_fns, DIM, resident),
-        "batch_rows": batch.shape[0],
-        "batch_slices": krw.plan_rw_hash(batch.shape[0], n_fns, DIM, resident),
-        **{f"batch_{k}": v for k, v in rw_batch_row.items() if not k.startswith("library")},
-        "table": {"launches": rw_launches["rw_prefix_table"], "shape": list(tab_want.shape),
-                  **tab_row}})
-    del rw_out, rw_plain, tab_got, tab_want
-    # the windowed passes (U2 above the one-pass limit; no dataset spec
-    # reaches it): 96 functions x 128 dimensions at U2 8,192, a served batch
-    # and 65,536 rows of the points, plain on the batch and 1,024 rows
-    wide_u2 = 8192
-    gen_w = np.random.default_rng(23)
-    wpairs = torch.from_numpy((2 * gen_w.integers(0, 2, (n_fns, DIM, wide_u2, 2), dtype=np.int8)
-                               - 1).sum(-1, dtype=np.int8)).to(card)
-    w_span, w_win = krw.plan_rw_windows(wide_u2, krw.max_u2())
-    windowed = {"u2": wide_u2, "span": w_span, "windows": w_win}
-    for rows_w in (batch.shape[0], 65_536):
-        wpts = data_c[:rows_w] * (wide_u2 // (UNIVERSE // 2))   # spread over [0, 2 U2]
-        wk = lambda: krw.rw_hash_cuda(wpairs, wpts)
-        plain_rows = min(rows_w, 1024)
-        wp = lambda: krw.rw_hash_plain(wpairs, wpts[:plain_rows])
-        w_out, w_plain = wk(), wp()
-        check(equal(w_out[:plain_rows], w_plain),
-              f"rw_hash kernel == plain at U2 {wide_u2} on {plain_rows} of {rows_w} rows")
-        windowed[f"rows_{rows_w}"] = {
-            "plain_rows": plain_rows,
-            **timed(wk, wp, None, rows_w * DIM * 4 + wpairs.numel() + rows_w * n_fns * 4,
-                    rows_w * n_fns * DIM, [(w_out[:plain_rows], w_plain)],
-                    f"rw_hash windowed {rows_w} rows")}
-    rows[-1]["windowed"] = windowed
-    del wpairs, wpts, w_out, w_plain
-
-    # l1_distance at the ground truth's shape: one batch against every point;
-    # then the same shape with every coordinate
-    # drawn in +-2^30 (every stage of every block runs the int32 loop), and
-    # in int16
-    l1_k = lambda: kl1.l1_distance_cuda(batch, data_c)
-    l1_p = lambda: kl1.l1_distance_plain(batch, data_c)
-    l1_out, l1_plain = l1_k(), l1_p()
-    check(equal(l1_out, l1_plain), "l1_distance kernel == plain at 64 x 1 M x 128")
-    qf, xf = batch.to(torch.float32), data_c.to(torch.float32)
-    l1_lib = lambda: torch.cdist(qf, xf, p=1)
-    check(equal(l1_lib().to(torch.int32), l1_out), "torch.cdist(p=1) agrees (exact)")
-    l1_updates = batch.shape[0] * n_pts * DIM
-    l1_row = timed(l1_k, l1_p, l1_lib, batch.numel() * 4 + data_c.numel() * 4
-                   + batch.shape[0] * n_pts * 4, l1_updates * 3, [(l1_out, l1_plain)],
-                   "l1_distance")
-    del l1_out, l1_plain, xf
-    gen = torch.Generator(device=card).manual_seed(18)
-    wq, wx = (torch.randint(-2 ** 30, 2 ** 30, t.shape, generator=gen, device=card,
-                            dtype=torch.int32) for t in (batch, data_c))
-    w_k = lambda: kl1.l1_distance_cuda(wq, wx)
-    w_out, w_plain = w_k(), kl1.l1_distance_plain(wq, wx)
-    check(equal(w_out, w_plain), "l1_distance kernel == plain on the wide input (int32 loop)")
-    l1_row.update(wide_max_abs_err=max_abs_err([(w_out, w_plain)]), wide_ms=cuda_ms(w_k),
-                  wide_amortised_ms=amortised_ms(w_k), wide_device_ms=device_ms(w_k))
-    del w_out, w_plain, wq, wx
-    hq, hx = batch.to(torch.int16), data_c.to(torch.int16)
-    h_k = lambda: kl1.l1_distance_cuda(hq, hx)
-    h_out, h_plain = h_k(), kl1.l1_distance_plain(hq, hx)
-    check(equal(h_out, h_plain), "l1_distance kernel == plain in int16 at 64 x 1 M x 128")
-    l1_row.update(int16_max_abs_err=max_abs_err([(h_out, h_plain)]), int16_ms=cuda_ms(h_k),
-                  int16_amortised_ms=amortised_ms(h_k), int16_device_ms=device_ms(h_k))
-    del h_out, h_plain, hq, hx
-    # instruction issue floor: the inner loops' SASS instructions per update
-    # x updates / lane-instructions a second
-    # at the highest SM clock the card reports in this run
-    issue_clock_hz = float(nvidia_smi_line("clocks.max.sm").split()[0]) * 1e6
-    issue_rate = torch.cuda.get_device_properties(0).multi_processor_count \
-        * LANES_PER_SM_CLOCK * issue_clock_hz
-    lib = libs["l1_distance"]
-    per_lds128 = lambda op: 32 / 3 if ".128" in op else 0   # 3 LDS.128: 32 updates
-    sass = {"float32_loop_int32_input": None, "int32_loop": None,
-            "float32_loop_int16_input": None}
-    found = sass_loops(lib, "l1_pairwise_kernelIiE", per_lds128)
-    if found is None:
-        log("l1_distance SASS: cuobjdump is not on this machine; no issue floor")
-    else:
-        for loop in found:
-            sass["float32_loop_int32_input" if loop["fadd"] else "int32_loop"] = loop
-        sass["float32_loop_int16_input"] = next(iter(
-            sass_loops(lib, "l1_pairwise_kernelIsE", per_lds128)), None)
-        log(f"l1_distance SASS inner loops: {json.dumps(sass)}")
-    floor = lambda key: None if sass[key] is None else \
-        sass[key]["per_update"] * l1_updates / issue_rate * 1e3
-    rows.append({
-        "name": "l1_distance", "route": "cuda",
-        "source": "src/repro_torch/csrc/l1_distance.cu",
-        "replaces": "src/repro/kernels/l1_distance.py:59",
-        "launches": gt_launches["l1_distance"], "equal_to_plain": True, **l1_row,
-        "updates": l1_updates, "sass": sass, "issue_clock_ghz": issue_clock_hz / 1e9,
-        "issue_lane_rate": issue_rate, "issue_floor_ms": floor("float32_loop_int32_input"),
-        "wide_issue_floor_ms": floor("int32_loop"),
-        "int16_issue_floor_ms": floor("float32_loop_int16_input"),
-        "sm_clocks_max_now": nvidia_smi_line("clocks.max.sm,clocks.sm")})
-
-    # l1_distance_rows at one served batch's first 4,096 candidates a query
-    # (int32 and int16: the rows exceed the L2 cache) and at SRS's shape
-    # (QUALITY_QUERIES queries x its 512-row chunk, int32).  At each shape the
-    # kernel equals its plain version in all four input types through the
-    # vector path; SRS's rows one element into their storage (not 16-byte
-    # aligned) take the scalar path.  ``launch_amortised_ms`` times the C
-    # entry point alone (plan and output made once): no wrapper host work.
-    def rows_path(qd, rd):
-        before = dict(kl1.ROWS_PATHS)
-        got = kl1.l1_distance_rows_cuda(qd, rd)
-        path = [k for k, v in kl1.ROWS_PATHS.items() if v != before[k]]
-        check(len(path) == 1, "one l1_distance_rows launch, on one path")
-        return got, path[0]
-
-    def rows_launch_only(qd, rd, want):
-        q_n, c_n, m_n = rd.shape
-        plan = kl1.plan_rows(qd.dtype, m_n, c_n, q_n, rd.data_ptr(), qd.data_ptr())
-        out = torch.empty((q_n, c_n), dtype=want.dtype, device=card)
-        args = (qd.data_ptr(), rd.data_ptr(), out.data_ptr(), q_n, c_n, m_n, plan.slots,
-                plan.seg, plan.tile, plan.stage, torch.cuda.current_stream().cuda_stream)
-        fn = kl1._fn("rows", qd.dtype)
-        ms = amortised_ms(lambda: fn(*args))
-        check(fn(*args) == 0 and equal(out, want),
-              "l1_distance_rows C entry point == plain after its timed launches")
-        return ms
-
-    def rows_timed(qd, rd, what, path):
-        got, took = rows_path(qd, rd)
-        want = kl1.l1_distance_rows_plain(qd, rd)
-        check(equal(got, want) and took == path,
-              f"l1_distance_rows kernel == plain {what}, on the {path} path (took {took})")
-        qf_r, rf_r = qd.to(torch.float32), rd.to(torch.float32)
-        lib_r = lambda: torch.cdist(qf_r[:, None], rf_r, p=1)
-        check(equal(lib_r()[:, 0].to(got.dtype), got), f"batched cdist agrees {what} (exact)")
-        return {"shape": list(rd.shape), "path": took,
-                **timed(lambda: kl1.l1_distance_rows_cuda(qd, rd),
-                        lambda: kl1.l1_distance_rows_plain(qd, rd), lib_r,
-                        rd.numel() * rd.element_size() + qd.numel() * qd.element_size()
-                        + got.numel() * 4, rd.numel() * 3, [(got, want)],
-                        f"l1_distance_rows {what}"),
-                "launch_amortised_ms": rows_launch_only(qd, rd, want)}
-
-    cand = ids[:, :4096].clamp(0, st.dataset.shape[0] - 1).long()
-    srs_cand = torch.randint(0, st.dataset.shape[0], (QUALITY_QUERIES, SRS_ROWS_CHUNK),
-                             generator=torch.Generator(device=card).manual_seed(28),
-                             device=card)
-    rows_at = {"served": (batch, st.dataset[cand]),
-               "srs": (q_c[:QUALITY_QUERIES].contiguous(), st.dataset[srs_cand])}
-    for qd, rd in rows_at.values():
-        for dtype in (torch.int32, torch.int16, torch.float32, torch.bfloat16):
-            qt, rt = qd.to(dtype), rd.to(dtype).contiguous()
-            got, took = rows_path(qt, rt)
-            check(equal(got, kl1.l1_distance_rows_plain(qt, rt)) and took == "vector",
-                  f"l1_distance_rows kernel == plain in {dtype} at {list(rt.shape)}, "
-                  f"on the vector path (took {took})")
-    del qt, rt, got
-    l1r = {dtype: rows_timed(batch.to(dtype), rows_at["served"][1].to(dtype).contiguous(),
-                             f"in {dtype} at the served batch", "vector")
-           for dtype in (torch.int32, torch.int16)}
-    qs_srs, rs_srs = (t.to(torch.int32).contiguous() for t in rows_at["srs"])
-    srs_row = rows_timed(qs_srs, rs_srs, "at SRS's shape", "vector")
-    flat = torch.empty(rs_srs.numel() + 1, dtype=torch.int32, device=card)
-    mis = flat[1:].view(rs_srs.shape).copy_(rs_srs)
-    mis_row = rows_timed(qs_srs, mis, "at SRS's shape one element into its storage",
-                         "scalar")
-    del rows_at, flat, mis, qs_srs, rs_srs
-    rows.append({
-        "name": "l1_distance_rows", "route": "cuda",
-        "source": "src/repro_torch/csrc/l1_distance.cu",
-        "replaces": "src/repro/kernels/l1_distance.py:103",
-        "launches": check_launches["l1_distance_rows"], "equal_to_plain": True,
-        **l1r[torch.int32], "int16": l1r[torch.int16], "srs": srs_row,
-        "misaligned": mis_row})
-    for path, counts in (("quality", q_launches), ("tuned", t_launches),
-                         ("cluster", c_launches), ("cluster_process", p_launches),
-                         *o_launches.items(), ("dist", d_launches), *s_launches.items(),
-                         ("examples", e_launches), ("lm_retrieval", r_launches),
-                         ("train", tr_launches), ("shard", sh_launches)):
-        for row in rows:
-            row[f"{path}_launches"] = (sum(counts[k] for k in PROBE)
-                                       if row["name"] == "fused_probe" else counts[row["name"]])
-        for key in ("extents", "gather"):
-            rows[0][key][f"{path}_launches"] = counts[f"fused_probe_{key}"]
-        next(r for r in rows if r["name"] == "rw_hash")["table"][f"{path}_launches"] = \
-            counts["rw_prefix_table"]
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(f"device times from CUDA events, the profiler having recorded nothing: "
-        f"{len(DEVICE_MS_FROM_EVENTS)} {DEVICE_MS_FROM_EVENTS}")
-    log(json.dumps({"kernels": rows}))
+        # -- cuda: the card tests' result --------------------------------------
+        log(f"phase cuda: {wait_card_tests()} card tests passed, none failed or skipped")
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

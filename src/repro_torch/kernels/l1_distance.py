@@ -19,7 +19,6 @@ scalar loads; ``plan_rows`` makes that choice and the grid.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
@@ -27,7 +26,7 @@ import torch
 from . import _build
 
 __all__ = ["l1_distance_plain", "l1_distance_rows_plain", "l1_distance_cuda",
-           "l1_distance_rows_cuda", "plan_rows", "RowsPlan", "ROWS_PATHS"]
+           "l1_distance_rows_cuda", "plan_rows", "RowsPlan"]
 
 PLAIN_CHUNK_ELEMS = 1 << 26  # bound on one chunk's (Q, chunk, m) difference
 _MAX_GRID_Y = 65535          # the pairwise kernels' query tiles of 64
@@ -41,10 +40,6 @@ _ENTRY = {torch.int32: "i32", torch.int16: "i16", torch.float32: "f32",
 _ROW_WARPS, _ROW_LOADS, _ROW_MAX_SLOTS, _ROW_QUERY_MAX = 8, 4, 8, 32 * 1024
 _ROW_MIN_TILE, _ROW_MIN_PASSES = 64, 2
 _MAX_GRID_X = 2 ** 31 - 1
-
-# l1_distance_rows launches by path, beside _build.LAUNCHES' one count
-ROWS_PATHS = {"vector": 0, "scalar": 0}
-_PATHS_LOCK = threading.Lock()
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -186,6 +181,4 @@ def l1_distance_rows_cuda(queries: torch.Tensor, rows: torch.Tensor) -> torch.Te
     _build.launch("l1_distance_rows", _fn("rows", queries.dtype), queries.get_device(),
                   queries.data_ptr(), rows.data_ptr(), out.data_ptr(), q, c, m,
                   plan.slots, plan.seg, plan.tile, plan.stage)
-    with _PATHS_LOCK:
-        ROWS_PATHS["vector" if plan.slots else "scalar"] += 1
     return out

@@ -440,8 +440,9 @@ def test_l1_distance_rows_kernel_matches_plain(card, name):
 @pytest.mark.parametrize("dtype", ["int32", "int16", "float32", "bfloat16"])
 def test_l1_distance_rows_kernel_misaligned(card, dtype):
     """Contiguous views one element into their storage (rows, then queries):
-    not 16-byte aligned, so the kernel takes the scalar path, and still
-    equals the plain version; the aligned tensors take the vector path."""
+    not 16-byte aligned, so ``plan_rows`` puts the kernel on the scalar
+    path, and it still equals the plain version; the aligned tensors take
+    the vector path."""
     rng = np.random.default_rng(28)
     queries, rows = rng.integers(-200, 200, (4, 128)), rng.integers(-200, 200, (4, 300, 128))
     q, r = _typed(queries, dtype, card), _typed(rows, dtype, card)
@@ -452,10 +453,11 @@ def test_l1_distance_rows_kernel_misaligned(card, dtype):
     want = tl1.l1_distance_rows_plain(q, r)
     for args, path in (((q, r), "vector"), ((q, r1), "scalar"), ((q1, r), "scalar")):
         assert args[0].is_contiguous() and args[1].is_contiguous()
-        before = dict(tl1.ROWS_PATHS)
+        plan = tl1.plan_rows(args[0].dtype, r.shape[2], r.shape[1], r.shape[0],
+                             args[1].data_ptr(), args[0].data_ptr())
+        assert ("vector" if plan.slots else "scalar") == path
         got = tl1.l1_distance_rows_cuda(*args)
         torch.cuda.synchronize()
-        assert tl1.ROWS_PATHS[path] == before[path] + 1
         _eq(want.cpu(), got.cpu())
 
 
