@@ -179,7 +179,11 @@ read just after, and must launch the kernels named in ``PATHS``):
                  every ``PROBE_CASES`` entry; the staged probe's slab, whose valid
                  candidates must equal the gather's; ``fused_rerank`` with
                  each row's valid ids kept; the delta scan; the
-                 ``topk_merge`` fold), ``rw_hash`` at the build's 1 M rows
+                 ``topk_merge`` fold), ``fused_rerank``'s grouped items at
+                 ``gist1m.bulk1024``'s shape (1 M x 960 int32, 1,024
+                 queries, 131,072 and 205,824 slots; the rule's group and
+                 windows, each row's valid ids kept, row loads <= pairs),
+                 ``rw_hash`` at the build's 1 M rows
                  (against ``eval_prefix``, and the plain version on the
                  first 65,536) and at the batch, its table kernel, and
                  ``l1_distance_rows`` at the batch's first 4,096 candidates
@@ -2012,11 +2016,55 @@ def check_results(ops, plain, phase, d, i, queries, points, deleted, inserted_ro
     return r, hits
 
 
+def grouped_rerank_check(kfr, _build, device) -> None:
+    """``fused_rerank``'s grouped items at ``gist1m.bulk1024``'s shape, where
+    no other check reaches them: 1 M x 960 int32 rows, 1,024 queries, the
+    main rung's 131,072 slots and the top rung's 205,824 (G x chunks 768 and
+    1,222 segments, past one a thread of the 512-thread scan), 30-50% of a
+    row's slots valid, then padding n, with repeats, -1 and a row of no
+    valid id.  The rule must pick a group and windows of 4,096 rows; the
+    kernel must equal plain on a copy of the ids taken before it ran, keep
+    each row's valid ids, and count row loads <= pairs."""
+    n, m, q = 1_000_000, 960, 1024
+    gen = torch.Generator(device=device).manual_seed(37)
+    data = torch.randint(0, 257, (n, m), generator=gen, device=device, dtype=torch.int32)
+    queries = torch.randint(0, 257, (q, m), generator=gen, device=device, dtype=torch.int32)
+    in_rows = lambda x: torch.sort(torch.where((x >= 0) & (x < n), x, -1), dim=1).values
+    for ctot in (131_072, 205_824):
+        plan = kfr.plan_call(data, q, ctot, K)
+        check(plan is not None and plan.group > 1 and plan.rows == 4096,
+              f"fused_rerank's rule groups gist1m's batch at {ctot} slots (plan {plan})")
+        ids = torch.randint(0, n, (q, ctot), generator=gen, device=device, dtype=torch.int32)
+        fill = (torch.rand((q, 1), generator=gen, device=device) * 0.2 + 0.3) * ctot
+        ids = torch.where(torch.arange(ctot, device=device) < fill, ids, n)
+        ids[:, 1::7] = ids[:, 0::7][:, :ids[:, 1::7].shape[1]]     # repeats
+        ids[:, 3::97] = -1
+        ids[0] = -1
+        fresh = ids.clone()
+        _build.take_path("fused_rerank")
+        gd, gi = kfr.fused_rerank_cuda(data, queries, ids, K)
+        took = _build.take_path("fused_rerank")
+        pd, pi = kfr.fused_rerank_plain(data, queries, fresh, K, chunk=128)
+        check(equal(gd, pd) and equal(gi, pi),
+              f"fused_rerank grouped kernel == plain at gist1m's shape, {ctot} slots")
+        check(equal(in_rows(ids), in_rows(fresh)),
+              f"fused_rerank's grouped path keeps each row's valid ids, {ctot} slots")
+        attrs = kfr.rerank_attrs(*took)
+        check(took[0] == "windowed" and attrs["group"] == plan.group
+              and 0 < attrs["row_loads"] <= attrs["pairs"],
+              f"fused_rerank's grouped launch at {ctot} slots counted {attrs}")
+        log(f"phase batch: grouped rerank at 1,024 x {ctot} slots over 1 M x 960: G "
+            f"{attrs['group']}, {plan.windows} windows, reuse "
+            f"{attrs['pairs'] / attrs['row_loads']:.2f}, == plain")
+        del ids, fresh
+
+
 def batch_phase(engine, cfg, serve_cfg, inserted, q_c, data_c) -> dict:
     """The kernels against their plain versions at the main path's shapes,
     bit for bit: one served batch over the engine's compacted segment and a
     delta (the probe's two launches apart and in one pass, the staged
-    probe's slab, the rerank, the delta scan, the fold), the one-pass probe
+    probe's slab, the rerank, the delta scan, the fold), the grouped rerank
+    at gist1m's shape (``grouped_rerank_check``), the one-pass probe
     at caps 1 and 3 of ``PROBE_CASES``, ``rw_hash`` at the build's rows and
     at the batch, ``l1_distance`` on wide int32 and on int16 inputs at the
     ground truth's shape, and ``l1_distance_rows`` on both of its paths.
@@ -2095,6 +2143,7 @@ def batch_phase(engine, cfg, serve_cfg, inserted, q_c, data_c) -> dict:
     in_rows = lambda x: torch.sort(torch.where((x >= 0) & (x < n_rows), x, -1), dim=1).values
     check(equal(in_rows(ids), in_rows(ids_fresh)),
           f"fused_rerank's {rr_path[0]} path keeps each row's valid ids on the served batch")
+    grouped_rerank_check(kfr, _build, batch.device)
     delta_pts, delta_gids = idx._delta_arrays()
     cap_d = delta_pts.shape[0]
     slots = torch.arange(cap_d, dtype=torch.int32, device=batch.device)
@@ -2165,7 +2214,8 @@ def batch_phase(engine, cfg, serve_cfg, inserted, q_c, data_c) -> dict:
           "l1_distance kernel == plain in int16 at 64 x 1 M x 128")
     del hq, hx
     return {"queries": int(batch.shape[0]), "cbucket": int(cb),
-            "c_cap": None if c_cap is None else int(c_cap), "rerank_path": list(rr_path),
+            "c_cap": None if c_cap is None else int(c_cap),
+            "rerank_path": [rr_path[0], kfr.rerank_attrs(*rr_path)["windows"]],
             "delta_rows": int(idx._delta_count)}
 
 

@@ -17,8 +17,10 @@ phase; with tracing off no span object exists and nothing synchronizes.
 Inside the phases the stage spans (``stage_hash``, ``stage_probe_keys``,
 ``stage_probe_extents``, ``rung_read``; ``stage_fused_probe``,
 ``stage_dedup``, ``stage_tombstone``, ``stage_rerank``, ``gid_map``) never
-synchronize: under a torch profiler their ``repro.*`` ranges name the host
-work that launched each device record.
+synchronize, but for ``stage_rerank`` after a windowed launch, which reads
+the launch's counters and phase times into its attributes: under a torch
+profiler (spans off) their ``repro.*`` ranges name the host work that
+launched each device record.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import _build as kbuild
+from repro_torch.kernels import ops as kops
 from repro_torch.obs import trace as obs_trace
 
 from . import hashes as hashes_lib
@@ -108,9 +111,9 @@ def _finish_segment(cfg, cbucket: int, c_cap: Optional[int], state: IndexState,
         if traced:       # forget a path no traced span took
             kbuild.take_path("fused_rerank")
         d, i = pipe.stage_rerank(cfg, state.dataset, queries, ids)
-        if traced:       # the kernel's path and windows, "none" off it
-            path, windows = kbuild.take_path("fused_rerank") or ("none", 0)
-            span.set(path=path, windows=windows)
+        if traced:       # the kernel's path and counters, "none" off it
+            path, detail = kbuild.take_path("fused_rerank") or ("none", 0)
+            span.set(path=path, **kops.rerank_attrs(path, detail))
     if n == 0:
         return d, i
     with obs_trace.span("gid_map"):

@@ -114,9 +114,49 @@
 // the L2 for G resident blocks (they work on about G / Q windows at once),
 // between an eighth and half of it, doubled while the offsets pass the
 // workspace limit; and at least two windows.
+//
+// The grouped item (rerank_slice_kernel<T, MODE, kGrouped>, the same one
+// cooperative launch with blocks of kGroupThreads).  The (query, window)
+// item above still reads every (query, row) pair's row from L2: at gist1m's
+// shape (a row named ~52 times a batch) 199 GB a batch, which is what bounds
+// it.  A grouped item is (G consecutive queries, window w): the block stages
+// the G queries in shared memory (Hopper's opt-in, up to 227 KB), every id of
+// the G queries' window-w segments sets bit j of its row's 64-bit mask
+// (query j of the group), and warp v takes the named rows v, v + 16, ...:
+// it loads the row once into registers (one row ahead, so the next row's
+// loads fly while this one is computed) and sums |x - q| (__sad, one
+// VABSDIFF a value) against each query the mask names, up to 4 a round,
+// reduced like the sliced path's 4 candidates.  Keys go into the group's
+// per-query lists in shared memory under a per-query lock, with the same
+// insert_key and the cut min(list worst, the running list's worst when the
+// item began); at the item's end each query's list merges into its running
+// list under the query's lock, as above.  Exactness: the mask takes each
+// (query, id) pair once, so a query's repeats of an id are computed once;
+// an id lies in one window, so all its copies for a query meet in one item;
+// the cut only drops keys no better than k unique ones; the merges take the
+// first k unique keys of a union in any order; so the result is the sliced
+// path's bit for bit (the wrapped sums included: adds wrap alike).  Bound:
+// a row load now serves the pairs its mask names (the reuse, pairs / row
+// loads, 2.56 at gist1m's batch against 1), and the item is held by its row
+// loads: one row in flight a warp, 16 warps an SM (the queries leave room
+// for one block), so its time follows the row loads and not the pairs'
+// bytes.  At gist1m's batch (1,024 x 50,600 valid slots over 1 M rows of
+// 3,840 bytes) 18.2 ms against 29.2 for (query, window) items; at 480 to
+// 2,048-byte rows it wins only where a row is reused often, and on int16
+// rows it loses (the (query, window) path reads half the bytes; PERF.md
+// section 6), so only int32 rows are built grouped and launch_window
+// refuses a group on int16 rows.  The rule (fused_rerank.plan_group):
+// int32 rows of at least GROUP_ROW_BYTES_MIN bytes, G the most queries
+// whose block fits the opt-in shared memory at windows of kGroupRowsMax
+// rows (at most 64, the mask), and the expected bytes a row load saves,
+// r(G) x row bytes with r(G) = G p / (1 - (1 - p)^G) and p = ctot / n, at
+// least WINDOW_GROUP_BYTES (p counts slots, padding included: the
+// threshold was read at a slot fill of about 39%).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -136,6 +176,17 @@ constexpr int kWindowed = 2;
 constexpr int kPart = 8192;
 constexpr int kMaxWindows = 2048;
 constexpr int kMaxChunks = 64;
+// The grouped item (kGrouped): at most kGroupMax queries an item (a row's
+// queries are one 64-bit mask), kGroupRowsMax rows a window (their masks sit
+// in shared memory) and kGroupElems values a lane holds of a row (rows of at
+// most 32 x 32 values).  fused_rerank.py's WINDOW_GROUP_MAX, GROUP_ROWS_MAX,
+// GROUP_DIM_MAX and GROUP_WARPS are these.
+constexpr int kGrouped = 3;
+constexpr int kGroupThreads = 512;  // a grouped block: 16 warps share its queries
+constexpr int kGroupWarps = kGroupThreads / 32;
+constexpr int kGroupMax = 64;
+constexpr int kGroupRowsMax = 4096;
+constexpr int kGroupElems = 32;
 
 // How a block reads a row: kRegVec, one aligned 16-byte vector a lane with
 // the lane's slice of the query in registers; kSharedVec, aligned vectors
@@ -407,16 +458,29 @@ struct Window {
   int* iout;
   unsigned long long* lists;   // (q, k) running lists of keys
   int* locks;                  // (q) 1 while a block merges into the list
-  unsigned* ticket;            // the next (query, window) item
+  unsigned* ticket;            // the next (group, window) item
   unsigned short* offsets;     // (q, chunks, windows + 1) bin starts
-  int q, n, m, ctot, k, shift, windows, chunks;
+  unsigned long long* stats;   // 6 words: row loads, pairs, four timer stamps
+  int q, n, m, ctot, k, shift, windows, chunks, group;
 };
 
-// Exclusive prefix sums of v[0, count) in place (count <= kThreads * 8);
+// The launch's 6 stats words (fused_rerank.py's STATS_WORDS): the rows
+// phase 2 loaded and the (query, row) pairs it computed, summed over its
+// items; block 0's %globaltimer (ns) at the start, at each grid barrier and
+// at its end.
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Exclusive prefix sums of v[0, count) in place by a block of NT threads;
 // returns the total.  Ends with a barrier.
+template <int NT>
 __device__ int block_exclusive_scan(int* v, int count, int* wsum) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int per = (count + kThreads - 1) / kThreads;
+  const int per = (count + NT - 1) / NT;
   const int lo = threadIdx.x * per;
   int own = 0;
   for (int j = 0; j < per; ++j) own += lo + j < count ? v[lo + j] : 0;
@@ -430,7 +494,7 @@ __device__ int block_exclusive_scan(int* v, int count, int* wsum) {
   __syncthreads();
   int run = inc - own, total = 0;
 #pragma unroll
-  for (int j = 0; j < kWarps; ++j) {
+  for (int j = 0; j < NT / 32; ++j) {
     run += j < warp ? wsum[j] : 0;
     total += wsum[j];
   }
@@ -443,28 +507,29 @@ __device__ int block_exclusive_scan(int* v, int count, int* wsum) {
   return total;
 }
 
-// Phase 1 for one (row, chunk): counting sort of the chunk's valid ids by
-// window, in place; the bin starts and the valid count to the offsets.
-template <typename T>
+// Phase 1 for one (row, chunk) by a block of NT threads: counting sort of
+// the chunk's valid ids by window, in place; the bin starts and the valid
+// count to the offsets.
+template <typename T, int NT>
 __device__ void partition_chunk(const Window<T>& a, int row, int c, int* buf, int* hist,
                                 int* wsum) {
   int* ids = a.ids + static_cast<size_t>(row) * a.ctot + static_cast<size_t>(c) * kPart;
   const int len = min(kPart, a.ctot - c * kPart);
-  for (int i = threadIdx.x; i < len; i += kThreads) buf[i] = ids[i];
-  for (int b = threadIdx.x; b < a.windows; b += kThreads) hist[b] = 0;
+  for (int i = threadIdx.x; i < len; i += NT) buf[i] = ids[i];
+  for (int b = threadIdx.x; b < a.windows; b += NT) hist[b] = 0;
   __syncthreads();
-  for (int i = threadIdx.x; i < len; i += kThreads) {
+  for (int i = threadIdx.x; i < len; i += NT) {
     const int id = buf[i];
     if (id >= 0 && id < a.n) atomicAdd(hist + (id >> a.shift), 1);
   }
   __syncthreads();
-  const int total = block_exclusive_scan(hist, a.windows, wsum);
+  const int total = block_exclusive_scan<NT>(hist, a.windows, wsum);
   unsigned short* off =
       a.offsets + (static_cast<size_t>(row) * a.chunks + c) * (a.windows + 1);
-  for (int b = threadIdx.x; b < a.windows; b += kThreads) off[b] = static_cast<unsigned short>(hist[b]);
+  for (int b = threadIdx.x; b < a.windows; b += NT) off[b] = static_cast<unsigned short>(hist[b]);
   if (threadIdx.x == 0) off[a.windows] = static_cast<unsigned short>(total);
   __syncthreads();  // the offsets are read from hist before it turns into cursors
-  for (int i = threadIdx.x; i < len; i += kThreads) {
+  for (int i = threadIdx.x; i < len; i += NT) {
     const int id = buf[i];
     if (id >= 0 && id < a.n) {
       ids[atomicAdd(hist + (id >> a.shift), 1)] = id;  // a slot below total
@@ -588,6 +653,336 @@ __device__ void rerank_item(const Window<T>& a, int row, int w, unsigned long lo
   }
 }
 
+// Byte offsets of a grouped item's shared memory (fused_rerank.py's
+// group_smem_bytes sums the same): the group's lists (G, k) and cut (G)
+// keys, each warp's merge scratch (2k keys), the window's row masks (rows),
+// the group's queries (G, m), the list locks, the segments' starts and
+// prefix sums (G * chunks), the scan's warp sums.
+struct GroupLayout {
+  size_t cut, scratch, mask, qs, lock, seg_start, seg_pre, wsum, bytes;
+};
+
+__host__ __device__ inline GroupLayout group_layout(int m, int k, int g, int rows, int chunks) {
+  GroupLayout l;
+  const size_t segs = static_cast<size_t>(g) * chunks;
+  size_t b = sizeof(unsigned long long) * static_cast<size_t>(g) * k;
+  l.cut = b;
+  b += sizeof(unsigned long long) * g;
+  l.scratch = b;
+  b += sizeof(unsigned long long) * kGroupWarps * 2 * k;
+  l.mask = b;
+  b += sizeof(unsigned long long) * rows;
+  b = (b + 15) & ~static_cast<size_t>(15);
+  l.qs = b;
+  b += sizeof(int) * static_cast<size_t>(g) * m;
+  l.lock = b;
+  b += sizeof(int) * g;
+  l.seg_start = b;
+  b += sizeof(int) * segs;
+  l.seg_pre = b;
+  b += sizeof(int) * (segs + 1);
+  l.wsum = b;
+  b += sizeof(int) * kGroupWarps;
+  l.bytes = b;
+  return l;
+}
+
+// A lane's part of the row a warp holds in a grouped item: one 16-byte
+// vector (kRegVec), NR vectors (kSharedVec) or 32 values (kScalar) of it,
+// NE values kept as int in registers.
+template <typename T, int MODE>
+struct Held {
+  static constexpr int kPer = 16 / sizeof(T);
+  static constexpr int NR = MODE == kRegVec ? 1 : MODE == kSharedVec ? kGroupElems / kPer
+                                                                       : kGroupElems;
+  static constexpr int NE = MODE == kScalar ? kGroupElems : NR * kPer;
+  using Raw = typename std::conditional<MODE == kScalar, T, int4>::type;
+};
+
+// Issue the loads of row `row` (< 0: none); they land in raw.
+template <typename T, int MODE>
+__device__ __forceinline__ void load_held(const T* __restrict__ dataset, int row, int m, int lane,
+                                          typename Held<T, MODE>::Raw (&raw)[Held<T, MODE>::NR]) {
+  using H = Held<T, MODE>;
+  const T* base = dataset + static_cast<size_t>(row < 0 ? 0 : row) * m;
+  if constexpr (MODE == kScalar) {
+#pragma unroll
+    for (int i = 0; i < H::NR; ++i) {
+      const int e = i * 32 + lane;
+      raw[i] = (row >= 0 && e < m) ? __ldg(base + e) : T(0);
+    }
+  } else {
+    const int nvec = m / H::kPer;
+    const int4* r4 = reinterpret_cast<const int4*>(base);
+#pragma unroll
+    for (int i = 0; i < H::NR; ++i) {
+      const int v = i * 32 + lane;
+      raw[i] = (row >= 0 && v < nvec) ? __ldg(r4 + v) : make_int4(0, 0, 0, 0);
+    }
+  }
+}
+
+// The held values as int.
+template <typename T, int MODE>
+__device__ __forceinline__ void unpack_held(const typename Held<T, MODE>::Raw (&raw)[Held<T, MODE>::NR],
+                                            int (&x)[Held<T, MODE>::NE]) {
+  using H = Held<T, MODE>;
+#pragma unroll
+  for (int i = 0; i < H::NR; ++i) {
+    if constexpr (MODE == kScalar) {
+      x[i] = static_cast<int>(raw[i]);
+    } else {
+#pragma unroll
+      for (int w = 0; w < H::kPer; ++w) x[i * H::kPer + w] = elem<T>(raw[i], w);
+    }
+  }
+}
+
+// The lane's L1 sums of C pairs: the held row against queries jq[0, C) of
+// the group (shared memory), over the values the lane holds; each value
+// costs one __sad (|x - q| + acc, a single VABSDIFF), where absdiff takes
+// three operations.  C is the round's pair count, so no load or operation
+// is spent on a pair the round does not have, and the C sums are
+// independent chains.  Adds wrap, so every bit is the sliced path's.
+template <typename T, int MODE, int C>
+__device__ __forceinline__ void pair_l1(const int (&x)[Held<T, MODE>::NE], const int (&jq)[kUnroll],
+                                          const int* qs, int m, int lane, int (&acc)[kUnroll]) {
+  using H = Held<T, MODE>;
+  const int* q[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) q[t] = qs + jq[t] * m;
+  if constexpr (MODE == kScalar) {
+#pragma unroll
+    for (int i = 0; i < H::NR; ++i) {
+      if (i * 32 >= m) break;  // warp-uniform
+      const int e = i * 32 + lane;
+      if (e < m) {
+#pragma unroll
+        for (int t = 0; t < C; ++t) acc[t] = __sad(x[i], q[t][e], acc[t]);
+      }
+    }
+  } else {
+    const int nvec = m / H::kPer;
+#pragma unroll
+    for (int i = 0; i < H::NR; ++i) {
+      if (i * 32 >= nvec) break;  // warp-uniform
+      const int v = i * 32 + lane;
+      if (v < nvec) {
+#pragma unroll
+        for (int h = 0; h < H::kPer / 4; ++h) {
+          int4 qv[C];
+#pragma unroll
+          for (int t = 0; t < C; ++t) qv[t] = reinterpret_cast<const int4*>(q[t] + v * H::kPer)[h];
+          const int e = i * H::kPer + 4 * h;
+#pragma unroll
+          for (int t = 0; t < C; ++t) {
+            acc[t] = __sad(x[e], qv[t].x, acc[t]);
+            acc[t] = __sad(x[e + 1], qv[t].y, acc[t]);
+            acc[t] = __sad(x[e + 2], qv[t].z, acc[t]);
+            acc[t] = __sad(x[e + 3], qv[t].w, acc[t]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Insert key into query j's list of the group under its shared-memory lock,
+// unless it is listed or no longer below the list's cut (warp-uniform key
+// and j); the cut becomes min(the list's worst, the running list's bound).
+__device__ __forceinline__ void insert_locked(unsigned long long* list, unsigned long long* cut,
+                                              int* lock, int k, unsigned long long key, int lane) {
+  if (lane == 0) {
+    while (atomicCAS(lock, 0, 1) != 0) {
+    }
+  }
+  __syncwarp();
+  __threadfence_block();
+  const unsigned long long c = *reinterpret_cast<volatile unsigned long long*>(cut);
+  if (key < c) {
+    const unsigned long long last = insert_key(list, k, key, lane, c);
+    if (lane == 0) *cut = last < c ? last : c;
+  }
+  __threadfence_block();
+  __syncwarp();
+  if (lane == 0) atomicExch(lock, 0);
+}
+
+// Phase 2 for one (group, window) item of the grouped path, by a block of
+// kGroupThreads: see the note at the top.  tally[0] and [1] count the
+// warp's row loads and pairs.
+template <typename T, int MODE>
+__device__ void group_item(const Window<T>& a, int grp, int w, unsigned long long* smem,
+                           unsigned long long (&tally)[2]) {
+  using H = Held<T, MODE>;
+  constexpr int NT = kGroupThreads, NW = kGroupWarps;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int k = a.k;
+  const int m = a.m;
+  const int q0 = grp * a.group;
+  const int gq = min(a.group, a.q - q0);
+  const int first = w << a.shift;
+  const int rows = min(1 << a.shift, a.n - first);
+  const int nseg = gq * a.chunks;
+  const GroupLayout l = group_layout(m, k, a.group, 1 << a.shift, a.chunks);
+  char* base = reinterpret_cast<char*>(smem);
+  unsigned long long* lists = smem;
+  unsigned long long* cut = reinterpret_cast<unsigned long long*>(base + l.cut);
+  unsigned long long* mask = reinterpret_cast<unsigned long long*>(base + l.mask);
+  int* qs = reinterpret_cast<int*>(base + l.qs);
+  int* lock = reinterpret_cast<int*>(base + l.lock);
+  int* seg_start = reinterpret_cast<int*>(base + l.seg_start);
+  int* seg_pre = reinterpret_cast<int*>(base + l.seg_pre);
+
+  // 1. empty lists, each query's bound, clear masks; the group's queries;
+  // the length and start of each (query, chunk) segment of window w
+  for (int i = threadIdx.x; i < gq * k; i += NT) lists[i] = kEmpty;
+  for (int j = threadIdx.x; j < gq; j += NT) {
+    cut[j] = __ldcg(a.lists + static_cast<size_t>(q0 + j) * k + k - 1);
+    lock[j] = 0;
+  }
+  for (int r = threadIdx.x; r < rows; r += NT) mask[r] = 0ull;
+  const int* qsrc = a.queries + static_cast<size_t>(q0) * m;
+  if ((m & 3) == 0 && (reinterpret_cast<uintptr_t>(a.queries) & 15) == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(qsrc);
+    int4* d4 = reinterpret_cast<int4*>(qs);
+    const int n4 = gq * m / 4;
+    int i = threadIdx.x;
+    for (; i + 3 * NT < n4; i += 4 * NT) {  // 4 loads in flight
+      int4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __ldg(s4 + i + u * NT);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) d4[i + u * NT] = v[u];
+    }
+    for (; i < n4; i += NT) d4[i] = __ldg(s4 + i);
+  } else {
+    for (int i = threadIdx.x; i < gq * m; i += NT) qs[i] = __ldg(qsrc + i);
+  }
+  for (int s = threadIdx.x; s < nseg; s += NT) {
+    const int j = s / a.chunks, c = s % a.chunks;
+    const unsigned short* o =
+        a.offsets + (static_cast<size_t>(q0 + j) * a.chunks + c) * (a.windows + 1) + w;
+    const int lo = __ldcg(o);
+    seg_pre[s] = static_cast<int>(__ldcg(o + 1)) - lo;
+    seg_start[s] = c * kPart + lo;
+  }
+  __syncthreads();
+  const int total = block_exclusive_scan<NT>(seg_pre, nseg, reinterpret_cast<int*>(base + l.wsum));
+
+  // 2. every id of the item sets its (row, query) bit: a query's repeats of
+  // an id set one bit, so each distinct pair is computed once
+  for (int p0 = threadIdx.x; p0 < total; p0 += kUnroll * NT) {  // 4 loads in flight
+    int id[kUnroll], jj[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + u * NT;
+      int lo = 0, hi = nseg - 1;  // the last segment starting at or before p
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (seg_pre[mid] <= p) lo = mid; else hi = mid - 1;
+      }
+      jj[u] = lo / a.chunks;
+      id[u] = p < total ? __ldcg(a.ids + static_cast<size_t>(q0 + jj[u]) * a.ctot + seg_start[lo] +
+                                 (p - seg_pre[lo]))
+                        : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (id[u] >= 0) atomicOr(mask + (id[u] - first), 1ull << jj[u]);
+  }
+  __syncthreads();
+
+  // 3. warp w takes the named rows among w, w + NW, ..., one at a time, the
+  // next one's loads in flight while this one's pairs are computed, up to 4
+  // of its queries a round
+  int at = warp;  // the first of the 32 candidate rows the ballot covers
+  unsigned pend = __ballot_sync(kFull, at + NW * lane < rows && mask[at + NW * lane] != 0ull);
+  auto next_row = [&]() -> int {
+    while (pend == 0u) {
+      at += 32 * NW;
+      if (at >= rows) return -1;
+      pend = __ballot_sync(kFull, at + NW * lane < rows && mask[at + NW * lane] != 0ull);
+    }
+    const int i = __ffs(pend) - 1;
+    pend &= pend - 1u;
+    return at + NW * i;
+  };
+  int nxt = next_row();
+  typename H::Raw raw[H::NR];
+  load_held<T, MODE>(a.dataset, nxt < 0 ? -1 : first + nxt, m, lane, raw);
+  unsigned loads = 0, pairs = 0;
+  while (nxt >= 0) {
+    const int cur = nxt;
+    const unsigned long long named = mask[cur];
+    unsigned lo = static_cast<unsigned>(named), hi = static_cast<unsigned>(named >> 32);
+    int x[H::NE];
+    unpack_held<T, MODE>(raw, x);
+    nxt = next_row();
+    load_held<T, MODE>(a.dataset, nxt < 0 ? -1 : first + nxt, m, lane, raw);
+    ++loads;
+    while (lo | hi) {  // warp-uniform
+      int jq[kUnroll], acc[kUnroll] = {0, 0, 0, 0};
+#pragma unroll
+      for (int t = 0; t < kUnroll; ++t) {  // the next named query, lowest first
+        const bool low = lo != 0u;
+        const unsigned word = low ? lo : hi;
+        jq[t] = word ? __ffs(word) - (low ? 1 : -31) : -1;
+        const unsigned rest = word & (word - 1u);
+        lo = low ? rest : lo;
+        hi = low ? hi : rest;
+      }
+      const int c = 1 + (jq[1] >= 0) + (jq[2] >= 0) + (jq[3] >= 0);
+      switch (c) {
+        case 1: pair_l1<T, MODE, 1>(x, jq, qs, m, lane, acc); break;
+        case 2: pair_l1<T, MODE, 2>(x, jq, qs, m, lane, acc); break;
+        case 3: pair_l1<T, MODE, 3>(x, jq, qs, m, lane, acc); break;
+        default: pair_l1<T, MODE, 4>(x, jq, qs, m, lane, acc); break;
+      }
+      pairs += c;
+      const int g = lane >> 3;
+      const int jg = g == 0 ? jq[0] : g == 1 ? jq[1] : g == 2 ? jq[2] : jq[3];
+      const int d = reduce4(acc, lane);
+      const unsigned long long key = make_key(d, first + cur);
+      unsigned pass = __ballot_sync(
+          kFull, (lane & 7) == 0 && jg >= 0 &&
+                     key < *reinterpret_cast<volatile unsigned long long*>(cut + (jg < 0 ? 0 : jg)));
+      while (pass) {
+        const int src = __ffs(pass) - 1;
+        pass &= pass - 1;
+        const unsigned long long kb = __shfl_sync(kFull, key, src);
+        const int jb = __shfl_sync(kFull, jg, src);
+        insert_locked(lists + jb * k, cut + jb, lock + jb, k, kb, lane);
+      }
+    }
+  }
+  tally[0] += loads;
+  tally[1] += pairs;
+  __syncthreads();
+
+  // 4. each query's list into its running list, under the query's lock
+  for (int j = warp; j < gq; j += NW) {
+    if (lists[j * k] == kEmpty) continue;  // warp-uniform
+    unsigned long long* run_list = a.lists + static_cast<size_t>(q0 + j) * k;
+    unsigned long long* sc = reinterpret_cast<unsigned long long*>(base + l.scratch) + warp * 2 * k;
+    if (lane == 0) {
+      while (atomicCAS(a.locks + q0 + j, 0, 1) != 0) __nanosleep(64);
+    }
+    __syncwarp();
+    __threadfence();
+    for (int i = lane; i < k; i += 32) {
+      sc[i] = lists[j * k + i];
+      sc[k + i] = __ldcg(run_list + i);
+    }
+    __syncwarp();
+    warp_merge(sc, 2, k, lane, run_list, nullptr, nullptr);
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) atomicExch(a.locks + q0 + j, 0);
+  }
+}
+
 // Dynamic shared memory of the windowed kernel: phase 1's chunk, bins and
 // warp sums, or phase 2's lists (8 warps' and the running one), query,
 // gathered ids and segments, whichever is larger.
@@ -598,29 +993,46 @@ size_t window_smem_bytes(int m, int k) {
   return part > item ? part : item;
 }
 
+// The grouped kernel's: phase 1's or a grouped item's (group_layout).
+size_t group_smem_bytes(int m, int k, int g, int rows, int chunks) {
+  const size_t part = sizeof(int) * (kPart + kMaxWindows + kGroupWarps);
+  const size_t item = group_layout(m, k, g, rows, chunks).bytes;
+  return part > item ? part : item;
+}
+
 template <typename T, int MODE, int PATH>
-__global__ void __launch_bounds__(kThreads) rerank_slice_kernel(const Window<T> a) {
-  static_assert(PATH == kWindowed, "the sliced path has its own kernel above");
+__global__ void __launch_bounds__(PATH == kGrouped ? kGroupThreads : kThreads)
+    rerank_slice_kernel(const Window<T> a) {
+  static_assert(PATH == kWindowed || PATH == kGrouped, "the sliced path has its own kernel above");
+  constexpr int NT = PATH == kGrouped ? kGroupThreads : kThreads;
   extern __shared__ unsigned long long smem[];
   __shared__ int s_item[3];  // ticket, then segments and ids of the item
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const size_t at = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
+  const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;
+  if (stamp) {
+    a.stats[0] = 0ull;
+    a.stats[1] = 0ull;
+    a.stats[2] = globaltimer();
+  }
+  const size_t at = static_cast<size_t>(blockIdx.x) * NT + threadIdx.x;
+  const size_t stride = static_cast<size_t>(gridDim.x) * NT;
   for (size_t i = at; i < static_cast<size_t>(a.q) * a.k; i += stride) a.lists[i] = kEmpty;
   for (size_t i = at; i < static_cast<size_t>(a.q); i += stride) a.locks[i] = 0;
   if (at == 0) *a.ticket = 0u;
   {
     int* buf = reinterpret_cast<int*>(smem);
     for (int t = blockIdx.x; t < a.q * a.chunks; t += gridDim.x)
-      partition_chunk(a, t / a.chunks, t % a.chunks, buf, buf + kPart, buf + kPart + kMaxWindows);
+      partition_chunk<T, NT>(a, t / a.chunks, t % a.chunks, buf, buf + kPart,
+                             buf + kPart + kMaxWindows);
   }
   grid.sync();
+  if (stamp) a.stats[3] = globaltimer();
 
-  int* qs = reinterpret_cast<int*>(smem + (kWarps + 1) * a.k);
-  int* sid = qs + a.m;
-  int* seg_start = sid + kPart;
-  int* seg_pre = seg_start + kMaxChunks;
-  const unsigned items = static_cast<unsigned>(a.q) * a.windows;
+  // items in window-major order: item t is (t % groups, t / groups)
+  const unsigned groups = PATH == kGrouped ? static_cast<unsigned>((a.q + a.group - 1) / a.group)
+                                           : static_cast<unsigned>(a.q);
+  const unsigned items = groups * a.windows;
+  unsigned long long tally[2] = {0ull, 0ull};  // row loads, pairs
   unsigned next = 0;
   if (threadIdx.x == 0) next = atomicAdd(a.ticket, 1u);
   for (;;) {
@@ -629,14 +1041,32 @@ __global__ void __launch_bounds__(kThreads) rerank_slice_kernel(const Window<T> 
     const unsigned t = static_cast<unsigned>(s_item[0]);
     if (t >= items) break;
     if (threadIdx.x == 0) next = atomicAdd(a.ticket, 1u);  // the next item's, early
-    rerank_item<T, MODE>(a, static_cast<int>(t % a.q), static_cast<int>(t / a.q), smem, qs, sid,
-                         seg_start, seg_pre, s_item + 1);
+    if constexpr (PATH == kGrouped) {
+      group_item<T, MODE>(a, static_cast<int>(t % groups), static_cast<int>(t / groups), smem,
+                          tally);
+    } else {
+      int* qs = reinterpret_cast<int*>(smem + (kWarps + 1) * a.k);
+      int* sid = qs + a.m;
+      int* seg_start = sid + kPart;
+      int* seg_pre = seg_start + kMaxChunks;
+      rerank_item<T, MODE>(a, static_cast<int>(t % a.q), static_cast<int>(t / a.q), smem, qs, sid,
+                           seg_start, seg_pre, s_item + 1);
+      if (threadIdx.x == 0) {  // each id of the item loaded its row for one pair
+        tally[0] += static_cast<unsigned>(s_item[2]);
+        tally[1] += static_cast<unsigned>(s_item[2]);
+      }
+    }
     __syncthreads();
   }
+  if (threadIdx.x % 32 == 0 && tally[1] != 0ull) {
+    atomicAdd(a.stats, tally[0]);
+    atomicAdd(a.stats + 1, tally[1]);
+  }
   grid.sync();
+  if (stamp) a.stats[4] = globaltimer();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = blockIdx.x * kWarps + warp; r < a.q; r += gridDim.x * kWarps) {
+  for (int r = blockIdx.x * (NT / 32) + warp; r < a.q; r += gridDim.x * (NT / 32)) {
     for (int j = lane; j < a.k; j += 32) {
       const size_t o = static_cast<size_t>(r) * a.k + j;
       const unsigned long long key = __ldcg(a.lists + o);
@@ -644,6 +1074,7 @@ __global__ void __launch_bounds__(kThreads) rerank_slice_kernel(const Window<T> 
       a.iout[o] = key == kEmpty ? -1 : static_cast<int>(key & 0xffffffffu);
     }
   }
+  if (stamp) a.stats[5] = globaltimer();
 }
 
 template <typename T>
@@ -655,6 +1086,14 @@ WindowKernel<T> pick_window(int m, int vec) {
   if (!vec) return rerank_slice_kernel<T, kScalar, kWindowed>;
   if (m / kPer <= 32) return rerank_slice_kernel<T, kRegVec, kWindowed>;
   return rerank_slice_kernel<T, kSharedVec, kWindowed>;
+}
+
+// Grouped items take int32 rows only: on int16 rows the (query, window)
+// item, which reads half the bytes, won (fused_rerank.plan_group).
+WindowKernel<int32_t> pick_group(int m, int vec) {
+  if (!vec) return rerank_slice_kernel<int32_t, kScalar, kGrouped>;
+  if (m / 4 <= 32) return rerank_slice_kernel<int32_t, kRegVec, kGrouped>;
+  return rerank_slice_kernel<int32_t, kSharedVec, kGrouped>;
 }
 
 template <typename T>
@@ -726,16 +1165,38 @@ int window_resident(int m, int k, int vec) {
   return sms * per_sm;
 }
 
+// Blocks of the grouped kernel for (m, vec) at smem bytes of dynamic shared
+// memory (above 48 KB by Hopper's opt-in) the current device keeps resident
+// at once; < 0 is a CUDA error.
+int group_resident(int m, int vec, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  const WindowKernel<int32_t> kernel = pick_group(m, vec);
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGroupThreads, smem)) !=
+          cudaSuccess) {
+    return -static_cast<int>(err);
+  }
+  return sms * per_sm;
+}
+
 // ids (q, ctot) int32, reordered in place; work holds the windowed path's
-// workspace; grid at most window_resident blocks.
+// workspace, stats the 6 stats words; group 1 runs (query, window) items,
+// group > 1 (group, window) items, int32 rows only; grid at most the
+// resident blocks.
 template <typename T>
-int launch_window(const void* dataset, const void* queries, void* ids, void* work, void* dout,
-                  void* iout, int q, int n, int m, int ctot, int k, int vec, int shift,
-                  int windows, int grid, void* stream) {
+int launch_window(const void* dataset, const void* queries, void* ids, void* work, void* stats,
+                  void* dout, void* iout, int q, int n, int m, int ctot, int k, int vec, int shift,
+                  int windows, int group, int grid, void* stream) {
   const int chunks = (ctot + kPart - 1) / kPart;
-  if (work == nullptr || grid < 1 || shift < 0 || shift > 30 || windows < 1 ||
+  if (work == nullptr || stats == nullptr || grid < 1 || shift < 0 || shift > 30 || windows < 1 ||
       windows > kMaxWindows || chunks > kMaxChunks ||
-      (static_cast<long long>(windows) << shift) < n) {
+      (static_cast<long long>(windows) << shift) < n || group < 1 || group > kGroupMax ||
+      (group > 1 && (!std::is_same<T, int32_t>::value || (1 << shift) > kGroupRowsMax ||
+                     m > kGroupElems * 32))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Window<T> a;
@@ -752,6 +1213,7 @@ int launch_window(const void* dataset, const void* queries, void* ids, void* wor
   a.ticket = reinterpret_cast<unsigned*>(w);
   w += 16;
   a.offsets = reinterpret_cast<unsigned short*>(w);
+  a.stats = static_cast<unsigned long long*>(stats);
   a.q = q;
   a.n = n;
   a.m = m;
@@ -760,17 +1222,29 @@ int launch_window(const void* dataset, const void* queries, void* ids, void* wor
   a.shift = shift;
   a.windows = windows;
   a.chunks = chunks;
+  a.group = group;
+  WindowKernel<T> kernel = pick_window<T>(m, vec);
+  size_t smem = window_smem_bytes(m, k);
+  if constexpr (std::is_same<T, int32_t>::value) {
+    if (group > 1) {
+      kernel = pick_group(m, vec);
+      smem = group_smem_bytes(m, k, group, 1 << shift, chunks);
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = window_smem_bytes(m, k);
+  cfg.blockDim = dim3(group > 1 ? kGroupThreads : kThreads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, pick_window<T>(m, vec), a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -787,6 +1261,17 @@ extern "C" int fused_rerank_l2_bytes() {
   return bytes;
 }
 
+extern "C" int fused_rerank_smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess) {
+    return -static_cast<int>(err);
+  }
+  return bytes;
+}
+
 extern "C" int fused_rerank_window_resident_i32(int m, int k, int vec) {
   return window_resident<int32_t>(m, k, vec);
 }
@@ -794,20 +1279,24 @@ extern "C" int fused_rerank_window_resident_i16(int m, int k, int vec) {
   return window_resident<int16_t>(m, k, vec);
 }
 
+extern "C" int fused_rerank_group_resident_i32(int m, int vec, int smem) {
+  return group_resident(m, vec, smem);
+}
+
 extern "C" int fused_rerank_window_i32(const void* dataset, const void* queries, void* ids,
-                                       void* work, void* dout, void* iout, int q, int n, int m,
-                                       int ctot, int k, int vec, int shift, int windows, int grid,
-                                       void* stream) {
-  return launch_window<int32_t>(dataset, queries, ids, work, dout, iout, q, n, m, ctot, k, vec,
-                                shift, windows, grid, stream);
+                                       void* work, void* stats, void* dout, void* iout, int q,
+                                       int n, int m, int ctot, int k, int vec, int shift,
+                                       int windows, int group, int grid, void* stream) {
+  return launch_window<int32_t>(dataset, queries, ids, work, stats, dout, iout, q, n, m, ctot, k,
+                                vec, shift, windows, group, grid, stream);
 }
 
 extern "C" int fused_rerank_window_i16(const void* dataset, const void* queries, void* ids,
-                                       void* work, void* dout, void* iout, int q, int n, int m,
-                                       int ctot, int k, int vec, int shift, int windows, int grid,
-                                       void* stream) {
-  return launch_window<int16_t>(dataset, queries, ids, work, dout, iout, q, n, m, ctot, k, vec,
-                                shift, windows, grid, stream);
+                                       void* work, void* stats, void* dout, void* iout, int q,
+                                       int n, int m, int ctot, int k, int vec, int shift,
+                                       int windows, int group, int grid, void* stream) {
+  return launch_window<int16_t>(dataset, queries, ids, work, stats, dout, iout, q, n, m, ctot, k,
+                                vec, shift, windows, group, grid, stream);
 }
 
 extern "C" int fused_rerank_resident_i32(int m, int k, int vec) { return resident<int32_t>(m, k, vec); }

@@ -27,7 +27,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -81,15 +81,16 @@ def count_slots(site: str, n: int) -> None:
         SLOTS[site] += n
 
 
-def count_path(kernel: str, path: str, detail: int = 0) -> None:
+def count_path(kernel: str, path: str, detail: Any = 0) -> None:
     """Add one launch of ``kernel`` by ``path`` to ``PATHS``, under the lock,
-    and keep ``(path, detail)`` as the calling thread's last launch of it."""
+    and keep ``(path, detail)`` as the calling thread's last launch of it
+    (``detail``: what the kernel's wrapper says of the launch)."""
     with _LOCK:
         PATHS[kernel][path] += 1
     setattr(_LAST_PATH, kernel, (path, detail))
 
 
-def take_path(kernel: str) -> Optional[Tuple[str, int]]:
+def take_path(kernel: str) -> Optional[Tuple[str, Any]]:
     """``(path, detail)`` of the calling thread's last launch of ``kernel``
     since it last asked, or None: each launch is given out once."""
     return _LAST_PATH.__dict__.pop(kernel, None)

@@ -21,6 +21,18 @@ and the card's L2 size whether it runs, and with which windows.  It reorders
 the ids it is given (each row keeps its multiset of valid ids, so a second
 rerank of them gives the same answer): the served path hands the rerank ids
 it never reads again.
+
+A windowed item is (query, window), or, where ``plan_group`` picks G > 1,
+(G consecutive queries, window): the block keeps the G queries in shared
+memory, each distinct (row, query) pair of the window sets one bit of the
+row's mask, and a warp loads each named row once into registers and sums it
+against every query that names it.  Exactness rests on the same per-list
+dedup and merges as the (query, window) item (the kernel's note); the item
+is bound by its row loads, so the rule groups only int32 rows wide enough
+that a load saves ``WINDOW_GROUP_BYTES`` on average (int16 rows are never
+grouped).  A windowed launch's ``_build.take_path`` detail holds its
+counters; ``rerank_attrs`` reads them for a traced run: the group, row
+loads, pairs and phase times.
 """
 from __future__ import annotations
 
@@ -35,7 +47,8 @@ from . import _build
 
 __all__ = ["BIG_DIST", "fused_rerank_plain", "fused_rerank_cuda", "empty_result",
            "plan_slices", "slice_slots", "resident_blocks", "WindowPlan", "plan_windows",
-           "window_budget", "window_smem_bytes", "window_workspace_bytes"]
+           "window_budget", "window_smem_bytes", "window_workspace_bytes", "plan_group",
+           "group_reuse", "group_smem_bytes", "plan_call", "rerank_attrs"]
 
 BIG_DIST = np.iinfo(np.int32).max // 2
 _EMPTY_KEY = BIG_DIST << 32  # (BIG_DIST, -1) with the id stored as id + 1
@@ -65,6 +78,28 @@ WARPS = 8
 WINDOW_L2_SHARES = (1 / 8, 1 / 2)
 WINDOW_REUSE_MIN = 4.0
 WINDOW_WORKSPACE_LIMIT = 64 << 20
+# The grouped item (csrc/fused_rerank.cu's kGroupMax, kGroupRowsMax,
+# kGroupElems and kGroupWarps): queries an item, rows a window, values of a
+# row at most, warps a block.  WINDOW_SMEM_LIMIT is an H100 block's opt-in
+# shared memory (232,448 bytes) less 1 KB for the kernel's static shared
+# memory; it holds the group's queries.  The rule (plan_group), from the
+# kernel timed alone on an H100 80GB HBM3 at 1,024 queries of 50,600 valid
+# ids in 131,072 slots (PERF.md section 6): a grouped item's time
+# follows its row loads, a (query, window) item's its pairs' bytes, so
+# grouping pays where a row load saves enough bytes: int32 rows of at least
+# GROUP_ROW_BYTES_MIN bytes (1,920-byte rows won at 16.1 K bytes saved a
+# load, 1,024-byte ones lost at 8.6 K; int16 rows lost at 1,920 bytes and
+# 8.1 K) and an expected reuse x row bytes of at least WINDOW_GROUP_BYTES
+# (3,840-byte rows won by 16% at 1.44 x 3,840 = 5,530; 2,048-byte rows lost
+# by 23% at 2.38 x 2,048 = 4,870).  The rule's p = ctot / n counts slots,
+# padding included, not valid ids: both readings were taken at a slot fill
+# of about 39% (50,600 of 131,072), and the threshold holds at about that
+# fill (gist1m's served batches; no cell lies near the line).
+WINDOW_GROUP_MAX, GROUP_ROWS_MAX, GROUP_DIM_MAX = 64, 4096, 1024
+GROUP_WARPS = 16
+WINDOW_SMEM_LIMIT = 232_448 - 1024
+GROUP_ROW_BYTES_MIN = 1536
+WINDOW_GROUP_BYTES = 5200
 
 
 def empty_result(q: int, k: int, device):
@@ -130,15 +165,21 @@ def slice_slots(ctot: int, slices: int, s: int) -> np.ndarray:
 @dataclass(frozen=True)
 class WindowPlan:
     """The windowed path's cut of one call: windows of ``2^shift`` rows,
-    ``chunks`` partition chunks a row, the workspace's bytes."""
+    ``chunks`` partition chunks a row, the workspace's bytes, and ``group``
+    queries an item (1: (query, window) items)."""
     shift: int
     windows: int
     chunks: int
     workspace_bytes: int
+    group: int = 1
 
     @property
     def rows(self) -> int:
         return 1 << self.shift
+
+    def items(self, q: int) -> int:
+        """Phase 2's items for ``q`` queries: (group, window) pairs."""
+        return -(-q // self.group) * self.windows
 
 
 def window_smem_bytes(m: int, k: int) -> int:
@@ -148,6 +189,47 @@ def window_smem_bytes(m: int, k: int) -> int:
     part = 4 * (WINDOW_PART + MAX_WINDOWS + WARPS)
     item = 8 * (WARPS + 1) * k + 4 * (m + WINDOW_PART + 2 * MAX_WINDOW_CHUNKS + 1)
     return max(part, item)
+
+
+def group_smem_bytes(m: int, k: int, group: int, rows: int, chunks: int) -> int:
+    """Dynamic shared memory of a grouped block (the kernel's
+    ``group_smem_bytes``): the partition's, or a (group, window) item's lists
+    and cuts, merge scratch, row masks, queries, locks, segments and warp
+    sums, the larger."""
+    segs = group * chunks
+    b = 8 * (group * k + group + GROUP_WARPS * 2 * k + rows)
+    b = -(-b // 16) * 16
+    b += 4 * (group * m + group + segs + segs + 1 + GROUP_WARPS)
+    return max(4 * (WINDOW_PART + MAX_WINDOWS + GROUP_WARPS), b)
+
+
+def group_reuse(group: int, p: float) -> float:
+    """Expected (query, row) pairs a row load serves in an item of ``group``
+    queries that each name a window's row with probability ``p``."""
+    if p <= 0:
+        return 1.0
+    p = min(p, 1.0)
+    return group * p / (1 - (1 - p) ** group)
+
+
+def plan_group(q: int, n: int, m: int, itemsize: int, ctot: int, k: int,
+               smem_limit: int) -> int:
+    """Queries an item of the windowed path: the largest G <= Q (at most
+    ``WINDOW_GROUP_MAX``) whose block fits ``smem_limit`` bytes of shared
+    memory at windows of ``GROUP_ROWS_MAX`` rows, where the rows are int32,
+    at least ``GROUP_ROW_BYTES_MIN`` bytes, and a row load is expected to
+    save ``WINDOW_GROUP_BYTES`` (``group_reuse(G, ctot / n)`` x row bytes);
+    else 1, (query, window) items."""
+    row_bytes = m * itemsize
+    if (q < 2 or n == 0 or m > GROUP_DIM_MAX or itemsize != 4
+            or row_bytes < GROUP_ROW_BYTES_MIN):
+        return 1
+    chunks = -(-ctot // WINDOW_PART)
+    for group in range(min(q, WINDOW_GROUP_MAX), 1, -1):
+        if group_smem_bytes(m, k, group, GROUP_ROWS_MAX, chunks) <= smem_limit:
+            saved = group_reuse(group, ctot / n) * row_bytes
+            return group if saved >= WINDOW_GROUP_BYTES else 1
+    return 1
 
 
 def window_workspace_bytes(q: int, k: int, windows: int, chunks: int) -> int:
@@ -166,14 +248,22 @@ def window_budget(q: int, l2_bytes: int, resident: int) -> int:
 
 def plan_windows(q: int, n: int, m: int, itemsize: int, ctot: int, k: int,
                  l2_bytes: int, resident: int,
-                 rows: Optional[int] = None) -> Optional[WindowPlan]:
-    """The windowed path's plan, or None where the rule keeps the sliced path
-    (``resident``: the windowed kernel's resident blocks).
+                 rows: Optional[int] = None, group: int = 1) -> Optional[WindowPlan]:
+    """The windowed path's plan at ``group`` queries an item, or None where
+    the rule keeps the sliced path (``group`` 1) or the group cannot be cut
+    (``resident``: the windowed kernel's resident blocks, read at ``group``
+    1 only).  A group (> 1) takes int32 rows only, and raises on others.
 
     ``rows`` (a power of two) fixes the window and forces the path (the
     tests use it); it raises where the kernel cannot take the cut.
     """
     chunks = -(-ctot // WINDOW_PART)
+    if group > 1 and (group > WINDOW_GROUP_MAX or m > GROUP_DIM_MAX):
+        raise ValueError(f"fused_rerank: a group of {group} queries of {m} values exceeds "
+                         f"{WINDOW_GROUP_MAX} and {GROUP_DIM_MAX}")
+    if group > 1 and itemsize != 4:
+        raise ValueError(f"fused_rerank: grouped items take int32 rows, got {itemsize}-byte "
+                         "values")
     if rows is not None:
         if rows < 1 or rows & (rows - 1):
             raise ValueError(f"fused_rerank: window rows must be a power of two, got {rows}")
@@ -181,11 +271,29 @@ def plan_windows(q: int, n: int, m: int, itemsize: int, ctot: int, k: int,
         if windows > MAX_WINDOWS or chunks > MAX_WINDOW_CHUNKS:
             raise ValueError(f"fused_rerank: {windows} windows of {rows} rows and {chunks} "
                              f"chunks exceed {MAX_WINDOWS} and {MAX_WINDOW_CHUNKS}")
-        if window_smem_bytes(m, k) > SMEM_LIMIT:
-            raise ValueError(f"fused_rerank windowed kernel: k={k}, m={m} need "
-                             f"{window_smem_bytes(m, k)} B of shared memory (> {SMEM_LIMIT})")
+        if group > 1:
+            if rows > GROUP_ROWS_MAX:
+                raise ValueError(f"fused_rerank: grouped windows of {rows} rows exceed "
+                                 f"{GROUP_ROWS_MAX}")
+            smem, limit = group_smem_bytes(m, k, group, rows, chunks), WINDOW_SMEM_LIMIT
+        else:
+            smem, limit = window_smem_bytes(m, k), SMEM_LIMIT
+        if smem > limit:
+            raise ValueError(f"fused_rerank windowed kernel: k={k}, m={m}, group={group} need "
+                             f"{smem} B of shared memory (> {limit})")
         return WindowPlan(rows.bit_length() - 1, windows, chunks,
-                          window_workspace_bytes(q, k, windows, chunks))
+                          window_workspace_bytes(q, k, windows, chunks), group)
+    if group > 1:
+        # grouped windows hold GROUP_ROWS_MAX rows, the best of 512 to 4,096
+        # at 1,024 x 960 over 1 M rows (PERF.md section 6); plan_group
+        # decides whether the path pays
+        windows = -(-n // GROUP_ROWS_MAX)
+        nbytes = window_workspace_bytes(q, k, windows, chunks)
+        if (windows < 2 or windows > MAX_WINDOWS or chunks > MAX_WINDOW_CHUNKS
+                or nbytes > WINDOW_WORKSPACE_LIMIT
+                or group_smem_bytes(m, k, group, GROUP_ROWS_MAX, chunks) > WINDOW_SMEM_LIMIT):
+            return None
+        return WindowPlan(GROUP_ROWS_MAX.bit_length() - 1, windows, chunks, nbytes, group)
     if (n == 0 or q * ctot < WINDOW_REUSE_MIN * n or chunks > MAX_WINDOW_CHUNKS
             or window_smem_bytes(m, k) > SMEM_LIMIT):
         return None
@@ -203,17 +311,19 @@ def plan_windows(q: int, n: int, m: int, itemsize: int, ctot: int, k: int,
 _ENTRY = {torch.int32: "i32", torch.int16: "i16"}
 # dataset, queries, ids, work, dout, iout, q, n, m, ctot, k, vec, slices,
 # stream
-# windowed: dataset, queries, ids, work, dout, iout, q, n, m, ctot, k, vec,
-# shift, windows, grid, stream
+# windowed: dataset, queries, ids, work, stats, dout, iout, q, n, m, ctot,
+# k, vec, shift, windows, group, grid, stream
 _build.declare("fused_rerank", {
     **{f"fused_rerank_{s}": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
        for s in _ENTRY.values()},
-    **{f"fused_rerank_window_{s}": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    **{f"fused_rerank_window_{s}": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
        + [ctypes.c_void_p] for s in _ENTRY.values()},
     **{f"fused_rerank_{w}resident_{s}": [ctypes.c_int] * 3
        for s in _ENTRY.values() for w in ("", "window_")},
-    "fused_rerank_l2_bytes": []})
+    "fused_rerank_group_resident_i32": [ctypes.c_int] * 3,
+    "fused_rerank_l2_bytes": [], "fused_rerank_smem_optin": []})
 _RESIDENT = {}  # (entry, device, ...) -> blocks resident at once, or L2 bytes
+STATS_WORDS = 6  # the windowed launch's stats words (csrc/fused_rerank.cu)
 
 
 def _device_query(key, device: int, name: str, *args) -> int:
@@ -227,10 +337,17 @@ def _device_query(key, device: int, name: str, *args) -> int:
     return got
 
 
-def resident_blocks(device: int, dtype, m: int, k: int, vec: int, windowed: bool = False) -> int:
+def resident_blocks(device: int, dtype, m: int, k: int, vec: int, windowed: bool = False,
+                    group_smem: int = 0) -> int:
     """Blocks of the kernel for (dtype, m, k, vec) that CUDA device ``device``
-    keeps resident at once (the sliced kernel's, or with ``windowed`` the
-    windowed one's): SMs x blocks an SM, read from the device once."""
+    keeps resident at once (the sliced kernel's, with ``windowed`` the
+    windowed one's, with ``group_smem`` the grouped one's at that many bytes
+    of shared memory, int32 rows only): SMs x blocks an SM, read from the
+    device once."""
+    if group_smem:
+        entry = "fused_rerank_group_resident_i32"
+        return _device_query((entry, device, dtype, m, vec, group_smem), device, entry, m, vec,
+                             group_smem)
     entry = f"fused_rerank_{'window_' if windowed else ''}resident_{_ENTRY[dtype]}"
     return _device_query((entry, device, dtype, m, k, vec), device, entry, m, k, vec)
 
@@ -240,27 +357,70 @@ def l2_bytes(device: int) -> int:
     return _device_query(("l2", device), device, "fused_rerank_l2_bytes")
 
 
+def smem_optin(device: int) -> int:
+    """Shared memory a grouped block of CUDA device ``device`` may take, in
+    bytes: the device's opt-in less 1 KB, read once, at most
+    ``WINDOW_SMEM_LIMIT``."""
+    return min(WINDOW_SMEM_LIMIT,
+               _device_query(("smem", device), device, "fused_rerank_smem_optin") - 1024)
+
+
 def _vec(dataset) -> int:
     """1 where the kernel reads the rows as aligned 16-byte vectors."""
     return int(dataset.shape[1] % (16 // dataset.element_size()) == 0
                and dataset.data_ptr() % 16 == 0)
 
 
-def _plan(dataset, q, ctot, k, device, window_rows=None):
+def plan_call(dataset, q: int, ctot: int, k: int, window_rows=None, group=None):
+    """The windowed plan a call on CUDA ``dataset`` takes (None: the sliced
+    path): ``plan_group``'s G and its windows, or at G = 1 where that cannot
+    be cut; ``window_rows`` and ``group`` force them."""
+    device = dataset.get_device()
     n, m = dataset.shape
+    isz = dataset.element_size()
     if window_rows is not None:
-        return plan_windows(q, n, m, dataset.element_size(), ctot, k, 0, 0, window_rows)
-    return plan_windows(q, n, m, dataset.element_size(), ctot, k, l2_bytes(device),
+        return plan_windows(q, n, m, isz, ctot, k, 0, 0, window_rows, group or 1)
+    if group is not None and group > 1:   # grouped windows need no residency
+        plan = plan_windows(q, n, m, isz, ctot, k, 0, 0, group=group)
+        if plan is None:
+            raise ValueError(f"fused_rerank: no windowed plan at a group of {group} for "
+                             f"({q}, {ctot}) slots over {n} rows")
+        return plan
+    plan = plan_windows(q, n, m, isz, ctot, k, l2_bytes(device),
                         resident_blocks(device, dataset.dtype, m, k, _vec(dataset), windowed=True))
+    if plan is None or group is not None:
+        return plan
+    g = plan_group(q, n, m, isz, ctot, k, smem_optin(device))
+    return (plan_windows(q, n, m, isz, ctot, k, 0, 0, group=g) if g > 1 else None) or plan
 
 
-def fused_rerank_cuda(dataset, queries, ids, k: int, slices=None, window_rows=None):
+def rerank_attrs(path: str, detail) -> dict:
+    """``stage_rerank``'s attributes of the launch ``_build.take_path`` gave
+    as ``(path, detail)``: the windows, and the windowed launch's ``group``,
+    the rows it loaded (``row_loads``), the (query, row) pairs it computed
+    (``pairs``) and the device time of its three phases (``partition_us``,
+    ``items_us``, ``output_us``: block 0's clock); zeros off the windowed
+    path.  A windowed launch's counters are read from the card, which waits
+    for the launch: only a traced run asks."""
+    if path != "windowed":
+        return {"windows": 0, "group": 0, "row_loads": 0, "pairs": 0,
+                "partition_us": 0.0, "items_us": 0.0, "output_us": 0.0}
+    windows, group, stats = detail
+    loads, pairs, t0, t1, t2, t3 = (int(v) for v in stats.tolist())
+    return {"windows": windows, "group": group, "row_loads": loads, "pairs": pairs,
+            "partition_us": (t1 - t0) / 1e3, "items_us": (t2 - t1) / 1e3,
+            "output_us": (t3 - t2) / 1e3}
+
+
+def fused_rerank_cuda(dataset, queries, ids, k: int, slices=None, window_rows=None, group=None):
     """Launch the CUDA kernel on CUDA tensors; raises on what it cannot take.
 
-    ``plan_windows`` picks the path; the windowed one reorders ``ids`` in
-    place (see the module's note).  ``slices`` forces the sliced path at that
-    many slices, ``window_rows`` the windowed one at windows of that many
-    rows (the tests use both); by default the plans pick for the card.
+    ``plan_windows`` and ``plan_group`` pick the path; the windowed one
+    reorders ``ids`` in place (see the module's note).  ``slices`` forces
+    the sliced path at that many slices, ``window_rows`` the windowed one at
+    windows of that many rows, ``group`` its items at that many queries
+    (1: (query, window) items); the tests use them.  By default the plans
+    pick for the card.
     """
     if dataset.dtype not in _ENTRY:
         raise TypeError(f"fused_rerank: dataset must be int32 or int16, got {dataset.dtype}")
@@ -285,16 +445,23 @@ def fused_rerank_cuda(dataset, queries, ids, k: int, slices=None, window_rows=No
     vec = _vec(dataset)
     dout = torch.empty((q, k), dtype=torch.int32, device=ids.device)
     iout = torch.empty((q, k), dtype=torch.int32, device=ids.device)
-    plan = None if slices is not None else _plan(dataset, q, ctot, k, device, window_rows)
+    plan = None if slices is not None else plan_call(dataset, q, ctot, k, window_rows, group)
     if plan is not None:
         work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=ids.device)
-        grid = min(resident_blocks(device, dataset.dtype, m, k, vec, windowed=True),
-                   max(q * plan.chunks, q * plan.windows))
+        stats = torch.empty(STATS_WORDS, dtype=torch.int64, device=ids.device)
+        if plan.group > 1:
+            resident = resident_blocks(
+                device, dataset.dtype, m, k, vec,
+                group_smem=group_smem_bytes(m, k, plan.group, plan.rows, plan.chunks))
+        else:
+            resident = resident_blocks(device, dataset.dtype, m, k, vec, windowed=True)
+        grid = min(resident, max(q * plan.chunks, plan.items(q)))
         fn = _build.entry("fused_rerank", f"fused_rerank_window_{_ENTRY[dataset.dtype]}")
         _build.launch("fused_rerank", fn, device, dataset.data_ptr(), queries.data_ptr(),
-                      ids.data_ptr(), work.data_ptr(), dout.data_ptr(), iout.data_ptr(),
-                      q, n, m, ctot, k, vec, plan.shift, plan.windows, grid)
-        _build.count_path("fused_rerank", "windowed", plan.windows)
+                      ids.data_ptr(), work.data_ptr(), stats.data_ptr(), dout.data_ptr(),
+                      iout.data_ptr(), q, n, m, ctot, k, vec, plan.shift, plan.windows,
+                      plan.group, grid)
+        _build.count_path("fused_rerank", "windowed", (plan.windows, plan.group, stats))
         return dout, iout
     n_slices = plan_slices(
         q, ctot, resident_blocks(device, dataset.dtype, m, k, vec) if slices is None else 0, slices)

@@ -19,13 +19,13 @@ from ._build import LAUNCHES, count_slots, reset_launches
 from .fused_probe import (compact_gather, compact_gather_cuda, fused_probe_cuda,
                           fused_probe_plain, probe_extents_cuda)
 from .fused_probe import probe_extents as probe_extents_plain
-from .fused_rerank import fused_rerank_cuda, fused_rerank_plain
+from .fused_rerank import fused_rerank_cuda, fused_rerank_plain, rerank_attrs
 from .l1_distance import (l1_distance_cuda, l1_distance_plain,
                           l1_distance_rows_cuda, l1_distance_rows_plain)
 from .rw_hash import rw_hash_cuda, rw_hash_plain
 from .topk_merge import topk_merge_cuda, topk_merge_plain
 
-__all__ = ["LAUNCHES", "reset_launches", "topk_merge", "fused_rerank",
+__all__ = ["LAUNCHES", "reset_launches", "topk_merge", "fused_rerank", "rerank_attrs",
            "fused_probe", "probe_extents", "rw_hash", "l1_distance",
            "l1_distance_rows"]
 

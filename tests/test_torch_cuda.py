@@ -190,6 +190,115 @@ def test_fused_rerank_windowed_at_served_widths(card, dtype, m, q):
         _eq(_valid_multiset(work, n).cpu(), _valid_multiset(args[2], n).cpu())
 
 
+def _check_grouped(args, k, rows, group, msg=""):
+    """The grouped windowed path at (rows, group) against plain bit for bit,
+    the valid multiset of the ids kept, and its counters: one load a row of
+    an item, at most one pair a (query, row)."""
+    from repro_torch.kernels import _build
+    data, queries, ids = args
+    n = data.shape[0]
+    want = tfr.fused_rerank_plain(data, queries, ids, k)
+    work = ids.clone()
+    _build.take_path("fused_rerank")
+    got = tfr.fused_rerank_cuda(data, queries, work, k, window_rows=rows, group=group)
+    torch.cuda.synchronize()
+    _eq(want[0].cpu(), got[0].cpu(), msg)
+    _eq(want[1].cpu(), got[1].cpu(), msg)
+    _eq(_valid_multiset(work, n).cpu(), _valid_multiset(ids, n).cpu(), msg)
+    path, detail = _build.take_path("fused_rerank")
+    stats = ops.rerank_attrs(path, detail)
+    assert path == "windowed" and stats["group"] == group, msg
+    assert 0 <= stats["row_loads"] <= stats["pairs"], (msg, stats)
+    distinct = sum(int(torch.unique(r[(r >= 0) & (r < n)]).numel()) for r in ids.cpu())
+    assert stats["pairs"] == distinct, (msg, stats)
+    assert min(stats["partition_us"], stats["items_us"], stats["output_us"]) >= 0, (msg, stats)
+    assert _build.take_path("fused_rerank") is None
+    return stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 3, tfr.WINDOW_GROUP_MAX])
+@pytest.mark.parametrize("rows", [4, 64, tfr.GROUP_ROWS_MAX])
+@pytest.mark.parametrize("name", sorted(KERNEL_RERANK_CASES))
+def test_fused_rerank_grouped_matches_plain(card, name, rows, group):
+    """(group, window) items at forced groups (two queries, three, which
+    divides no case's Q but 3, and the most that fits the case's width) and
+    windows (a few rows, all rows in one) equal plain, the wrapped int32 sum
+    and the ties included; int16 cases are refused a group."""
+    data, queries, ids, k = KERNEL_RERANK_CASES[name]
+    m = data.shape[1]
+    chunks = -(-ids.shape[1] // tfr.WINDOW_PART)
+    group = max(g for g in range(2, group + 1)
+                if tfr.group_smem_bytes(m, k, g, rows, chunks) <= tfr.WINDOW_SMEM_LIMIT)
+    args = [_t(x).to(card) for x in (data, queries, ids)]
+    if data.dtype == np.int16:
+        with pytest.raises(ValueError, match="int32"):
+            tfr.fused_rerank_cuda(*args, k, window_rows=rows, group=group)
+        return
+    _check_grouped(args, k, rows, group)
+
+
+def _grouped_traps(rng, q, n, m, ctot, dtype, rows):
+    """``_window_traps``, and a row every query names, a query naming one
+    row many times, and a window no query names."""
+    data, queries, ids = _window_traps(rng, q, n, m, ctot, dtype, rows)
+    ids[:, ctot // 2] = rows + 3                     # every query names it
+    if q > 2:
+        ids[1, ctot // 3:] = 2 * rows + 5            # one row, many times
+    hole = (ids >= 3 * rows) & (ids < 4 * rows)       # window 3: no query's
+    ids[hole] = -1
+    return data, queries, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 64, 130])
+@pytest.mark.parametrize("m", [128, 960, 101])    # kRegVec, kSharedVec, kScalar
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+def test_fused_rerank_grouped_traps(card, dtype, m, q):
+    """The grouped path at each read mode, at Q from a partial group to
+    several, on the windowed traps: ids < 0 and >= n, repeats, copies in the
+    next chunk, window edges, a row every query names, a query naming one
+    row many times, a window no query names; at forced groups of 2, the
+    planner's most for the shape, and one dividing no Q; and by the rule.
+    int16 rows are refused a group and take the rule's (query, window) or
+    sliced path."""
+    rng = np.random.default_rng(q * 7 + m)
+    n, ctot, k, rows = 6000, tfr.WINDOW_PART + 700, 10, 256
+    args = [_t(x).to(card) for x in _grouped_traps(rng, q, n, m, ctot, dtype, rows)]
+    most = max(g for g in range(2, tfr.WINDOW_GROUP_MAX + 1)
+               if tfr.group_smem_bytes(m, k, g, rows, 2) <= tfr.WINDOW_SMEM_LIMIT)
+    for group in sorted({2, 7, most}):
+        if dtype == np.int16:
+            with pytest.raises(ValueError, match="int32"):
+                tfr.fused_rerank_cuda(args[0], args[1], args[2].clone(), k, window_rows=rows,
+                                      group=group)
+        else:
+            _check_grouped(args, k, rows, group, f"group={group}")
+    dev = card.index or 0
+    g = tfr.plan_group(q, n, m, np.dtype(dtype).itemsize, ctot, k, tfr.smem_optin(dev))
+    assert dtype == np.int32 or g == 1
+    want = tfr.fused_rerank_plain(*args, k)
+    got = tfr.fused_rerank_cuda(args[0], args[1], args[2].clone(), k, group=g)
+    _eq(want[0].cpu(), got[0].cpu(), f"rule group={g}")
+    _eq(want[1].cpu(), got[1].cpu(), f"rule group={g}")
+
+
+@pytest.mark.cuda
+def test_fused_rerank_grouped_largest_k(card):
+    """The largest k a group of 64 queries of 128 values takes (its lists
+    fill the opt-in shared memory; the wrapper's check of the sliced
+    kernel's holds too), over a full group and a partial one."""
+    dtype = np.int32
+    rng = np.random.default_rng(11)
+    n, m, q, ctot, rows, group = 3000, 128, 70, 2000, 512, tfr.WINDOW_GROUP_MAX
+    k = max(kk for kk in range(1, 1000)
+            if tfr.group_smem_bytes(m, kk, group, rows, 1) <= tfr.WINDOW_SMEM_LIMIT
+            and 64 * kk + 4 * m <= tfr.SMEM_LIMIT)
+    assert k > 200
+    args = [_t(x).to(card) for x in _grouped_traps(rng, q, n, m, ctot, dtype, rows)]
+    _check_grouped(args, k, rows, group, f"k={k}")
+
+
 @pytest.mark.cuda
 def test_fused_rerank_paths_counted(card):
     """``PATHS['fused_rerank']`` counts each launch by the path it took: the
@@ -201,9 +310,7 @@ def test_fused_rerank_paths_counted(card):
     rng = np.random.default_rng(5)
     n, m, k = 200_000, 128, 10
     data = _t(rng.integers(0, 256, (n, m)).astype(np.int32)).to(card)
-    dev = card.index or 0
-    rule = tfr.plan_windows(256, n, m, 4, 32_768, k, tfr.l2_bytes(dev),
-                            tfr.resident_blocks(dev, torch.int32, m, k, 1, windowed=True))
+    rule = tfr.plan_call(data, 256, 32_768, k)
     assert rule is not None and rule.windows >= 2
     _build.reset_launches()
     for q, ctot, path in ((256, 32_768, "windowed"), (4, 4096, "sliced")):
@@ -213,8 +320,10 @@ def test_fused_rerank_paths_counted(card):
         got = ops.fused_rerank(data, queries, ids, k)
         _eq(want[0].cpu(), got[0].cpu())
         _eq(want[1].cpu(), got[1].cpu())
-        assert _build.take_path("fused_rerank") == (
-            path, rule.windows if path == "windowed" else 0)
+        took, detail = _build.take_path("fused_rerank")
+        assert took == path
+        assert ops.rerank_attrs(took, detail)["windows"] == (
+            rule.windows if path == "windowed" else 0)
         assert _build.take_path("fused_rerank") is None
     assert _build.PATHS["fused_rerank"] == {"sliced": 1, "windowed": 1}
     assert _build.LAUNCHES["fused_rerank"] == 2

@@ -264,7 +264,9 @@ def test_take_path_is_each_threads_own():
 
 def test_traced_rerank_span_names_the_path(monkeypatch, tmp_path):
     """While tracing, each ``stage_rerank`` span carries ``path`` and
-    ``windows``: "none" and 0 where no kernel ran, as on the CPU."""
+    ``windows``: "none" and 0 where no kernel ran, as on the CPU; and the
+    windowed launch's ``group``, ``row_loads``, ``pairs`` and phase times
+    (``partition_us``, ``items_us``, ``output_us``), zero off it."""
     spec = ds.DatasetSpec("rw-t", n=300, dim=8, universe=32, num_clusters=3)
     data = ds.make_dataset(spec)
     queries = ds.make_queries(spec, data, 8)
@@ -280,3 +282,225 @@ def test_traced_rerank_span_names_the_path(monkeypatch, tmp_path):
     spans = [r for r in trender.load_spans(str(tmp_path)) if r["name"] == "stage_rerank"]
     assert spans
     assert {(r["args"]["path"], r["args"]["windows"]) for r in spans} == {("none", 0)}
+    for r in spans:
+        assert {key: r["args"][key] for key in ("group", "row_loads", "pairs", "partition_us",
+                                                "items_us", "output_us")} == {
+            "group": 0, "row_loads": 0, "pairs": 0, "partition_us": 0.0, "items_us": 0.0,
+            "output_us": 0.0}
+
+
+def _wrap32(v):
+    return ((v + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def _grouped_model(data, queries, ids, k, shift, part, group, reverse=False):
+    """The kernel's grouped windowed path on the CPU: phase 1's partition,
+    then (group, window) items in window-major order (``reverse``: the
+    opposite order), each on the running lists as they stand: the items'
+    ids set one (row, query) bit per distinct pair, the named rows in order
+    each with its queries in order, the L1 sum of each pair wrapped to
+    int32, each query's keys kept below its running list's worst when the
+    item began, the k smallest of them merged into the running list (the
+    first k unique keys of the union).  Returns (d, i) and the counters
+    (row loads, pairs)."""
+    n = data.shape[0]
+    x = data.numpy().astype(np.int64)
+    qv = queries.numpy().astype(np.int64)
+    q = ids.shape[0]
+    new, offsets = _partition(ids, n, shift, part)
+    windows = offsets.shape[2] - 1
+    running = [[] for _ in range(q)]   # sorted unique keys, at most k
+    loads = pairs = 0
+    items = [(g0, w) for w in range(windows) for g0 in range(0, q, group)]
+    for g0, w in (items[::-1] if reverse else items):
+        got = _window_ids(new[g0:g0 + group], offsets[g0:g0 + group], part, w).numpy()
+        named = {}
+        for j, row in enumerate(got):
+            for r in row[row >= 0].tolist():
+                named.setdefault(r, set()).add(j)
+        keys = {j: [] for j in range(got.shape[0])}
+        for r in sorted(named):
+            loads += 1
+            for j in sorted(named[r]):
+                pairs += 1
+                d = _wrap32(int(np.abs(x[r] - qv[g0 + j]).sum()))
+                keys[j].append((d << 32) | r)
+        for j, ks in keys.items():
+            run = running[g0 + j]
+            bound = run[-1] if len(run) == k else _EMPTY
+            mine = sorted(set(kk for kk in ks if kk < bound))[:k]
+            running[g0 + j] = sorted(set(run) | set(mine))[:k]
+    d = torch.full((q, k), tfr.BIG_DIST, dtype=torch.int32)
+    i = torch.full((q, k), -1, dtype=torch.int32)
+    for r, run in enumerate(running):
+        for c, key in enumerate(run):
+            d[r, c] = key >> 32
+            i[r, c] = key & 0xFFFFFFFF
+    return (d, i), (loads, pairs)
+
+
+def _check_grouped(data, queries, ids, k, shift, part, group):
+    n = data.shape[0]
+    want = tfr.fused_rerank_plain(data, queries, ids, k)
+    distinct = sum(int(np.unique(r[(r >= 0) & (r < n)]).size) for r in ids.numpy())
+    for reverse in (False, True):
+        (d, i), (loads, pairs) = _grouped_model(data, queries, ids, k, shift, part, group, reverse)
+        assert torch.equal(want[0], d) and torch.equal(want[1], i)
+        assert pairs == distinct and loads <= pairs
+
+
+@pytest.mark.parametrize("group", [2, 3, tfr.WINDOW_GROUP_MAX])
+@pytest.mark.parametrize("shift", [1, 6])
+@pytest.mark.parametrize("name", sorted(KERNEL_RERANK_CASES))
+def test_grouped_model_matches_plain(name, shift, group):
+    """A plain model of the (group, window) items, at groups of two, three
+    (which divides few of the cases' Q) and the most, in either item order,
+    equals ``fused_rerank_plain`` bit for bit, the wrapped int32 sum, the
+    ties and the repeated ids included; each distinct (query, id) pair is
+    computed once."""
+    data, queries, ids, k = KERNEL_RERANK_CASES[name]
+    _check_grouped(*(torch.from_numpy(np.ascontiguousarray(x)) for x in (data, queries, ids)),
+                   k, shift, 64, group)
+
+
+def test_grouped_model_on_the_traps():
+    """Ids out of range (-1, n), a row every query names, a query naming one
+    row many times, copies in the next partition chunk, a window no query
+    names, a query with no valid id, over two partition chunks."""
+    rng = np.random.default_rng(37)
+    n, m, q, ctot, k, shift, part = 600, 12, 7, 300, 6, 5, 128
+    data = torch.from_numpy(rng.integers(0, 60, (n, m)).astype(np.int32))
+    queries = torch.from_numpy(rng.integers(0, 60, (q, m)).astype(np.int32))
+    ids = rng.integers(-1, n + 1, (q, ctot)).astype(np.int32)
+    ids[:, 150] = 35                           # every query names row 35
+    ids[2, 100:] = 77                          # one row, many times
+    ids[:, part:part + 40] = ids[:, :40]       # copies in the next chunk
+    ids[(ids >= 64) & (ids < 96)] = -1         # window 2 named by no query
+    ids[4] = -1                                # no valid id
+    _check_grouped(data, queries, torch.from_numpy(ids), k, shift, part, 3)
+
+
+def test_grouped_model_counts_one_load_a_named_row():
+    """Two queries naming the same rows: each row is loaded once an item and
+    serves both pairs, so the reuse (pairs / row loads) is 2."""
+    data = torch.arange(40, dtype=torch.int32).reshape(10, 4)
+    queries = torch.zeros((2, 4), dtype=torch.int32)
+    ids = torch.tensor([[1, 2, 3, 8], [3, 2, 1, 8]], dtype=torch.int32)
+    _, (loads, pairs) = _grouped_model(data, queries, ids, 3, 2, 8, 2)
+    assert (loads, pairs) == (4, 8)
+    _, (loads, pairs) = _grouped_model(data, queries, ids, 3, 2, 8, 1)
+    assert (loads, pairs) == (8, 8)
+
+
+# (q, n, m, itemsize, ctot, k) and the G the rule gives on an H100
+@pytest.mark.parametrize("shape,want", [
+    ((1024, 1_000_000, 960, 4, 131_072, 10), 48),     # gist1m.bulk1024 (measured best)
+    ((1024, 1_000_000, 960, 4, 205_824, 10), 47),     # its top rung: 26 chunks' segments
+    ((1024, 50_000_000, 128, 4, 262_144, 10), 1),     # sift50m.bulk1024: 512-byte rows
+    ((1024, 50_000_000, 128, 4, 411_648, 10), 1),     # its top rung
+    ((1024, 25_000_000, 128, 4, 411_648, 10), 1),     # bigann100m.dist4
+    ((64, 50_000_000, 128, 4, 262_144, 10), 1),       # sift50m.online64
+    ((1024, 1_000_000, 960, 2, 131_072, 10), 1),      # int16 rows
+    ((1024, 1_000_000, 256, 4, 131_072, 10), 1),      # 1,024-byte rows
+    ((1024, 1_000_000, 512, 4, 131_072, 10), 64),     # 2,048-byte rows, reuse 8.4
+    ((1024, 4_000_000, 512, 4, 131_072, 10), 1),      # ... reuse 2.4: 4,870 bytes saved
+    ((1024, 8_000_000, 960, 4, 131_072, 10), 48),     # reuse 1.44: 5,530 bytes saved
+    ((8, 1_000_000, 960, 4, 131_072, 10), 8),         # G <= Q
+    ((1, 1_000_000, 960, 4, 131_072, 10), 1),
+    ((1024, 1_000_000, 1032, 4, 131_072, 10), 1),     # wider than a lane's 32 values
+    ((1024, 1_000_000, 960, 4, 131_072, 400), 13),    # long lists take the room
+])
+def test_plan_group_rule(shape, want):
+    q, n, m, itemsize, ctot, k = shape
+    g = tfr.plan_group(*shape, tfr.WINDOW_SMEM_LIMIT)
+    assert g == want
+    assert 1 <= g <= max(1, min(q, tfr.WINDOW_GROUP_MAX))
+    chunks = -(-ctot // tfr.WINDOW_PART)
+    if g > 1:
+        assert tfr.group_smem_bytes(m, k, g, tfr.GROUP_ROWS_MAX, chunks) <= tfr.WINDOW_SMEM_LIMIT
+        assert (g == min(q, tfr.WINDOW_GROUP_MAX) or tfr.group_smem_bytes(
+            m, k, g + 1, tfr.GROUP_ROWS_MAX, chunks) > tfr.WINDOW_SMEM_LIMIT)
+        assert tfr.group_reuse(g, ctot / n) * m * itemsize >= tfr.WINDOW_GROUP_BYTES
+
+
+def test_plan_group_threshold_edge():
+    """Just below the bytes a row load must save the rule keeps G = 1; just
+    above it groups."""
+    q, m, ctot, k = 1024, 960, 131_072, 10
+    g = tfr.plan_group(q, 1_000_000, m, 4, ctot, k, tfr.WINDOW_SMEM_LIMIT)
+    saved = lambda n: tfr.group_reuse(g, ctot / n) * m * 4
+    lo, hi = 1_000_000, 2_000_000_000
+    while hi - lo > 1:                          # the largest n that still groups
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if saved(mid) >= tfr.WINDOW_GROUP_BYTES else (lo, mid)
+    assert tfr.plan_group(q, lo, m, 4, ctot, k, tfr.WINDOW_SMEM_LIMIT) == g
+    assert tfr.plan_group(q, hi, m, 4, ctot, k, tfr.WINDOW_SMEM_LIMIT) == 1
+
+
+@pytest.mark.parametrize("shape,group,want", [
+    ((1024, 1_000_000, 960, 4, 131_072, 10), 48, (12, 245, 16, 8_146_960, 22 * 245)),
+    ((1024, 1_000_000, 960, 4, 205_824, 10), 47, (12, 245, 26, 13_185_040, 22 * 245)),
+    ((1000, 1_000_000, 960, 4, 131_072, 10), 48, (12, 245, 16, 7_956_016, 21 * 245)),
+    ((64, 20_000, 128, 4, 8_192, 10), 64, (12, 5, 1, 6_160, 5)),
+    ((1024, 50_000_000, 128, 4, 262_144, 10), 48, None),   # 12,208 windows > MAX_WINDOWS
+    ((1024, 4_000, 960, 4, 131_072, 10), 48, None),        # one window
+    ((1024, 1_000_000, 960, 4, 131_072, 10), 64, None),    # the queries overflow
+])
+def test_plan_windows_grouped(shape, group, want):
+    """Grouped windows hold GROUP_ROWS_MAX rows; the workspace is the
+    (query, window) path's, to the byte; the items are ceil(Q / G) x
+    windows."""
+    plan = tfr.plan_windows(*shape, L2_H100, G_H100, group=group)
+    if want is None:
+        assert plan is None
+        return
+    q, n, m, itemsize, ctot, k = shape
+    assert (plan.shift, plan.windows, plan.chunks, plan.workspace_bytes, plan.items(q)) == want
+    assert plan.group == group and plan.rows == tfr.GROUP_ROWS_MAX
+    assert plan.workspace_bytes == tfr.window_workspace_bytes(q, k, plan.windows, plan.chunks)
+    assert tfr.group_smem_bytes(m, k, group, plan.rows, plan.chunks) <= tfr.WINDOW_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("rows,group,m,k", [
+    (8192, 2, 8, 5),              # more rows than a grouped window's masks
+    (64, tfr.WINDOW_GROUP_MAX + 1, 8, 5),
+    (64, 2, tfr.GROUP_DIM_MAX + 4, 5),
+    (64, 64, 960, 10),            # the group's queries overflow shared memory
+])
+def test_plan_windows_grouped_refuses(rows, group, m, k):
+    with pytest.raises(ValueError):
+        tfr.plan_windows(70, 1000, m, 4, 100, k, 0, 0, rows, group)
+
+
+@pytest.mark.parametrize("m,k,group,rows,chunks,want", [
+    (960, 10, 48, 4096, 16, 230_276), (960, 10, 47, 4096, 26, 229_984),
+    (128, 10, 64, 4096, 1, 74_564), (8, 5, 2, 64, 1, 41_024)])
+def test_group_smem_bytes(m, k, group, rows, chunks, want):
+    assert tfr.group_smem_bytes(m, k, group, rows, chunks) == want
+
+
+def test_rerank_attrs_read_the_window_counters():
+    """A windowed launch's ``take_path`` detail (windows, group, its stats
+    words) gives ``stage_rerank`` its windows, group, row loads, pairs and
+    the phase times between block 0's stamps (ns to us); any other path
+    gives zeros."""
+    stats = torch.tensor([19_704_822, 50_525_072, 1_000, 1_013_000, 18_195_000, 18_195_500])
+    _build.take_path("fused_rerank")
+    _build.count_path("fused_rerank", "windowed", (245, 48, stats))
+    assert tfr.rerank_attrs(*_build.take_path("fused_rerank")) == {
+        "windows": 245, "group": 48, "row_loads": 19_704_822, "pairs": 50_525_072,
+        "partition_us": 1012.0, "items_us": 17182.0, "output_us": 0.5}
+    assert _build.take_path("fused_rerank") is None
+    zeros = {"windows": 0, "group": 0, "row_loads": 0, "pairs": 0, "partition_us": 0.0,
+             "items_us": 0.0, "output_us": 0.0}
+    for path in ("sliced", "none"):
+        assert ops.rerank_attrs(path, 0) == zeros
+
+
+@pytest.mark.parametrize("rows,group", [(None, 48), (64, 2), (4096, tfr.WINDOW_GROUP_MAX)])
+def test_plan_windows_grouped_refuses_int16_rows(rows, group):
+    """Grouped items take int32 rows only (int16 rows are never grouped,
+    and the kernel is built for int32 alone)."""
+    assert tfr.plan_group(1024, 1_000_000, 960, 2, 131_072, 10, tfr.WINDOW_SMEM_LIMIT) == 1
+    with pytest.raises(ValueError, match="int32"):
+        tfr.plan_windows(1024, 1_000_000, 128, 2, 131_072, 10, 0, 0, rows, group)
